@@ -1,0 +1,128 @@
+"""Adam with Basis Rotation (paper Algorithm 1) — the core contribution.
+Port of ``repro/core/basis_rotation.py``.
+
+Per rotatable weight matrix W (m x n):
+    G_t  <- grad                                  (original space)
+    M_t  <- b1 M_{t-1} + (1-b1) G_t               (original space, Appendix G)
+    if t % freq == 0:  U,V <- Eigenbasis-Estimation(G_t, M_t, U, V)
+    G~ <- U^T G V ; M~ <- U^T M V                 (rotate at use time)
+    V~_t <- b2 V~_{t-1} + (1-b2) G~^2             (rotated second moment)
+    W <- W - lr * U ( M~ / sqrt(V~ + eps) ) V^T
+
+Non-rotatable leaves (embeddings, norms, biases, 1-D params) take plain Adam.
+State is a list of per-leaf dicts in the parameter dict's leaf order. The
+rotated ``v`` lives in the eigenbasis and is never rotated back.
+
+``freq`` is one int for every leaf or one int per leaf (stage-aware
+allocation). A period <= 0 or >= ``stage_aware.NEVER`` never refreshes.
+The refresh is a host-side ``if`` on the host step, and the Fisher EMAs
+L/R advance only on refresh steps, as under the reference's ``lax.cond``.
+Per-stage tuple periods over stage-stacked leaves come with the SPMD engine.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Union
+
+import torch
+
+from repro_torch.core.layout import LeafPlan, build_layout
+from repro_torch.core.rotation import batched_eye, refresh_basis, rotate, unrotate
+from repro_torch.core.stage_aware import NEVER
+from repro_torch.optim.base import Optimizer, Schedule, bias_correction
+
+
+def _init_leaf(p: torch.Tensor, plan: LeafPlan, source: str) -> Dict[str, torch.Tensor]:
+    st = {
+        "m": torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        "v": torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+    }
+    if not plan.rotate:
+        return st
+    batch = tuple(p.shape[:-2])
+    m, n = p.shape[-2], p.shape[-1]
+    if plan.left:
+        st["U"] = batched_eye(m, batch, p.device)
+        if source == "2nd":
+            st["L"] = torch.zeros(batch + (m, m), dtype=torch.float32, device=p.device)
+    if plan.right:
+        st["V"] = batched_eye(n, batch, p.device)
+        if source == "2nd":
+            st["R"] = torch.zeros(batch + (n, n), dtype=torch.float32, device=p.device)
+    return st
+
+
+def basis_rotation_adam(
+    schedule: Schedule,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    eps: float = 1e-8,
+    source: str = "2nd",
+    geometry: str = "bilateral",
+    freq: Union[int, Sequence[int]] = 10,
+    weight_decay: float = 0.0,
+    min_dim: int = 8,
+    use_kernels: bool = False,
+) -> Optimizer:
+    if source not in ("1st", "2nd") or geometry not in ("unilateral", "bilateral"):
+        raise ValueError(f"unknown source {source!r} or geometry {geometry!r}")
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+    else:
+        kops = None
+
+    def init(params):
+        layout = build_layout(params, geometry, min_dim)
+        return {"leaves": [_init_leaf(p, pl, source)
+                           for p, pl in zip(params.values(), layout)]}
+
+    def update(grads, state, params, step: int):
+        layout = build_layout(params, geometry, min_dim)
+        if isinstance(freq, int):
+            freqs: List[int] = [freq] * len(layout)
+        else:
+            freqs = [int(f) for f in freq]
+            if len(freqs) != len(layout):
+                raise ValueError("freq list must match leaf count")
+        lr = schedule(step)
+        bc1, bc2 = bias_correction(beta1, step), bias_correction(beta2, step)
+
+        new_leaves, updates = [], {}
+        for (k, g), st, plan, f in zip(grads.items(), state["leaves"], layout, freqs):
+            g = g.float()
+            m = beta1 * st["m"] + (1 - beta1) * g
+            nst = dict(st)
+            nst["m"] = m
+            if plan.rotate:
+                U, V, L, R = st.get("U"), st.get("V"), st.get("L"), st.get("R")
+                if 0 < f < NEVER and step % f == 0:
+                    U, V, L, R = refresh_basis(g, m, U, V, L, R, source, beta2)
+                if kops is not None:
+                    g_rot = kops.two_sided_rotate(g, U, V, transpose=True)
+                    m_rot = kops.two_sided_rotate(m, U, V, transpose=True)
+                    step_rot, v = kops.adam_scale(g_rot, m_rot, st["v"], beta2, eps, bc1, bc2)
+                    upd = -lr * kops.two_sided_rotate(step_rot, U, V, transpose=False)
+                else:
+                    g_rot = rotate(g, U, V)
+                    m_rot = rotate(m, U, V)
+                    v = beta2 * st["v"] + (1 - beta2) * torch.square(g_rot)
+                    step_rot = (m_rot / bc1) / (torch.sqrt(v / bc2) + eps)
+                    upd = -lr * unrotate(step_rot, U, V)
+                nst["v"] = v
+                for name, val in (("U", U), ("V", V), ("L", L), ("R", R)):
+                    if val is not None:
+                        nst[name] = val
+            else:
+                v = beta2 * st["v"] + (1 - beta2) * torch.square(g)
+                upd = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                nst["v"] = v
+            updates[k] = upd
+            new_leaves.append(nst)
+
+        if weight_decay:
+            # decoupled weight decay on matrices only (norms/biases exempt)
+            for k, p in params.items():
+                if p.ndim >= 2:
+                    updates[k] = updates[k] - lr * weight_decay * p.detach().float()
+        return updates, {"leaves": new_leaves}
+
+    return Optimizer(init, update)

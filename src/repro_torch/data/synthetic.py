@@ -1,0 +1,64 @@
+"""Deterministic synthetic data pipeline (port of ``repro/data/synthetic.py``).
+
+Tokens follow a Zipf unigram prior modulated by a low-rank order-1 Markov
+transition. Sampling stays in numpy with the reference's ``RandomState``
+draws, so a fixed seed gives bit-identical token streams in both packages;
+only the finished batch becomes a tensor on the requested device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+class SyntheticLM:
+    """Order-1 Markov token stream with planted low-rank structure.
+
+    P(next | cur) = softmax(log zipf + A[cur] @ B), computed per row for the
+    batch's current tokens; the dense (V, V) table is never built."""
+
+    def __init__(self, vocab: int, seed: int = 0, rank: int = 8, zipf_a: float = 1.2):
+        rng = np.random.RandomState(seed)
+        self.vocab = vocab
+        base = 1.0 / np.arange(1, vocab + 1) ** zipf_a
+        self.log_base = np.log(base / base.sum())
+        self.A = (rng.randn(vocab, rank) * 2.0).astype(np.float32)
+        self.B = (rng.randn(rank, vocab) * 2.0 / np.sqrt(rank)).astype(np.float32)
+        self.rng = np.random.RandomState(seed + 1)
+
+    def _rows(self, cur: np.ndarray) -> np.ndarray:
+        """Transition rows P(. | cur) for a vector of current tokens."""
+        logits = self.log_base[None, :] + self.A[cur] @ self.B
+        p = np.exp(logits - logits.max(axis=1, keepdims=True))
+        return p / p.sum(axis=1, keepdims=True)
+
+    def sample(self, batch: int, seq_len: int) -> np.ndarray:
+        out = np.empty((batch, seq_len + 1), np.int32)
+        out[:, 0] = self.rng.randint(0, self.vocab, size=batch)
+        for t in range(seq_len):
+            cum = np.cumsum(self._rows(out[:, t]), axis=1)
+            u = self.rng.rand(batch, 1)
+            # first index with cum > u, clamped against float rounding at the
+            # top of the cumulative sum
+            idx = (cum <= u).sum(axis=1)
+            out[:, t + 1] = np.minimum(idx, self.vocab - 1)
+        return out
+
+
+def batches(
+    cfg: ModelConfig,
+    batch_size: int,
+    seq_len: int,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Infinite iterator of {tokens, labels} int64 batches on ``device``."""
+    stream = SyntheticLM(cfg.vocab_size, seed)
+    while True:
+        toks = torch.from_numpy(stream.sample(batch_size, seq_len).astype(np.int64))
+        toks = toks.to(device)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,0 +1,170 @@
+"""End-to-end training driver. Port of ``repro/launch/train.py``, sim backend.
+
+Single-program simulation of K-stage asynchronous pipeline parallelism, the
+paper's experimental setup: staleness is imposed exactly by the per-leaf
+gradient FIFO. With ``--use-kernels`` every rotation product and every
+rotated Adam step runs in the hand-written CUDA kernels (``kernels/csrc``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch paper_95m --stages 8 --optimizer basis_rotation \\
+        --steps 300 --batch 8 --seq 256 --lr 1e-3 --use-kernels
+
+It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
+asked for but absent. The reference's flags are accepted; those whose
+feature is not ported yet exit with a message that says so.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+from typing import Dict, List, Optional
+
+import torch
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper_95m")
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--backend", default="sim", choices=["sim", "spmd"])
+    ap.add_argument("--stages", type=int, default=8)
+    ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--data-par", type=int, default=0)
+    ap.add_argument("--microbatches", type=int, default=0)
+    ap.add_argument("--schedule", default="fill_drain", choices=["fill_drain", "1f1b"])
+    ap.add_argument("--optimizer", default="basis_rotation")
+    ap.add_argument("--rotation-source", default="2nd", choices=["1st", "2nd"])
+    ap.add_argument("--rotation-geometry", default="bilateral",
+                    choices=["unilateral", "bilateral"])
+    ap.add_argument("--rotation-freq", type=int, default=10)
+    ap.add_argument("--stage-aware", action="store_true")
+    ap.add_argument("--use-kernels", action="store_true",
+                    help="route the optimizer's rotation products and fused "
+                         "Adam scale through the CUDA kernels (their plain "
+                         "PyTorch versions on --device cpu)")
+    ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
+    ap.add_argument("--weight-prediction", action="store_true")
+    ap.add_argument("--no-stash", action="store_true")
+    ap.add_argument("--sync", action="store_true",
+                    help="synchronous gradients: no delay FIFO")
+    ap.add_argument("--data-async", action="store_true")
+    ap.add_argument("--data-delay", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=20)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=200)
+    ap.add_argument("--out", default=None, help="write the loss curve as JSON")
+    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--num-processes", type=int, default=0)
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    unported = {
+        "--backend spmd": args.backend == "spmd",
+        "--precision bf16": args.precision != "f32",
+        "--weight-prediction": args.weight_prediction,
+        "--no-stash": args.no_stash,
+        "--data-async / --data-delay": args.data_async or args.data_delay is not None,
+        "--ckpt-dir": args.ckpt_dir is not None,
+        "--coordinator / --num-processes / --process-id":
+            args.coordinator is not None or args.num_processes > 1 or args.process_id != 0,
+    }
+    for flag, used in unported.items():
+        if used:
+            raise SystemExit(f"{flag} is not yet ported to repro_torch")
+    if args.schedule != "fill_drain":
+        raise SystemExit(
+            "--schedule picks the SPMD tick schedule; the sim backend imposes "
+            "delays directly and has no schedule"
+        )
+    if args.pods != 1 or args.data_par > 1 or args.microbatches:
+        raise SystemExit(
+            "--pods / --data-par / --microbatches describe the spmd topology; "
+            "the sim backend is a single-program simulation"
+        )
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to run on; CUDA unless the caller asks for the CPU."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
+        # the reference's sim path is exact float32: no TF32 anywhere
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def build(args):
+    """The trainer that ``args`` describe: (engine, data iterator, loop config)."""
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+
+    from repro_torch.configs import PRECISION_POLICIES, OptimizerConfig, get_config
+    from repro_torch.data import batches
+    from repro_torch.engine import LoopConfig, SimEngine
+    from repro_torch.models import init_model, param_count, param_leaves
+    from repro_torch.optim.factory import build_optimizer
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = PRECISION_POLICIES[args.precision].apply(cfg.replace(scan_layers=False))
+    if cfg.num_layers % args.stages != 0:
+        if args.smoke:
+            # pad the reduced config up to the nearest depth that both the
+            # pattern and the stage count divide
+            layers = math.lcm(len(cfg.pattern), args.stages)
+            while layers < cfg.num_layers:
+                layers += math.lcm(len(cfg.pattern), args.stages)
+            print(f"smoke: padding {cfg.num_layers} layers -> {layers} "
+                  f"to divide {args.stages} stages")
+            cfg = cfg.replace(num_layers=layers)
+        else:
+            raise SystemExit(f"--stages {args.stages} must divide {cfg.num_layers} layers")
+
+    model = init_model(cfg, seed=args.seed, device=device)
+    print(f"arch={cfg.name} params={param_count(model):,} stages={args.stages} "
+          f"optimizer={args.optimizer} backend={args.backend} device={device}")
+
+    ocfg = OptimizerConfig(
+        name=args.optimizer, learning_rate=args.lr, total_steps=args.steps,
+        rotation_source=args.rotation_source,
+        rotation_geometry=args.rotation_geometry,
+        rotation_freq=args.rotation_freq, stage_aware=args.stage_aware,
+    )
+    opt = build_optimizer(ocfg, param_leaves(model), cfg, num_stages=args.stages,
+                          apply_delay=not args.sync, use_kernels=args.use_kernels)
+    engine = SimEngine(model, opt, grad_clip=1.0)
+    data = batches(cfg, args.batch, args.seq, seed=args.seed, device=device)
+    loop_cfg = LoopConfig(
+        steps=args.steps, log_every=args.log_every, out_path=args.out,
+        out_meta={"arch": cfg.name, "optimizer": args.optimizer,
+                  "stages": args.stages, "backend": args.backend,
+                  "precision": args.precision, "use_kernels": args.use_kernels,
+                  "device": str(device)},
+    )
+    return engine, data, loop_cfg
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Train; returns the losses and the per-step data and step times."""
+    from repro_torch.engine import run_loop
+
+    args = parse_args(argv)
+    engine, data, loop_cfg = build(args)
+    _, losses, timings = run_loop(engine, data, loop_cfg)
+    if losses:
+        print(f"final loss {losses[-1]:.4f}")
+    return {"losses": losses, "data_s": timings.data_s, "step_s": timings.step_s,
+            "tokens_per_step": args.batch * args.seq}
+
+
+if __name__ == "__main__":
+    main()

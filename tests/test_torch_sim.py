@@ -1,0 +1,163 @@
+"""The slice as a whole: the port's sim trainer against the JAX reference's,
+its command line, and the port's import isolation."""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import OptimizerConfig as JOptimizerConfig
+from repro.configs.catalog import get_config as jget_config
+from repro.data.synthetic import batches as jbatches
+from repro.engine import LoopConfig as JLoopConfig
+from repro.engine import SimEngine as JSimEngine
+from repro.engine import run_loop as jrun_loop
+from repro.models.model import init_model as jinit_model
+from repro.optim.factory import build_optimizer as jbuild_optimizer
+from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.configs import OptimizerConfig
+from repro_torch.configs import get_config as tget_config
+from repro_torch.data import batches
+from repro_torch.engine import LoopConfig, SimEngine, run_loop
+from repro_torch.launch import train
+from repro_torch.models import param_leaves
+from repro_torch.optim.factory import build_optimizer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs these files beside others in parallel workers; torch's
+    intra-op threads then fight the other workers for the cores, and these
+    small shapes gain nothing from them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
+def test_sim_trainer_tracks_reference_loss_curve():
+    """paper_95m smoke config, 2 stages (delays 1 and 0), basis rotation
+    refreshing at steps 0 and 10, 12 steps from shared weights on the same
+    stream. The port runs its kernel path (plain versions on the CPU), the
+    reference its XLA path. Tolerances are the reference's own for two
+    implementations of this step (tests/test_engine.py:437-438): wiring
+    errors show in the first losses, QR-refresh roundoff grows slowly."""
+    steps, K, B, S = 12, 2, 4, 32
+    cj = jget_config("paper_95m", smoke=True).replace(scan_layers=False)
+    ct = tget_config("paper_95m", smoke=True).replace(scan_layers=False)
+    params = jinit_model(jax.random.PRNGKey(0), cj)
+    model = params_from_numpy(jax.tree.map(np.asarray, params), ct, "cpu")
+
+    jopt = jbuild_optimizer(JOptimizerConfig(total_steps=steps), params, cj, num_stages=K)
+    jeng = JSimEngine(cj, jopt, grad_clip=1.0)
+    _, want = jrun_loop(jeng, jbatches(cj, B, S, seed=0), JLoopConfig(steps=steps),
+                        state=jeng.init_state(params=params))
+
+    topt = build_optimizer(OptimizerConfig(total_steps=steps), param_leaves(model), ct,
+                           num_stages=K, use_kernels=True)
+    teng = SimEngine(model, topt, grad_clip=1.0)
+    _, got, timings = run_loop(teng, batches(ct, B, S, seed=0, device="cpu"),
+                               LoopConfig(steps=steps))
+
+    assert len(got) == steps and len(timings.step_s) == steps
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    assert max(diffs[:2]) < 2e-3, (got, want)
+    assert max(diffs) < 5e-2, (got, want)
+    assert got[-1] < got[0]
+
+
+def test_train_main_runs_on_cpu(tmp_path):
+    out = tmp_path / "metrics.json"
+    res = train.main(["--smoke", "--stages", "2", "--steps", "3", "--batch", "2",
+                      "--seq", "16", "--use-kernels", "--log-every", "1",
+                      "--out", str(out), "--device", "cpu"])
+    assert len(res["losses"]) == 3 and all(np.isfinite(res["losses"]))
+    assert len(res["step_s"]) == len(res["data_s"]) == 3
+    import json
+
+    saved = json.loads(out.read_text())
+    assert saved["losses"] == res["losses"] and saved["steps_done"] == 3
+
+
+def test_main_path_hands_the_kernels_what_they_take(monkeypatch):
+    """The CUDA wrappers take only contiguous float32 operands and raise on
+    anything else. On the CPU they never check, so this run checks for them,
+    and counts the calls the main path makes: six products and one Adam
+    scale per rotated leaf per step, as the launch counters on the card
+    expect."""
+    from repro_torch.kernels import adam_step, ops
+
+    calls = {"matmul": 0, "adam_scale": 0}
+
+    def strict(name, fn):
+        def wrapped(*tensors, **kw):
+            for x in tensors:
+                if isinstance(x, torch.Tensor):
+                    assert x.dtype == torch.float32 and x.is_contiguous(), name
+            calls[name] += 1
+            return fn(*tensors, **kw)
+        return wrapped
+
+    monkeypatch.setattr(ops, "matmul", strict("matmul", ops.matmul))
+    monkeypatch.setattr(adam_step, "adam_scale", strict("adam_scale", adam_step.adam_scale))
+    steps = 3  # the refresh at step 0, then steps on the refreshed bases
+    train.main(["--smoke", "--stages", "2", "--steps", str(steps), "--batch", "2",
+                "--seq", "16", "--use-kernels", "--log-every", "0", "--device", "cpu"])
+    rotated = 12  # 2 layers x (w_q, w_k, w_v, w_o, w_up, w_down)
+    assert calls == {"matmul": 6 * rotated * steps, "adam_scale": rotated * steps}
+
+
+def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--smoke", "--stages", "2", "--steps", "1"])
+
+
+@pytest.mark.parametrize("flags", [["--backend", "spmd"], ["--precision", "bf16"],
+                                   ["--weight-prediction"], ["--no-stash"],
+                                   ["--data-async"], ["--ckpt-dir", "ck"],
+                                   ["--num-processes", "2"], ["--schedule", "1f1b"]])
+def test_train_main_refuses_unported_flags(flags):
+    with pytest.raises(SystemExit, match="not yet ported|spmd|schedule"):
+        train.main(["--smoke", "--device", "cpu"] + flags)
+
+
+def test_train_main_keeps_the_stage_divisibility_check():
+    with pytest.raises(SystemExit, match="must divide"):
+        train.main(["--stages", "5", "--steps", "1", "--device", "cpu"])
+
+
+ISOLATION_SCRIPT = r"""
+import importlib, importlib.abc, pkgutil, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "jaxlib", "repro") or name.startswith(("jax.", "jaxlib.", "repro.")):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, "src")
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", ISOLATION_SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
