@@ -6,16 +6,25 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, plus ragged and batched shapes, and times
-   kernel, plain version and library call with CUDA events.
-3. Drives the main path through ``repro_torch.launch.train.main``: the
+   shapes the main paths give it, plus ragged, batched and masked shapes,
+   and times kernel, plain version and library call with CUDA events.
+3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
    finite and that every rotation product and rotated Adam step went through
    the kernels, by their launch counts.
-4. Runs the reduced model for a few steps on the card and on the CPU (plain
-   kernel versions) from the same seed, with Adam and with basis rotation
-   through the kernels, and compares the losses.
+4. Holds both SPMD schedules' gradients at full width, through B1-B3, to
+   the whole-model gradient on one batch. Then drives the SPMD path like
+   the sim path: full-width paper_95m on 8 stacked stages with 8
+   microbatches, basis rotation and ``--use-kernels``, under the 1F1B
+   schedule for 12 steps and the fill-drain schedule for 4 (the cosine
+   schedule's length is the step count, so the two curves differ after the
+   first steps). Checks finite losses and the exact launch counts of all
+   five kernels.
+5. Runs the reduced model for a few steps on the card and on the CPU (plain
+   kernel versions) from the same seed, on both backends (and both SPMD
+   schedules), with Adam and with basis rotation through the kernels, and
+   compares the losses.
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -42,6 +51,10 @@ MAIN_ARGS = ["--arch", "paper_95m", "--backend", "sim", "--stages", "8",
              "--batch", "8", "--seq", "256", "--log-every", "1"]
 SMOKE_ARGS = ["--smoke", "--stages", "2", "--steps", "6", "--batch", "4",
               "--seq", "32", "--log-every", "0"]
+SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
+             "--microbatches", "8", "--optimizer", "basis_rotation", "--use-kernels",
+             "--batch", "8", "--seq", "256", "--log-every", "1"]
+SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores, and device memory bandwidth. The SXM part is the default.
@@ -54,6 +67,9 @@ PEAKS = {
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 2 GHz: longer than the host takes to enqueue a timing run
 MATMUL_RTOL, MATMUL_ATOL = 2e-3, 1e-4  # tests/test_kernels.py rotation parity
 ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6  # tests/test_kernels.py fused Adam parity
+FWD_RTOL, FWD_ATOL = 2e-3, 2e-4  # tests/test_kernels.py:87 flash forward parity
+BWD_RTOL, BWD_ATOL = 2e-3, 1e-4  # tests/test_kernels.py:137-142 flash backward parity
+FLASH_PATH = (6, 256, 64)  # (heads, S, dh) of one attention call on the paper_95m path
 
 
 def emit(obj) -> None:
@@ -89,23 +105,30 @@ def time_ms(fn, reps: int = 30, warmup: int = 5):
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(reps)), host_ms
 
 
-def path_products(cfg):
-    """Per-step launch multisets of the main path, from the model's rotation
-    layout: {(M, K, N, trans_a, trans_b): count} and {(R, C): count}."""
+def path_products(cfg, stages: int = 0):
+    """Per-step launch multisets of a path, from the model's rotation layout:
+    {(batch, M, K, N, trans_a, trans_b): count} and {leaf shape: count}.
+    With ``stages``, the SPMD path's stacked layout: one launch per rotated
+    leaf kind, batched over all its layers."""
     from repro_torch.core.layout import build_layout
+    from repro_torch.engine.spmd import opt_leaves, stack_stage_params
     from repro_torch.models import Transformer, param_leaves
 
-    meta = Transformer(cfg.replace(scan_layers=False), device="meta", seed=None)
+    cfg = cfg.replace(scan_layers=False)
+    leaves = param_leaves(Transformer(cfg, device="meta", seed=None))
+    if stages:
+        leaves = opt_leaves(*stack_stage_params(leaves, cfg, stages))
     mm, adam = {}, {}
-    for plan in build_layout(param_leaves(meta), "bilateral"):
+    for plan in build_layout(leaves, "bilateral"):
         if not plan.rotate:
             continue
-        m, n = plan.shape
+        m, n = plan.shape[-2:]
+        b = math.prod(plan.shape[:-2])
         # U^T X V for g and m, then U S V^T: two products each
-        for key, c in (((m, m, n, True, False), 2), ((m, n, n, False, False), 2),
-                       ((m, m, n, False, False), 1), ((m, n, n, False, True), 1)):
+        for key, c in (((b, m, m, n, True, False), 2), ((b, m, n, n, False, False), 2),
+                       ((b, m, m, n, False, False), 1), ((b, m, n, n, False, True), 1)):
             mm[key] = mm.get(key, 0) + c
-        adam[(m, n)] = adam.get((m, n), 0) + 1
+        adam[plan.shape] = adam.get(plan.shape, 0) + 1
     return mm, adam
 
 
@@ -118,6 +141,8 @@ def check_matmul(torch, kmm, peaks):
               (1, 1536, 1536, 384), (1, 1536, 384, 384)]
     flags = [(True, False), (False, False), (False, True)]
     cases = [(s, f, True) for s in shapes for f in flags]
+    # the SPMD path's stacked leaves: one launch batched over the 32 layers
+    cases += [((32,) + s[1:], f, True) for s in shapes for f in flags]
     cases += [((1, 100, 70, 50), f, False) for f in flags + [(True, True)]]
     cases += [((3, 100, 70, 50), (True, False), False), ((4, 96, 80, 72), (False, True), False)]
     for (batch, M, K, N), (ta, tb), timed in cases:
@@ -141,7 +166,8 @@ def check_matmul(torch, kmm, peaks):
             row["ms"], row["host_ms"] = time_ms(lambda: kmm.matmul(a, b, trans_a=ta, trans_b=tb))
             row["plain_ms"], _ = time_ms(lambda: kmm.matmul_plain(a, b, trans_a=ta, trans_b=tb))
             row["library_ms"], _ = time_ms(lambda: torch.matmul(a_lib, b_lib))
-            flops, nbytes = 2.0 * M * N * K, 4.0 * (M * K + K * N + M * N)
+            flops = 2.0 * batch * M * N * K
+            nbytes = 4.0 * batch * (M * K + K * N + M * N)
             row["bound_ms"] = 1e3 * max(flops / peaks[0], nbytes / peaks[1])
             row["tflops"] = flops / row["ms"] / 1e9
         rows.append(row)
@@ -154,7 +180,9 @@ def check_adam(torch, kadam, peaks):
     beta2, eps, bc1, bc2 = 0.999, 1e-8, 1 - 0.9 ** 4, 1 - 0.999 ** 4
     rows, worst = [], 0.0
     cases = [((384, 384), True, False), ((384, 1536), True, False),
-             ((1536, 384), True, False), ((97, 33), False, False), ((384, 384), False, True)]
+             ((1536, 384), True, False), ((97, 33), False, False), ((384, 384), False, True),
+             ((8, 4, 384, 384), True, False), ((8, 4, 384, 1536), True, False),
+             ((8, 4, 1536, 384), True, False)]
     for shape, timed, zero_v in cases:
         g = torch.randn(shape, device="cuda", generator=gen) * 1e-3
         m = torch.randn(shape, device="cuda", generator=gen) * 1e-3
@@ -182,6 +210,124 @@ def check_adam(torch, kadam, peaks):
     return rows, worst
 
 
+def flash_work(BH: int, S: int, dh: int, window=None):
+    """Operations and bytes the three flash kernels need at one shape:
+    products over the visible (causal, windowed) entries only, each input
+    read once and each output written once. Returns {kernel: (flops, bytes)}."""
+    nnz = sum(min(i + 1, window or i + 1) for i in range(S))
+    head, row = 4.0 * BH * S * dh, 4.0 * BH * S  # float32 bytes of a (S, dh) and a (S,) per head
+    return {"flash_fwd": (4.0 * dh * nnz * BH, 3 * head + head + row),       # QK, PV; O and L
+            "flash_bwd_dq": (6.0 * dh * nnz * BH, 4 * head + 2 * row + head),  # QK, dO V, dS K
+            "flash_bwd_dkv": (8.0 * dh * nnz * BH, 4 * head + 2 * row + 2 * head)}
+
+
+def check_flash(torch, kflash, peaks):
+    """B1-B3 against their plain versions: the path shape, the reference's
+    sweeps (windows None, 100, 32; S 256, 128, 200, 100) and a fully-masked
+    row case. Times all three, their plain versions and PyTorch's SDPA
+    forward and backward at the path shape. Returns (rows, errs, timing)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, errs = [], {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = [(FLASH_PATH, None, None)]
+    cases += [((6, S, 64), w, None) for S in (256, 128) for w in (None, 100, 32)]
+    cases += [((2, S, 32), w, None) for S in (200, 100) for w in (None, 100, 32, 16)]
+    cases += [((1, 128, 16), 8, 100)]  # keys past 100 masked: rows >= 107 see none
+    for (BH, S, dh), window, seq_len in cases:
+        q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen) for _ in range(4))
+        o, L = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
+        o_p, L_p = kflash.flash_fwd_plain(q, k, v, window=window, seq_len=seq_len)
+        D = (do * o).sum(-1)
+        dq = kflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+        dq_p = kflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window)
+        dk, dv = kflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+        dk_p, dv_p = kflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
+        torch.cuda.synchronize()
+        row = {"shape": [BH, S, dh], "window": window, "seq_len": seq_len}
+        for name, pairs, (rtol, atol) in (
+                ("flash_fwd", ((o, o_p), (L, L_p)), (FWD_RTOL, FWD_ATOL)),
+                ("flash_bwd_dq", ((dq, dq_p),), (BWD_RTOL, BWD_ATOL)),
+                ("flash_bwd_dkv", ((dk, dk_p), (dv, dv_p)), (BWD_RTOL, BWD_ATOL))):
+            if seq_len is not None and name != "flash_fwd":
+                continue  # the backward always sees every key
+            err = max((a - b).abs().max().item() for a, b in pairs)
+            row[name + "_max_abs_err"] = err
+            errs[name] = max(errs[name], err)
+            if not all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in pairs):
+                raise AssertionError(f"{name} {(BH, S, dh)} window={window}: max abs err {err}")
+        if seq_len is not None:
+            dead = seq_len - 1 + window
+            if not (o[:, dead:].abs().max().item() == 0.0 and bool((L[:, dead:] <= -1e29).all())):
+                raise AssertionError("flash_fwd: fully-masked rows are not 0 with L = -1e30")
+            row["fully_masked_rows_zero"] = True
+        rows.append(row)
+
+    # timing at the path shape: one attention call of one microbatch
+    BH, S, dh = FLASH_PATH
+    q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen) for _ in range(4))
+    o, L = kflash.flash_fwd(q, k, v)
+    D = (do * o).sum(-1)
+    timing = {}
+    for name, fn, plain in (
+            ("flash_fwd", lambda: kflash.flash_fwd(q, k, v),
+             lambda: kflash.flash_fwd_plain(q, k, v)),
+            ("flash_bwd_dq", lambda: kflash.flash_bwd_dq(q, k, v, do, L, D),
+             lambda: kflash.flash_bwd_dq_plain(q, k, v, do, L, D)),
+            ("flash_bwd_dkv", lambda: kflash.flash_bwd_dkv(q, k, v, do, L, D),
+             lambda: kflash.flash_bwd_dkv_plain(q, k, v, do, L, D))):
+        t = timing[name] = {}
+        t["ms"], t["host_ms"] = time_ms(fn)
+        t["plain_ms"], _ = time_ms(plain)
+    q4, k4, v4 = (x.reshape(1, BH, S, dh).clone().requires_grad_(True) for x in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(1, BH, S, dh)
+    sdpa_bwd, _ = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True))
+    timing["flash_fwd"]["library_ms"] = sdpa_fwd
+    # SDPA's backward computes dQ, dK and dV in one call: B2 and B3 together
+    timing["flash_bwd_dq"]["library_ms"] = timing["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
+    for name, (flops, nbytes) in flash_work(BH, S, dh).items():
+        t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+        timing[name]["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        timing[name]["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return rows, errs, timing
+
+
+def check_schedule_grads(torch, cfg, K, M, rtol=1e-5):
+    """The main path's correctness at full width: on one batch, the
+    gradient of each SPMD schedule (through B1-B3) against the whole-model
+    gradient of the sim path's dense forward, leaf by leaf, as
+    ``||g - g_ref|| / ||g_ref||``. The CPU tests hold the same to 1e-5 at
+    smoke size against the reference (tests/test_torch_spmd.py)."""
+    from repro_torch.data import batches
+    from repro_torch.engine.schedules import make_schedule_grad
+    from repro_torch.engine.spmd import stack_stage_params, unstack_stage_params
+    from repro_torch.models import Transformer, loss_fn, param_leaves
+
+    cfg = cfg.replace(scan_layers=False)
+    model = Transformer(cfg, device="cuda", seed=0)
+    batch = next(batches(cfg, 8, 256, seed=0, device="cuda"))
+    loss, _ = loss_fn(model, batch)
+    leaves = param_leaves(model)
+    ref = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    loss = loss.detach()
+    stacked, shared = stack_stage_params({k: v.detach() for k, v in leaves.items()}, cfg, K)
+    mbatch = {k: v.reshape(M, -1, v.shape[-1]) for k, v in batch.items()}
+    out = {"phase": "spmd_gradients", "whole_model_loss": float(loss)}
+    for schedule in SPMD_STEPS:
+        kcfg = cfg.replace(use_kernels=True)
+        l, (gs, gsh) = make_schedule_grad(kcfg, K, M, schedule)(stacked, shared, mbatch)
+        g = unstack_stage_params(gs, gsh)
+        rel = max(float((g[k] - ref[k]).norm() / ref[k].norm().clamp(min=1e-30)) for k in ref)
+        out[schedule] = {"loss": float(l), "max_rel_grad_err": rel}
+        if not (rel < rtol and abs(float(l) - float(loss)) < rtol * float(loss)):
+            raise AssertionError(f"{schedule} gradient: max relative error {rel}, "
+                                 f"loss {float(l)} vs {float(loss)}")
+    return out
+
+
 def per_step(rows, counts, key_of):
     """Sum a per-launch measurement over one step's launch multiset."""
     by_key = {key_of(r): r for r in rows if "ms" in r}
@@ -192,6 +338,45 @@ def per_step(rows, counts, key_of):
             if f in r:
                 total[f] += n * r[f]
     return total
+
+
+def zero_counts(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_counts(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def run_path(train, torch, kernels, args, want):
+    """Drive one path through the launcher with every launch count zeroed
+    just before and read just after; check finite losses and the counts."""
+    steps = int(args[args.index("--steps") + 1])
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    result = train.main(args)
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    losses = result["losses"]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{' '.join(args)}: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{' '.join(args)}: kernel launches {launches}, expected {want}")
+    step_s, data_s = result["step_s"], result["data_s"]
+    tokens = result["tokens_per_step"]
+    refresh = [t for t in range(steps) if t % 10 == 0]
+    plain_steps = [s for t, s in enumerate(step_s) if t not in refresh] or step_s
+    return {"args": " ".join(args), "losses": losses, "launches": launches,
+            "step_s": step_s, "data_s": data_s,
+            "median_step_s": statistics.median(step_s),
+            "median_step_s_no_refresh": statistics.median(plain_steps),
+            "refresh_step_s": [step_s[t] for t in refresh],
+            "median_data_s": statistics.median(data_s),
+            "tokens_per_s_step": tokens / statistics.median(step_s),
+            "tokens_per_s_wall": tokens * steps / wall,
+            "wall_s": wall, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def main() -> int:
@@ -208,9 +393,13 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import adam_step as kadam
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import matmul as kmm
     from repro_torch.launch import train
 
+    kernels = {"flash_fwd": kflash.flash_fwd, "flash_bwd_dq": kflash.flash_bwd_dq,
+               "flash_bwd_dkv": kflash.flash_bwd_dkv, "matmul": kmm.matmul,
+               "adam_scale": kadam.adam_scale}
     OUT_DIR.mkdir(exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -233,73 +422,75 @@ def main() -> int:
     # phase 2: each kernel against its plain version
     mm_rows, mm_err = check_matmul(torch, kmm, peaks)
     adam_rows, adam_err = check_adam(torch, kadam, peaks)
-    (OUT_DIR / "chip_smoke_kernels.json").write_text(
-        json.dumps({"matmul": mm_rows, "adam_scale": adam_rows}, indent=1))
+    flash_rows, flash_errs, flash_t = check_flash(torch, kflash, peaks)
+    (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
+        {"matmul": mm_rows, "adam_scale": adam_rows, "flash": flash_rows,
+         "flash_timing_per_launch": flash_t}, indent=1))
     emit({"phase": "kernels", "matmul_cases": len(mm_rows), "matmul_max_abs_err": mm_err,
           "adam_cases": len(adam_rows), "adam_max_abs_err": adam_err,
           "adam_max_rel_err": max(r["max_rel_err"] for r in adam_rows),
-          "adam_bitwise_equal": all(r["bitwise_equal"] for r in adam_rows)})
+          "adam_bitwise_equal": all(r["bitwise_equal"] for r in adam_rows),
+          "flash_cases": len(flash_rows), "flash_max_abs_err": flash_errs,
+          "flash_ms_per_launch": {k: {f: t[f] for f in ("ms", "plain_ms", "library_ms",
+                                                        "bound_ms", "host_ms")}
+                                  for k, t in flash_t.items()}})
 
-    # phase 3: the main path, counts zeroed just before and read just after
+    # phase 3: the sim path
     cfg = get_config("paper_95m")
-    mm_counts, adam_counts = path_products(cfg)
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])
-    torch.cuda.reset_peak_memory_stats()
-    kmm.matmul.launches = 0
-    kadam.adam_scale.launches = 0
-    t0 = time.perf_counter()
-    result = train.main(MAIN_ARGS)
-    wall = time.perf_counter() - t0
-    launches = {"matmul": kmm.matmul.launches, "adam_scale": kadam.adam_scale.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = result["losses"]
-    want = {"matmul": steps * sum(mm_counts.values()),
-            "adam_scale": steps * sum(adam_counts.values())}
-    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"main path losses: {losses}")
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
-    step_s, data_s = result["step_s"], result["data_s"]
-    tokens = result["tokens_per_step"]
-    refresh = [t for t in range(steps) if t % 10 == 0]
-    plain_steps = [s for t, s in enumerate(step_s) if t not in refresh]
-    emit({"phase": "main_path", "args": " ".join(MAIN_ARGS), "losses": losses,
-          "launches": launches, "step_s": step_s, "data_s": data_s,
-          "median_step_s": statistics.median(step_s),
-          "median_step_s_no_refresh": statistics.median(plain_steps),
-          "refresh_step_s": [step_s[t] for t in refresh],
-          "median_data_s": statistics.median(data_s),
-          "tokens_per_s_step": tokens / statistics.median(step_s),
-          "tokens_per_s_wall": tokens * steps / wall,
-          "wall_s": wall, "peak_mem_gb": peak_gb})
+    mm_counts, adam_counts = path_products(cfg)
+    want = {k: 0 for k in kernels}
+    want.update(matmul=steps * sum(mm_counts.values()),
+                adam_scale=steps * sum(adam_counts.values()))
+    sim = run_path(train, torch, kernels, MAIN_ARGS, want)
+    emit({"phase": "main_path", **sim})
 
-    # phase 4: the reduced model on the card against the CPU, same seed.
+    # phase 4: the SPMD path, both schedules; M microbatches over L layers
+    K, M, L = 8, 8, cfg.num_layers
+    smm_counts, sadam_counts = path_products(cfg, stages=K)
+    emit(check_schedule_grads(torch, cfg, K, M))
+    torch.cuda.empty_cache()
+    spmd = {}
+    for schedule, n in SPMD_STEPS.items():
+        args = SPMD_ARGS + ["--schedule", schedule, "--steps", str(n)]
+        fwd = 2 if schedule == "1f1b" else 1  # 1F1B recomputes in its backward
+        want = {"flash_fwd": n * fwd * M * L, "flash_bwd_dq": n * M * L,
+                "flash_bwd_dkv": n * M * L, "matmul": n * sum(smm_counts.values()),
+                "adam_scale": n * sum(sadam_counts.values())}
+        spmd[schedule] = run_path(train, torch, kernels, args, want)
+        emit({"phase": f"spmd_{schedule}", **spmd[schedule]})
+
+    # phase 5: the reduced model on the card against the CPU, same seed.
     # Adam has no QR: the devices differ only in float32 summation order
     # (measured ~1e-6 apart). Basis rotation: the refresh's QR of
     # rank-deficient grams fixes the basis past the rank by roundoff alone,
     # so the runs are held to the reference's own tolerance for two
     # implementations of this step (tests/test_engine.py:437-438).
-    for opt, first2_tol, all_tol in ((["--optimizer", "adam"], 1e-4, 1e-4),
-                                     (["--use-kernels"], 2e-3, 5e-2)):
-        gpu = train.main(SMOKE_ARGS + opt)["losses"]
-        cpu = train.main(SMOKE_ARGS + opt + ["--device", "cpu"])["losses"]
-        diffs = [abs(a - b) for a, b in zip(gpu, cpu)]
-        if not (len(diffs) == len(cpu) and max(diffs[:2]) < first2_tol
-                and max(diffs) < all_tol):
-            raise AssertionError(f"{opt}: cuda vs cpu losses differ: {gpu} vs {cpu}")
-        emit({"phase": "cuda_vs_cpu", "args": " ".join(SMOKE_ARGS + opt), "cuda": gpu,
-              "cpu": cpu, "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
+    for backend in (["--backend", "sim"], ["--backend", "spmd", "--schedule", "1f1b"],
+                    ["--backend", "spmd", "--schedule", "fill_drain"]):
+        for opt, first2_tol, all_tol in ((["--optimizer", "adam"], 1e-4, 1e-4),
+                                         (["--use-kernels"], 2e-3, 5e-2)):
+            args = SMOKE_ARGS + backend + opt
+            gpu = train.main(args)["losses"]
+            cpu = train.main(args + ["--device", "cpu"])["losses"]
+            diffs = [abs(a - b) for a, b in zip(gpu, cpu)]
+            if not (len(diffs) == len(cpu) and max(diffs[:2]) < first2_tol
+                    and max(diffs) < all_tol):
+                raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
+            emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
+                  "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
 
-    # the kernel table: per-step totals over the main path's launch multiset
-    mm_tot = per_step(mm_rows, mm_counts,
-                      lambda r: (r["shape"][1], r["shape"][2], r["shape"][3],
-                                 r["trans_a"], r["trans_b"]))
+    # the kernel table. B4 and B5: per training step of the sim path, from
+    # its launch multiset; B1-B3: per training step of the SPMD 1F1B path
+    # (launches per step times the per-launch time at the path shape).
+    mm_tot = per_step(mm_rows, mm_counts, lambda r: (*r["shape"], r["trans_a"], r["trans_b"]))
     adam_tot = per_step(adam_rows, adam_counts, lambda r: tuple(r["shape"]))
-    mm_flops = sum(2.0 * M * K * N * c for (M, K, N, _, _), c in mm_counts.items())
-    mm_bytes = sum(4.0 * (M * K + K * N + M * N) * c for (M, K, N, _, _), c in mm_counts.items())
-    adam_bytes = sum(20.0 * R * C * c for (R, C), c in adam_counts.items())
-    adam_flops = sum(10.0 * R * C * c for (R, C), c in adam_counts.items())
-    kernels = []
+    mm_flops = sum(2.0 * b * M_ * K_ * N_ * c for (b, M_, K_, N_, _, _), c in mm_counts.items())
+    mm_bytes = sum(4.0 * b * (M_ * K_ + K_ * N_ + M_ * N_) * c
+                   for (b, M_, K_, N_, _, _), c in mm_counts.items())
+    adam_bytes = sum(20.0 * math.prod(sh) * c for sh, c in adam_counts.items())
+    adam_flops = sum(10.0 * math.prod(sh) * c for sh, c in adam_counts.items())
+    rows = []
     for kname, src, replaces, tot, flops, nbytes, err, lib_ms in (
         ("matmul", "src/repro_torch/kernels/csrc/matmul.cu",
          "src/repro/kernels/matmul.py:30", mm_tot, mm_flops, mm_bytes, mm_err,
@@ -309,18 +500,39 @@ def main() -> int:
          None),
     ):
         t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
-        kernels.append({
+        rows.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": err,
+            "launches": sim["launches"][kname], "max_abs_err": err,
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms,
         })
+    onef = spmd["1f1b"]
+    for kname, src, replaces in (
+        ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+         "src/repro/kernels/flash.py:80"),
+        ("flash_bwd_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+         "src/repro/kernels/flash.py:162"),
+        ("flash_bwd_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+         "src/repro/kernels/flash.py:196"),
+    ):
+        per = onef["launches"][kname] / SPMD_STEPS["1f1b"]
+        t = flash_t[kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": onef["launches"][kname], "max_abs_err": flash_errs[kname],
+            "ms": per * t["ms"], "plain_ms": per * t["plain_ms"],
+            "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": per * t["library_ms"],
+        })
     (OUT_DIR / "chip_smoke_summary.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "kernels": kernels, "note": "ms, plain_ms, bound_ms and "
-         "library_ms are per training step of the main path"}, indent=1))
-    emit({"kernels": kernels})
+        {"nvidia_smi": smi, "kernels": rows, "note": "ms, plain_ms, bound_ms and library_ms "
+         "are per training step: B4 and B5 of the sim path, B1-B3 of the SPMD 1F1B path; "
+         "launches are the counts of those runs. The library time of B2 and of B3 is the "
+         "time of SDPA's whole backward (dQ, dK and dV in one call)",
+         "spmd_fill_drain_launches": spmd["fill_drain"]["launches"]}, indent=1))
+    emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

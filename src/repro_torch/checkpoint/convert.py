@@ -5,15 +5,19 @@ The reference keeps parameters as a nested tree of dicts and tuples; after
 ``params_from_numpy`` builds the port's model from such a tree and
 ``params_to_numpy`` is its exact inverse, leaf for leaf, with the same
 shapes (projections stay (in, out)) and the same ``/``-joined leaf paths.
+``stacked_from_numpy`` and ``stacked_to_numpy`` do the same for the SPMD
+engine's stage-stacked ``(stacked, shared)`` pair (the reference's
+``stack_stage_params`` output).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.layout import tree_order_key
 from repro_torch.models.model import Transformer, param_leaves
 
 
@@ -76,3 +80,23 @@ def params_to_numpy(model: Transformer) -> Any:
     return unflatten_tree(
         {k: p.detach().cpu().numpy().copy() for k, p in param_leaves(model).items()}
     )
+
+
+def _ordered(flat: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: flat[k] for k in sorted(flat, key=tree_order_key)}
+
+
+def stacked_from_numpy(tree: Tuple[Any, Any], device: torch.device | str = "cuda"
+                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The reference's ``(stacked, shared)`` numpy tree as the port's pair of
+    ``{path: tensor}`` dicts, each in leaf order, values exactly equal."""
+    return tuple(
+        {k: torch.from_numpy(np.array(v)).to(device) for k, v in _ordered(flatten_tree(t)).items()}
+        for t in tree)
+
+
+def stacked_to_numpy(stacked: Dict[str, torch.Tensor], shared: Dict[str, torch.Tensor]
+                     ) -> Tuple[Any, Any]:
+    """The inverse of ``stacked_from_numpy``."""
+    return tuple(unflatten_tree({k: v.detach().cpu().numpy().copy() for k, v in d.items()})
+                 for d in (stacked, shared))

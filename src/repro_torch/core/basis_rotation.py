@@ -13,15 +13,19 @@ Non-rotatable leaves (embeddings, norms, biases, 1-D params) take plain Adam.
 State is a list of per-leaf dicts in the parameter dict's leaf order. The
 rotated ``v`` lives in the eigenbasis and is never rotated back.
 
-``freq`` is one int for every leaf or one int per leaf (stage-aware
-allocation). A period <= 0 or >= ``stage_aware.NEVER`` never refreshes.
-The refresh is a host-side ``if`` on the host step, and the Fisher EMAs
-L/R advance only on refresh steps, as under the reference's ``lax.cond``.
-Per-stage tuple periods over stage-stacked leaves come with the SPMD engine.
+``freq`` is one int for every leaf, or one entry per leaf (stage-aware
+allocation): an int for the whole leaf, or a tuple of K per-stage periods
+over a stage-stacked ``(K, per, m, n)`` leaf's leading axis. A period <= 0
+or >= ``stage_aware.NEVER`` never refreshes. The refresh is decided on the
+host from the host step, and the Fisher EMAs L/R advance only on refresh
+steps, as under the reference's ``lax.cond``. With tuple periods only the
+stages due at this step are refreshed, batched over their layers, and the
+other stages keep their U/V and L/R: the reference's per-stage masked
+select, without computing the refresh it throws away.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -51,6 +55,37 @@ def _init_leaf(p: torch.Tensor, plan: LeafPlan, source: str) -> Dict[str, torch.
     return st
 
 
+FreqSpec = Union[int, Tuple[int, ...]]
+
+
+def _due(f: int, step: int) -> bool:
+    return 0 < f < NEVER and step % f == 0
+
+
+def _refresh_ops(g, m, ops, freq: FreqSpec, step: int, source: str, beta2: float):
+    """(U, V, L, R) after this step's refresh, if any (reference ``_refresh_ops``)."""
+    if not isinstance(freq, tuple):
+        return refresh_basis(g, m, *ops, source, beta2) if _due(freq, step) else ops
+    if g.shape[0] != len(freq):
+        raise ValueError(f"per-stage freqs {freq} need a leading stage axis of "
+                         f"{len(freq)}, got leaf shape {tuple(g.shape)}")
+    due = [k for k, f in enumerate(freq) if _due(f, step)]
+    if not due:
+        return ops
+    if len(due) == len(freq):
+        return refresh_basis(g, m, *ops, source, beta2)
+    idx = torch.tensor(due, device=g.device)
+    sub = [None if o is None else o[idx] for o in ops]
+    new = refresh_basis(g[idx], m[idx], *sub, source, beta2)
+    out = []
+    for old, n in zip(ops, new):
+        if old is not None:
+            old = old.clone()
+            old[idx] = n
+        out.append(old)
+    return tuple(out)
+
+
 def basis_rotation_adam(
     schedule: Schedule,
     beta1: float = 0.9,
@@ -58,7 +93,7 @@ def basis_rotation_adam(
     eps: float = 1e-8,
     source: str = "2nd",
     geometry: str = "bilateral",
-    freq: Union[int, Sequence[int]] = 10,
+    freq: Union[int, Sequence[FreqSpec]] = 10,
     weight_decay: float = 0.0,
     min_dim: int = 8,
     use_kernels: bool = False,
@@ -78,9 +113,10 @@ def basis_rotation_adam(
     def update(grads, state, params, step: int):
         layout = build_layout(params, geometry, min_dim)
         if isinstance(freq, int):
-            freqs: List[int] = [freq] * len(layout)
+            freqs: List[FreqSpec] = [freq] * len(layout)
         else:
-            freqs = [int(f) for f in freq]
+            freqs = [tuple(int(x) for x in f) if isinstance(f, (tuple, list)) else int(f)
+                     for f in freq]
             if len(freqs) != len(layout):
                 raise ValueError("freq list must match leaf count")
         lr = schedule(step)
@@ -93,9 +129,9 @@ def basis_rotation_adam(
             nst = dict(st)
             nst["m"] = m
             if plan.rotate:
-                U, V, L, R = st.get("U"), st.get("V"), st.get("L"), st.get("R")
-                if 0 < f < NEVER and step % f == 0:
-                    U, V, L, R = refresh_basis(g, m, U, V, L, R, source, beta2)
+                U, V, L, R = _refresh_ops(
+                    g, m, (st.get("U"), st.get("V"), st.get("L"), st.get("R")),
+                    f, step, source, beta2)
                 if kops is not None:
                     g_rot = kops.two_sided_rotate(g, U, V, transpose=True)
                     m_rot = kops.two_sided_rotate(m, U, V, transpose=True)

@@ -1,8 +1,9 @@
-"""Pipeline-training engine: one loop, pluggable backends. Only the
-simulation backend (`SimEngine`) is ported so far."""
+"""Pipeline-training engine: one loop, pluggable backends: the simulation
+(`SimEngine`) and the physical pipeline (`SpmdEngine`)."""
 from repro_torch.engine.base import EngineState, PipelineEngine
 from repro_torch.engine.loop import LoopConfig, LoopTimings, run_loop
 from repro_torch.engine.sim import SimEngine
+from repro_torch.engine.spmd import SpmdEngine
 
 __all__ = [
     "EngineState",
@@ -11,4 +12,5 @@ __all__ = [
     "LoopTimings",
     "run_loop",
     "SimEngine",
+    "SpmdEngine",
 ]

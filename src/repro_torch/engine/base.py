@@ -5,7 +5,7 @@ drives.
     state = engine.init_state()
     state, loss, metrics = engine.step(state, batch, t)
 
-Only the simulation backend is ported; checkpointing comes later.
+The simulation and SPMD backends are ported; checkpointing comes later.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared
-library with a plain C interface, loaded through ``ctypes``. The build runs
-at first use, into ``kernels/_build/`` (listed in ``.gitignore``), under a
-name that hashes the sources and flags, so an edited source never loads a
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded through ``ctypes``. The build runs at first use,
+into ``kernels/_build/`` (listed in ``.gitignore``), under a name that
+hashes the sources, headers and flags, so an edited source never loads a
 stale library. Nothing here runs at import time: the CPU test suite imports
 every module on machines without ``nvcc`` or a GPU.
 """
@@ -23,7 +24,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -32,6 +33,13 @@ _SIGNATURES = {
     "rbr_matmul_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # g, m, v, step, v_out, n, b2, eps, bc1, bc2, device, stream
     "rbr_adam_scale_f32": (_P, _P, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _P),
+    # q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device, stream
+    "rbr_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device, stream
+    "rbr_flash_bwd_dq_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale, device, stream
+    "rbr_flash_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _P),
 }
 
 
@@ -56,6 +64,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _compile_and_link(sources, out: Path) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link.
+    Returns the compilers' output; raises if any step fails."""
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    log, failed = "", []
+    for src, proc in zip(sources, procs):
+        text, _ = proc.communicate()
+        log += f"== {src.name}\n{text}"
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
+    return log
+
+
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
     global _LOADED
@@ -63,22 +99,16 @@ def load_library() -> KernelLibrary:
         return _LOADED
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"librbr_kernels_{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(sources, out)
         build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,5 +1,5 @@
 """Public wrappers over the kernels. Port of ``repro/kernels/ops.py``
-(``two_sided_rotate``, ``adam_scale``).
+(``two_sided_rotate``, ``adam_scale``, ``attention``).
 
 Leading batch dims fold into the kernels' own batch axis instead of a vmap,
 and operands are made contiguous here (a no-op for the contiguous tensors of
@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import adam_step
+from repro_torch.kernels.flash import flash_attention
 from repro_torch.kernels.matmul import matmul
 
 Tensor = torch.Tensor
@@ -42,3 +43,11 @@ def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
     """Fused (step_dir, v_new) over tensors of any shape."""
     g, m, v = (x.float().contiguous() for x in (g, m, v))
     return adam_step.adam_scale(g, m, v, beta2, eps, bc1, bc2)
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+              window: Optional[int] = None) -> Tensor:
+    """Flash attention over (B, H, S, dh): B1 forward, B2 and B3 backward.
+    The reference's block sizes have no counterpart: the CUDA kernels use
+    one 64 x 64 tile geometry at every shape."""
+    return flash_attention(q, k, v, causal=causal, window=window)

@@ -3,14 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         --arch paper_95m --stages 8 --use-kernels --batch 8 --seq 256 \\
         --warmup 2 --profile-steps 3
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \\
+        --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
+        --schedule 1f1b --use-kernels --batch 8 --seq 256
 
-Builds the trainer exactly as ``launch.train`` does (same flags), runs
+Builds the trainer exactly as ``launch.train`` does (same flags, either
+backend and either SPMD schedule), runs
 ``--warmup`` steps (step 0 refreshes every basis), samples the batches of
 the next ``--profile-steps`` steps (timed apart), then traces those steps
 with ``torch.profiler``. Prints one JSON line: the data time per step, the
 traced wall time, the time the device was busy (the union of its kernel and
 copy intervals) and its share of the wall time, the device time by kernel
-group (this port's CUDA kernels, cuBLAS products, QR, everything else), the
+group (each of this port's CUDA kernels, cuBLAS products, QR, everything
+else), the
 top kernels by device time and the top host operations by their own host
 time. Needs CUDA.
 """
@@ -28,6 +33,9 @@ from repro_torch.launch import train
 GROUPS = (  # first match wins; names are the kernels' symbol names
     ("port: matmul.cu", ("sgemm_kernel<",)),
     ("port: adam_step.cu", ("adam_scale_vec4", "adam_scale_scalar")),
+    ("port: flash_fwd.cu (B1)", ("flash_fwd_kernel",)),
+    ("port: flash_bwd.cu dq (B2)", ("flash_bwd_dq_kernel",)),
+    ("port: flash_bwd.cu dkv (B3)", ("flash_bwd_dkv_kernel",)),
     ("qr", ("geqrf", "orgqr", "larf", "householder", "geqr2", "potrf", "trsm")),
     ("library gemm", ("gemm", "xmma", "cutlass", "sm90", "dot_kernel")),
 )
@@ -95,7 +103,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "device_busy_share": busy_us / 1e3 / (1e3 * wall),
         "groups_ms": groups, "top_kernels_ms": top, "top_host_ops_self_ms": host,
         "final_loss": float(loss),
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "backend": args.backend,
+        "schedule": args.schedule if args.backend == "spmd" else None,
     }
     print(json.dumps(result), flush=True)
     return result

@@ -1,13 +1,21 @@
-"""End-to-end training driver. Port of ``repro/launch/train.py``, sim backend.
+"""End-to-end training entry point. Port of ``repro/launch/train.py``.
 
-Single-program simulation of K-stage asynchronous pipeline parallelism, the
-paper's experimental setup: staleness is imposed exactly by the per-leaf
-gradient FIFO. With ``--use-kernels`` every rotation product and every
-rotated Adam step runs in the hand-written CUDA kernels (``kernels/csrc``).
+``--backend sim`` (the default) is the single-program simulation of K-stage
+asynchronous pipeline parallelism, the paper's experimental setup:
+staleness is imposed exactly by the per-leaf gradient FIFO. ``--backend
+spmd`` is the physical pipeline (``engine.spmd``): stage-stacked weights,
+the ``--schedule`` fill-drain or 1F1B tick schedule over ``--microbatches``
+microbatches (default: one per stage), and the per-stage delay FIFO
+(``--sync`` drops it). With ``--use-kernels`` every rotation product and
+rotated Adam step runs in the hand-written CUDA kernels (``kernels/csrc``),
+and on the spmd backend attention runs in the flash-attention kernels too.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch paper_95m --stages 8 --optimizer basis_rotation \\
         --steps 300 --batch 8 --seq 256 --lr 1e-3 --use-kernels
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
+        --schedule 1f1b --optimizer basis_rotation --use-kernels --batch 8 --seq 256
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for but absent. The reference's flags are accepted; those whose
@@ -40,8 +48,9 @@ def parse_args(argv=None):
     ap.add_argument("--stage-aware", action="store_true")
     ap.add_argument("--use-kernels", action="store_true",
                     help="route the optimizer's rotation products and fused "
-                         "Adam scale through the CUDA kernels (their plain "
-                         "PyTorch versions on --device cpu)")
+                         "Adam scale (and, on the spmd backend, attention) "
+                         "through the CUDA kernels (their plain PyTorch "
+                         "versions on --device cpu)")
     ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--weight-prediction", action="store_true")
     ap.add_argument("--no-stash", action="store_true")
@@ -67,18 +76,27 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--backend spmd": args.backend == "spmd",
         "--precision bf16": args.precision != "f32",
-        "--weight-prediction": args.weight_prediction,
-        "--no-stash": args.no_stash,
         "--data-async / --data-delay": args.data_async or args.data_delay is not None,
         "--ckpt-dir": args.ckpt_dir is not None,
         "--coordinator / --num-processes / --process-id":
             args.coordinator is not None or args.num_processes > 1 or args.process_id != 0,
     }
+    if args.backend == "spmd":
+        unported["--pods / --data-par (the spmd data axis)"] = args.pods != 1 or args.data_par > 1
+    else:
+        unported["--weight-prediction"] = args.weight_prediction
+        unported["--no-stash"] = args.no_stash
     for flag, used in unported.items():
         if used:
             raise SystemExit(f"{flag} is not yet ported to repro_torch")
+    if args.backend == "spmd":
+        if args.weight_prediction or args.no_stash:
+            raise SystemExit(
+                "--weight-prediction / --no-stash are sim-backend modes; the spmd "
+                "backend imposes weight-stashing staleness physically"
+            )
+        return
     if args.schedule != "fill_drain":
         raise SystemExit(
             "--schedule picks the SPMD tick schedule; the sim backend imposes "
@@ -110,8 +128,8 @@ def build(args):
 
     from repro_torch.configs import PRECISION_POLICIES, OptimizerConfig, get_config
     from repro_torch.data import batches
-    from repro_torch.engine import LoopConfig, SimEngine
-    from repro_torch.models import init_model, param_count, param_leaves
+    from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine
+    from repro_torch.models import Transformer, init_model, param_count, param_leaves
     from repro_torch.optim.factory import build_optimizer
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -129,24 +147,36 @@ def build(args):
         else:
             raise SystemExit(f"--stages {args.stages} must divide {cfg.num_layers} layers")
 
-    model = init_model(cfg, seed=args.seed, device=device)
-    print(f"arch={cfg.name} params={param_count(model):,} stages={args.stages} "
-          f"optimizer={args.optimizer} backend={args.backend} device={device}")
-
     ocfg = OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, total_steps=args.steps,
         rotation_source=args.rotation_source,
         rotation_geometry=args.rotation_geometry,
         rotation_freq=args.rotation_freq, stage_aware=args.stage_aware,
     )
-    opt = build_optimizer(ocfg, param_leaves(model), cfg, num_stages=args.stages,
-                          apply_delay=not args.sync, use_kernels=args.use_kernels)
-    engine = SimEngine(model, opt, grad_clip=1.0)
+    if args.backend == "spmd":
+        M = args.microbatches or args.stages
+        if args.batch % M:
+            raise SystemExit(f"--batch {args.batch} must split into {M} microbatches")
+        # the engine draws the model from the seed itself, into its stacked layout
+        engine = SpmdEngine(cfg, ocfg, num_stages=args.stages, num_microbatches=M,
+                            schedule=args.schedule, async_grads=not args.sync,
+                            use_kernels=args.use_kernels, grad_clip=1.0, device=device,
+                            seed=args.seed)
+        n_params = param_count(Transformer(cfg, device="meta", seed=None))
+    else:
+        model = init_model(cfg, seed=args.seed, device=device)
+        opt = build_optimizer(ocfg, param_leaves(model), cfg, num_stages=args.stages,
+                              apply_delay=not args.sync, use_kernels=args.use_kernels)
+        engine = SimEngine(model, opt, grad_clip=1.0)
+        n_params = param_count(model)
+    print(f"arch={cfg.name} params={n_params:,} stages={args.stages} "
+          f"optimizer={args.optimizer} backend={args.backend} device={device}")
     data = batches(cfg, args.batch, args.seq, seed=args.seed, device=device)
     loop_cfg = LoopConfig(
         steps=args.steps, log_every=args.log_every, out_path=args.out,
         out_meta={"arch": cfg.name, "optimizer": args.optimizer,
                   "stages": args.stages, "backend": args.backend,
+                  "schedule": args.schedule if args.backend == "spmd" else None,
                   "precision": args.precision, "use_kernels": args.use_kernels,
                   "device": str(device)},
     )
@@ -159,6 +189,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     args = parse_args(argv)
     engine, data, loop_cfg = build(args)
+    # run_loop builds the initial state itself, so that nothing here keeps
+    # it (and the step-0 optimizer state) alive for the whole run
     _, losses, timings = run_loop(engine, data, loop_cfg)
     if losses:
         print(f"final loss {losses[-1]:.4f}")

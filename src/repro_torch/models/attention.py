@@ -1,10 +1,11 @@
 """Grouped-query attention, training path. Port of the dense branch of
 ``repro/models/attention.py::gqa_train``.
 
-Scores are materialised (B, H, S, S) and the softmax runs in float32 with
-masked entries filled with ``NEG_INF``. The reference streams queries in
-blocks above ``CHUNKED_ATTN_THRESHOLD``, and routes ``use_kernels`` to the
-flash-attention kernels; neither is ported yet, and both raise here.
+Without kernels, scores are materialised (B, H, S, S) and the softmax runs
+in float32 with masked entries filled with ``NEG_INF``. ``use_kernels``
+routes attention to the flash-attention kernels (B1-B3, ``_attn_flash``),
+which never materialise the scores. The reference streams queries in blocks
+above ``CHUNKED_ATTN_THRESHOLD``; that branch is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -69,6 +70,18 @@ def _gqa_mix(w: Tensor, v: Tensor, groups: int) -> Tensor:
     return o.reshape(B, H, Sq, v.shape[3])
 
 
+def _attn_flash(q: Tensor, k: Tensor, v: Tensor, cfg: AttentionConfig) -> Tensor:
+    """Flash attention through the CUDA kernels (their plain versions on the
+    CPU). The kernels are plain multi-head attention over (B*H) heads, so
+    grouped KV heads are repeated to full heads first, as in the reference."""
+    from repro_torch.kernels.flash import flash_attention
+
+    if cfg.kv_groups > 1:
+        k = torch.repeat_interleave(k, cfg.kv_groups, dim=1)
+        v = torch.repeat_interleave(v, cfg.kv_groups, dim=1)
+    return flash_attention(q, k, v, causal=True, window=cfg.window)
+
+
 def _attn_dense(q: Tensor, k: Tensor, v: Tensor, cfg: AttentionConfig,
                 q_offset: int, S_kv: int) -> Tensor:
     """Causal (optionally windowed) attention for one query block."""
@@ -87,14 +100,12 @@ def _attn_dense(q: Tensor, k: Tensor, v: Tensor, cfg: AttentionConfig,
 def gqa_train(p: Attention, x: Tensor, cfg: AttentionConfig,
               use_kernels: bool = False) -> Tensor:
     B, S, _ = x.shape
-    if use_kernels:
-        raise NotImplementedError("not yet ported: flash-attention kernels")
-    if S > CHUNKED_ATTN_THRESHOLD and S % QUERY_BLOCK == 0:
+    if not use_kernels and S > CHUNKED_ATTN_THRESHOLD and S % QUERY_BLOCK == 0:
         raise NotImplementedError("not yet ported: query-chunked attention")
     q, k, v = _project_qkv(p, x, cfg)
     positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = _attn_dense(q, k, v, cfg, 0, S)
+    o = _attn_flash(q, k, v, cfg) if use_kernels else _attn_dense(q, k, v, cfg, 0, S)
     o = o.transpose(1, 2).reshape(B, S, -1)
     return o @ p.w_o

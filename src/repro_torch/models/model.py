@@ -1,6 +1,9 @@
 """Whole-model API: init, training forward and loss.
 Port of ``repro/models/model.py`` for per-layer (``scan_layers=False``)
-dense attention models.
+dense attention models. ``embed`` and ``head_logits`` (the reference's
+``_embed`` and ``_logits`` with the final norm) take the shared weights as a
+``{path: tensor}`` dict, so that the SPMD schedules run the same code on
+their own copies of those weights.
 
 The module tree mirrors the reference's parameter tree, so that
 ``named_parameters`` names map onto its leaf paths (``blocks/3/mixer/w_q``,
@@ -12,7 +15,7 @@ reproduce ``jax.random`` (the tests carry weights across with
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layout import path_str, tree_order_key
-from repro_torch.models.layers import Norm, dense_init, embed_init, param
+from repro_torch.models.layers import Norm, apply_norm, dense_init, embed_init, param
 from repro_torch.models.transformer import Block
 
 Tensor = torch.Tensor
@@ -81,25 +84,36 @@ def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _logits(model: Transformer, x: Tensor) -> Tensor:
-    cfg = model.cfg
+def shared_leaves(model: Transformer) -> Dict[str, Tensor]:
+    """The weights outside the blocks, ``{path: parameter}`` in leaf order."""
+    return {k: p for k, p in param_leaves(model).items() if not k.startswith("blocks/")}
+
+
+def embed(shared: Mapping[str, Tensor], cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    """Token (and learnable position) embedding of (..., S) tokens."""
+    x = shared["embed/embedding"][tokens].to(cfg.compute_dtype)
+    if cfg.learnable_pos_emb:
+        x = x + shared["pos_emb"][: tokens.shape[-1]].to(x.dtype)
+    return x
+
+
+def head_logits(shared: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor) -> Tensor:
+    """Final norm, then the LM head (float32 logits unless told otherwise)."""
+    x = apply_norm(shared["final_norm/scale"], shared.get("final_norm/bias"), x)
     dt = torch.float32 if cfg.logits_fp32 else cfg.compute_dtype
-    head = model.embed.embedding.T if cfg.tie_embeddings else model.lm_head
+    head = shared["embed/embedding"].T if cfg.tie_embeddings else shared["lm_head"]
     return x.to(dt) @ head.to(dt)
 
 
 def forward_train(model: Transformer, tokens: Tensor) -> Tuple[Tensor, Tensor]:
     """Returns (logits, aux_loss). tokens: (B, S) int64."""
-    cfg = model.cfg
-    x = model.embed.embedding[tokens].to(cfg.compute_dtype)
-    if cfg.learnable_pos_emb:
-        x = x + model.pos_emb[: x.shape[1]].to(x.dtype)
+    shared = shared_leaves(model)
+    x = embed(shared, model.cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
         x, a = block(x)
         aux = aux + a
-    x = model.final_norm(x)
-    return _logits(model, x), aux
+    return head_logits(shared, model.cfg, x), aux
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:

@@ -1,5 +1,6 @@
 """Layer -> pipeline-stage partition and per-parameter delay maps.
-Port of ``repro/pipeline/partition.py`` for the per-layer (sim) layout.
+Port of ``repro/pipeline/partition.py``: the per-layer (sim) layout and the
+SPMD stage-stacked layout.
 
 PipeDream semantics: with K stages k = 0..K-1, a parameter on stage k incurs
 gradient delay tau_k = K-1-k. The embedding and position embedding live
@@ -57,3 +58,28 @@ def stage_context_for_tree(
     return StageContext(
         num_stages=num_stages, delays=tuple(leaf_delays(params, cfg, num_stages))
     )
+
+
+def stage_context_for_stacked(
+    stacked: Dict[str, torch.Tensor], shared: Dict[str, torch.Tensor], num_stages: int
+) -> StageContext:
+    """SPMD stage-stacked layout, for the leaves of ``(stacked, shared)`` in
+    that order (each dict in the reference's leaf order).
+
+    Stacked block leaves have shape ``(K, per, ...)``: per-stage delays
+    ``(K-1, ..., 0)`` over the leading axis, each slot standing for ``per``
+    per-layer leaves. Shared leaves get the delay of the stage that owns
+    them: the embedding K-1, the final norm and the head 0."""
+    K = num_stages
+    stage_delays = tuple(K - 1 - k for k in range(K))
+    shapes = [tuple(x.shape) for x in stacked.values()]
+    pers = {s[1] for s in shapes if len(s) > 1}
+    if len(pers) > 1 or any(s[0] != K for s in shapes):
+        raise ValueError(f"stacked leaves must share a (K={K}, per, ...) layout, got {shapes}")
+    per = pers.pop() if pers else 1
+    delays: List = [stage_delays] * len(stacked)
+    repeats: List[int] = [per] * len(stacked)
+    for path in shared:
+        delays.append(K - 1 if path.split("/")[0] in FIRST_STAGE_SHARED else 0)
+        repeats.append(1)
+    return StageContext(num_stages=K, delays=tuple(delays), repeats=tuple(repeats))

@@ -10,11 +10,15 @@ import pytest
 import torch
 
 from repro_torch.kernels import adam_step as tadam
+from repro_torch.kernels import flash as tflash
 from repro_torch.kernels import matmul as tmm
 
-# tests/test_kernels.py's tolerances: rotation parity (:41), fused Adam (:51)
+# tests/test_kernels.py's tolerances: rotation parity (:41), fused Adam (:51),
+# flash forward (:87) and backward (:137-142)
 ROT_RTOL, ROT_ATOL = 2e-3, 1e-4
 ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6
+FWD_RTOL, FWD_ATOL = 2e-3, 2e-4
+BWD_RTOL, BWD_ATOL = 2e-3, 1e-4
 
 
 @pytest.fixture
@@ -66,3 +70,78 @@ def test_adam_kernel_matches_plain_on_card(cuda, shape):
     s_p, vn_p = tadam.adam_scale_plain(g, m, v, 0.999, 1e-8, 0.5, 0.25)
     torch.testing.assert_close(s, s_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
     torch.testing.assert_close(vn, vn_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+
+
+def _heads(cuda, shape, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, device=cuda, generator=gen) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((6, 256, 64), 32),
+                                          ((4, 200, 32), 100), ((2, 100, 16), 16),
+                                          ((3, 130, 64), None), ((1, 64, 32), 1)])
+def test_flash_kernels_match_plain_on_card(cuda, shape, window):
+    """B1, B2 and B3 against their plain versions: the training shape,
+    windows that leave whole tiles masked, and lengths that are no tile
+    multiple."""
+    q, k, v, do = _heads(cuda, shape, seed=shape[1] + (window or 0))
+    before = (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
+              tflash.flash_bwd_dkv.launches)
+    o, L = tflash.flash_fwd(q, k, v, window=window)
+    o_p, L_p = tflash.flash_fwd_plain(q, k, v, window=window)
+    torch.testing.assert_close(o, o_p, rtol=FWD_RTOL, atol=FWD_ATOL)
+    torch.testing.assert_close(L, L_p, rtol=FWD_RTOL, atol=FWD_ATOL)
+    D = (do * o).sum(-1)
+    dq = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+    dk, dv = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+    torch.testing.assert_close(dq, tflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window),
+                               rtol=BWD_RTOL, atol=BWD_ATOL)
+    dk_p, dv_p = tflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
+    torch.testing.assert_close(dk, dk_p, rtol=BWD_RTOL, atol=BWD_ATOL)
+    torch.testing.assert_close(dv, dv_p, rtol=BWD_RTOL, atol=BWD_ATOL)
+    assert (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
+            tflash.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_flash_fully_masked_rows_on_card(cuda):
+    """Keys past seq_len masked and a window of 8: rows >= 107 see no key,
+    so their O is exactly 0 and their L the -1e30 sentinel."""
+    q, k, v, _ = _heads(cuda, (1, 128, 16), seed=3)
+    o, L = tflash.flash_fwd(q, k, v, window=8, seq_len=100)
+    o_p, L_p = tflash.flash_fwd_plain(q, k, v, window=8, seq_len=100)
+    assert float(o[:, 107:].abs().max()) == 0.0
+    assert bool((L[:, 107:] <= -1e29).all())
+    torch.testing.assert_close(o, o_p, rtol=FWD_RTOL, atol=FWD_ATOL)
+    torch.testing.assert_close(L, L_p, rtol=FWD_RTOL, atol=FWD_ATOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_match_plain_on_card(cuda):
+    q, k, v, do = _heads(cuda, (1, 6, 256, 64), seed=9)
+    grads = []
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    for fn in (tflash.flash_attention, tflash.flash_attention):
+        out = fn(q, k, v)
+        grads.append(torch.autograd.grad(out, (q, k, v), do))
+    plain = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
+    out_cpu = tflash.flash_attention(*plain)  # the plain versions, on the CPU
+    want = torch.autograd.grad(out_cpu, plain, do.cpu())
+    for got, w in zip(grads[0], want):
+        torch.testing.assert_close(got.cpu(), w, rtol=BWD_RTOL, atol=BWD_ATOL)
+    for a, b in zip(grads[0], grads[1]):  # no atomics: bitwise repeatable
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(2, 64, 48, device=cuda)  # head dim 48 has no kernel
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_fwd(x, x, x)
+    y = torch.randn(2, 64, 64, device=cuda)
+    with pytest.raises(TypeError):
+        tflash.flash_fwd(y.double(), y.double(), y.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_fwd(y.mT, y.mT, y.mT)

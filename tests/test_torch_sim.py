@@ -119,7 +119,8 @@ def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):
         train.main(["--smoke", "--stages", "2", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--backend", "spmd"], ["--precision", "bf16"],
+@pytest.mark.parametrize("flags", [["--backend", "spmd", "--data-par", "2"],
+                                   ["--precision", "bf16"],
                                    ["--weight-prediction"], ["--no-stash"],
                                    ["--data-async"], ["--ckpt-dir", "ck"],
                                    ["--num-processes", "2"], ["--schedule", "1f1b"]])
