@@ -7,12 +7,15 @@
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, plus ragged, batched and masked shapes,
-   and times kernel, plain version and library call with CUDA events.
+   and times kernel, plain version and library call with CUDA events. B4
+   runs per shape as a group of one and as the grouped launches of both
+   paths (each path's four groups, a mixed ragged group for every pair of
+   transpose flags, a group of one); B1 must repeat bitwise.
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
    finite and that every rotation product and rotated Adam step went through
-   the kernels, by their launch counts.
+   the kernels, by their launch counts (four grouped B4 launches per step).
 4. Holds both SPMD schedules' gradients at full width, through B1-B3, to
    the whole-model gradient on one batch. Then drives the SPMD path like
    the sim path: full-width paper_95m on 8 stacked stages with 8
@@ -41,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -57,12 +61,14 @@ SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
 SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
-# cores, and device memory bandwidth. The SXM part is the default.
+# cores, device memory bandwidth, and TF32 on the tensor cores. The SXM part
+# is the default.
 PEAKS = {
-    "PCIe": (51.2e12, 2.0e12),
-    "NVL": (60.0e12, 3.9e12),
-    "SXM": (67.0e12, 3.35e12),
+    "PCIe": (51.2e12, 2.0e12, 378e12),
+    "NVL": (60.0e12, 3.9e12, 417.5e12),
+    "SXM": (67.0e12, 3.35e12, 495e12),
 }
+TF32_PASSES = 3  # the 3xTF32 split: three tensor-core products per float32 product
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 2 GHz: longer than the host takes to enqueue a timing run
 MATMUL_RTOL, MATMUL_ATOL = 2e-3, 1e-4  # tests/test_kernels.py rotation parity
@@ -70,6 +76,7 @@ ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6  # tests/test_kernels.py fused Adam parity
 FWD_RTOL, FWD_ATOL = 2e-3, 2e-4  # tests/test_kernels.py:87 flash forward parity
 BWD_RTOL, BWD_ATOL = 2e-3, 1e-4  # tests/test_kernels.py:137-142 flash backward parity
 FLASH_PATH = (6, 256, 64)  # (heads, S, dh) of one attention call on the paper_95m path
+FWD_BLOCK_ROWS = 16  # query rows per B1 block (csrc/flash_fwd.cu's QT)
 
 
 def emit(obj) -> None:
@@ -105,11 +112,13 @@ def time_ms(fn, reps: int = 30, warmup: int = 5):
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(reps)), host_ms
 
 
-def path_products(cfg, stages: int = 0):
-    """Per-step launch multisets of a path, from the model's rotation layout:
-    {(batch, M, K, N, trans_a, trans_b): count} and {leaf shape: count}.
-    With ``stages``, the SPMD path's stacked layout: one launch per rotated
-    leaf kind, batched over all its layers."""
+def path_groups(cfg, stages: int = 0):
+    """One step of a path's rotation products as the optimizer issues them:
+    four grouped B4 launches (U^T [G, M], [G, M] V, U S, S V^T over every
+    rotated leaf in leaf order), each a list of problems
+    (batch, M, K, N, trans_a, trans_b), and {leaf shape: count} of B5
+    launches. With ``stages``, the SPMD path's stacked layout: one problem
+    per rotated leaf kind, batched over all its layers."""
     from repro_torch.core.layout import build_layout
     from repro_torch.engine.spmd import opt_leaves, stack_stage_params
     from repro_torch.models import Transformer, param_leaves
@@ -118,23 +127,101 @@ def path_products(cfg, stages: int = 0):
     leaves = param_leaves(Transformer(cfg, device="meta", seed=None))
     if stages:
         leaves = opt_leaves(*stack_stage_params(leaves, cfg, stages))
-    mm, adam = {}, {}
-    for plan in build_layout(leaves, "bilateral"):
-        if not plan.rotate:
-            continue
-        m, n = plan.shape[-2:]
-        b = math.prod(plan.shape[:-2])
-        # U^T X V for g and m, then U S V^T: two products each
-        for key, c in (((b, m, m, n, True, False), 2), ((b, m, n, n, False, False), 2),
-                       ((b, m, m, n, False, False), 1), ((b, m, n, n, False, True), 1)):
-            mm[key] = mm.get(key, 0) + c
-        adam[plan.shape] = adam.get(plan.shape, 0) + 1
-    return mm, adam
+    plans = [p for p in build_layout(leaves, "bilateral") if p.rotate]
+    dims = [(math.prod(p.shape[:-2]), *p.shape[-2:]) for p in plans]
+    groups = [[(b, m, m, n, True, False) for b, m, n in dims] * 2,
+              [(b, m, n, n, False, False) for b, m, n in dims] * 2,
+              [(b, m, m, n, False, False) for b, m, n in dims],
+              [(b, m, n, n, False, True) for b, m, n in dims]]
+    return groups, Counter(p.shape for p in plans)
+
+
+def product_counts(groups):
+    """{(batch, M, K, N, trans_a, trans_b): count} over a step's groups."""
+    return Counter(key for group in groups for key in group)
+
+
+def mm_work(problems):
+    """(flops, bytes) of a list of products: each input read once, each
+    output written once."""
+    flops = sum(2.0 * b * M * K * N for b, M, K, N, _, _ in problems)
+    nbytes = sum(4.0 * b * (M * K + K * N + M * N) for b, M, K, N, _, _ in problems)
+    return flops, nbytes
+
+
+def bounds(flops, nbytes, peaks, passes=1):
+    """(least ms on the tensor route, least ms on the float32 FMA route,
+    what bounds the first)."""
+    t_tc, t_f32, t_bytes = passes * flops / peaks[2], flops / peaks[0], nbytes / peaks[1]
+    return (1e3 * max(t_tc, t_bytes), 1e3 * max(t_f32, t_bytes),
+            "operations" if t_tc >= t_bytes else "bytes")
+
+
+def _operands(torch, gen, problems, two_d=False):
+    """Random operands of a list of problems, scaled so outputs are O(1)."""
+    As, Bs = [], []
+    for b, M, K, N, ta, tb in problems:
+        a = torch.randn((b, K, M) if ta else (b, M, K), device="cuda", generator=gen)
+        x = torch.randn((b, N, K) if tb else (b, K, N), device="cuda", generator=gen)
+        a /= math.sqrt(K)
+        if two_d and b == 1:
+            a, x = a[0], x[0]
+        As.append(a)
+        Bs.append(x)
+    return As, Bs
+
+
+def check_matmul_groups(torch, kmm, paths, peaks):
+    """The grouped B4 launch against its plain version: each path's four
+    groups with the path's shapes and flags, a mixed-shape ragged group for
+    every flag pair, and a group of one. Times each path group, one event
+    pair per launch, and its plain version. Returns (rows, max_abs_err)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, worst = [], 0.0
+    cases = [(f"{path}/{i}", problems, True)
+             for path, groups in paths.items() for i, problems in enumerate(groups)]
+    ragged = [(1, 100, 70, 50), (1, 17, 33, 65), (3, 100, 70, 50), (2, 130, 257, 129),
+              (1, 384, 384, 384), (1, 200, 64, 96)]
+    for ta, tb in ((True, False), (False, False), (False, True), (True, True)):
+        cases.append((f"ragged/{int(ta)}{int(tb)}",
+                      [(b, M, K, N, ta, tb) for b, M, K, N in ragged], False))
+    cases.append(("one", [(1, 384, 1536, 1536, False, True)], False))
+    for name, problems, timed in cases:
+        ta, tb = problems[0][4:]
+        As, Bs = _operands(torch, gen, problems, two_d=not timed)
+        before = kmm.matmul.launches
+        outs = kmm.matmul_grouped(As, Bs, trans_a=ta, trans_b=tb)
+        launches = kmm.matmul.launches - before
+        wants = kmm.matmul_grouped_plain(As, Bs, trans_a=ta, trans_b=tb)
+        torch.cuda.synchronize()
+        err = torch.stack([(o - w).abs().max() for o, w in zip(outs, wants)]).max().item()
+        worst = max(worst, err)
+        if launches != 1 or not all(torch.allclose(o, w, rtol=MATMUL_RTOL, atol=MATMUL_ATOL)
+                                    for o, w in zip(outs, wants)):
+            raise AssertionError(f"matmul_grouped {name}: {launches} launches, "
+                                 f"max abs err {err}")
+        row = {"group": name, "problems": len(problems), "trans_a": ta, "trans_b": tb,
+               "max_abs_err": err}
+        del outs, wants
+        if timed:
+            row["ms"], row["host_ms"] = time_ms(
+                lambda: kmm.matmul_grouped(As, Bs, trans_a=ta, trans_b=tb), reps=10, warmup=2)
+            row["plain_ms"], _ = time_ms(
+                lambda: kmm.matmul_grouped_plain(As, Bs, trans_a=ta, trans_b=tb),
+                reps=10, warmup=2)
+            flops, nbytes = mm_work(problems)
+            row["bound_ms"], row["bound_fp32_ms"], _ = bounds(flops, nbytes, peaks, TF32_PASSES)
+            row["tflops"] = flops / row["ms"] / 1e9
+        rows.append(row)
+        del As, Bs
+        torch.cuda.empty_cache()
+    return rows, worst
 
 
 def check_matmul(torch, kmm, peaks):
-    """B4 at the path shapes (every transpose flag the path uses), plus
-    ragged and batched shapes. Returns (rows, max_abs_err)."""
+    """B4 as a group of one at the path shapes (every transpose flag the
+    path uses), plus ragged and batched shapes; per shape, times the kernel,
+    its plain version and ``torch.matmul``. Returns (rows, max_abs_err)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, worst = [], 0.0
     shapes = [(1, 384, 384, 384), (1, 384, 384, 1536), (1, 384, 1536, 1536),
@@ -166,9 +253,8 @@ def check_matmul(torch, kmm, peaks):
             row["ms"], row["host_ms"] = time_ms(lambda: kmm.matmul(a, b, trans_a=ta, trans_b=tb))
             row["plain_ms"], _ = time_ms(lambda: kmm.matmul_plain(a, b, trans_a=ta, trans_b=tb))
             row["library_ms"], _ = time_ms(lambda: torch.matmul(a_lib, b_lib))
-            flops = 2.0 * batch * M * N * K
-            nbytes = 4.0 * batch * (M * K + K * N + M * N)
-            row["bound_ms"] = 1e3 * max(flops / peaks[0], nbytes / peaks[1])
+            flops, nbytes = mm_work([(batch, M, K, N, ta, tb)])
+            row["bound_ms"], row["bound_fp32_ms"], _ = bounds(flops, nbytes, peaks, TF32_PASSES)
             row["tflops"] = flops / row["ms"] / 1e9
         rows.append(row)
     return rows, worst
@@ -224,8 +310,9 @@ def flash_work(BH: int, S: int, dh: int, window=None):
 def check_flash(torch, kflash, peaks):
     """B1-B3 against their plain versions: the path shape, the reference's
     sweeps (windows None, 100, 32; S 256, 128, 200, 100) and a fully-masked
-    row case. Times all three, their plain versions and PyTorch's SDPA
-    forward and backward at the path shape. Returns (rows, errs, timing)."""
+    row case; B1 run twice on every case must repeat bitwise. Times all
+    three, their plain versions and PyTorch's SDPA forward and backward at
+    the path shape. Returns (rows, errs, timing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -237,6 +324,7 @@ def check_flash(torch, kflash, peaks):
     for (BH, S, dh), window, seq_len in cases:
         q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen) for _ in range(4))
         o, L = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
+        o2, L2 = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
         o_p, L_p = kflash.flash_fwd_plain(q, k, v, window=window, seq_len=seq_len)
         D = (do * o).sum(-1)
         dq = kflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
@@ -244,7 +332,10 @@ def check_flash(torch, kflash, peaks):
         dk, dv = kflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
         dk_p, dv_p = kflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
         torch.cuda.synchronize()
-        row = {"shape": [BH, S, dh], "window": window, "seq_len": seq_len}
+        row = {"shape": [BH, S, dh], "window": window, "seq_len": seq_len,
+               "flash_fwd_bitwise_repeat": bool(torch.equal(o, o2) and torch.equal(L, L2))}
+        if not row["flash_fwd_bitwise_repeat"]:
+            raise AssertionError(f"flash_fwd {(BH, S, dh)} window={window}: two runs differ")
         for name, pairs, (rtol, atol) in (
                 ("flash_fwd", ((o, o_p), (L, L_p)), (FWD_RTOL, FWD_ATOL)),
                 ("flash_bwd_dq", ((dq, dq_p),), (BWD_RTOL, BWD_ATOL)),
@@ -289,9 +380,14 @@ def check_flash(torch, kflash, peaks):
     # SDPA's backward computes dQ, dK and dV in one call: B2 and B3 together
     timing["flash_bwd_dq"]["library_ms"] = timing["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
     for name, (flops, nbytes) in flash_work(BH, S, dh).items():
-        t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
-        timing[name]["bound_ms"] = 1e3 * max(t_ops, t_bytes)
-        timing[name]["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        tc, f32, by = bounds(flops, nbytes, peaks, TF32_PASSES)
+        if name == "flash_fwd":  # B1 runs on the tensor cores; B2 and B3 on the FMA pipes
+            timing[name].update(bound_ms=tc, bound_fp32_ms=f32, bound_by=by,
+                                blocks=BH * -(-S // FWD_BLOCK_ROWS))
+        else:
+            timing[name]["bound_ms"] = f32
+            timing[name]["bound_by"] = ("operations" if flops / peaks[0] >= nbytes / peaks[1]
+                                        else "bytes")
     return rows, errs, timing
 
 
@@ -417,37 +513,46 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_for": part,
           "f32_peak_tflops": peaks[0] / 1e12, "mem_tb_s": peaks[1] / 1e12,
+          "tf32_peak_tflops": peaks[2] / 1e12,
           "build_s": lib.build_seconds, "library": lib.path.name})
 
-    # phase 2: each kernel against its plain version
+    # phase 2: each kernel against its plain version. B4 per shape as a
+    # group of one, then as the grouped launches of the sim and SPMD paths
+    # (K stages of L / K layers each)
+    cfg = get_config("paper_95m")
+    K, M, L = 8, 8, cfg.num_layers
+    (groups, adam_counts), (sgroups, sadam_counts) = path_groups(cfg), path_groups(cfg, K)
+    mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
     mm_rows, mm_err = check_matmul(torch, kmm, peaks)
+    grp_rows, grp_err = check_matmul_groups(torch, kmm, {"sim": groups, "spmd": sgroups}, peaks)
+    mm_err = max(mm_err, grp_err)
     adam_rows, adam_err = check_adam(torch, kadam, peaks)
     flash_rows, flash_errs, flash_t = check_flash(torch, kflash, peaks)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
-        {"matmul": mm_rows, "adam_scale": adam_rows, "flash": flash_rows,
-         "flash_timing_per_launch": flash_t}, indent=1))
-    emit({"phase": "kernels", "matmul_cases": len(mm_rows), "matmul_max_abs_err": mm_err,
+        {"matmul": mm_rows, "matmul_grouped": grp_rows, "adam_scale": adam_rows,
+         "flash": flash_rows, "flash_timing_per_launch": flash_t}, indent=1))
+    emit({"phase": "kernels", "matmul_cases": len(mm_rows) + len(grp_rows),
+          "matmul_max_abs_err": mm_err,
+          "matmul_grouped_ms": {r["group"]: r["ms"] for r in grp_rows if "ms" in r},
           "adam_cases": len(adam_rows), "adam_max_abs_err": adam_err,
           "adam_max_rel_err": max(r["max_rel_err"] for r in adam_rows),
           "adam_bitwise_equal": all(r["bitwise_equal"] for r in adam_rows),
           "flash_cases": len(flash_rows), "flash_max_abs_err": flash_errs,
           "flash_ms_per_launch": {k: {f: t[f] for f in ("ms", "plain_ms", "library_ms",
                                                         "bound_ms", "host_ms")}
-                                  for k, t in flash_t.items()}})
+                                  for k, t in flash_t.items()},
+          "flash_fwd_blocks": flash_t["flash_fwd"]["blocks"],
+          "flash_fwd_bitwise_repeat": all(r["flash_fwd_bitwise_repeat"] for r in flash_rows)})
 
     # phase 3: the sim path
-    cfg = get_config("paper_95m")
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])
-    mm_counts, adam_counts = path_products(cfg)
     want = {k: 0 for k in kernels}
-    want.update(matmul=steps * sum(mm_counts.values()),
+    want.update(matmul=steps * sum(1 for g in groups if g),
                 adam_scale=steps * sum(adam_counts.values()))
     sim = run_path(train, torch, kernels, MAIN_ARGS, want)
     emit({"phase": "main_path", **sim})
 
     # phase 4: the SPMD path, both schedules; M microbatches over L layers
-    K, M, L = 8, 8, cfg.num_layers
-    smm_counts, sadam_counts = path_products(cfg, stages=K)
     emit(check_schedule_grads(torch, cfg, K, M))
     torch.cuda.empty_cache()
     spmd = {}
@@ -455,7 +560,7 @@ def main() -> int:
         args = SPMD_ARGS + ["--schedule", schedule, "--steps", str(n)]
         fwd = 2 if schedule == "1f1b" else 1  # 1F1B recomputes in its backward
         want = {"flash_fwd": n * fwd * M * L, "flash_bwd_dq": n * M * L,
-                "flash_bwd_dkv": n * M * L, "matmul": n * sum(smm_counts.values()),
+                "flash_bwd_dkv": n * M * L, "matmul": n * sum(1 for g in sgroups if g),
                 "adam_scale": n * sum(sadam_counts.values())}
         spmd[schedule] = run_path(train, torch, kernels, args, want)
         emit({"phase": f"spmd_{schedule}", **spmd[schedule]})
@@ -480,34 +585,39 @@ def main() -> int:
             emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
                   "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
 
-    # the kernel table. B4 and B5: per training step of the sim path, from
-    # its launch multiset; B1-B3: per training step of the SPMD 1F1B path
-    # (launches per step times the per-launch time at the path shape).
-    mm_tot = per_step(mm_rows, mm_counts, lambda r: (*r["shape"], r["trans_a"], r["trans_b"]))
+    # the kernel table. B4 and B5: per training step of the sim path (B4: its
+    # four grouped launches; the plain and library times summed per product
+    # over the step's products); B1-B3: per training step of the SPMD 1F1B
+    # path (launches per step times the per-launch time at the path shape).
+    # Bounds: B4 and B1 on the tensor route (3xTF32), with the float32 FMA
+    # route beside them; B2, B3 and B5 as they run, on the FMA pipes.
+    shape_key = lambda r: (*r["shape"], r["trans_a"], r["trans_b"])  # noqa: E731
+    mm_tot = per_step(mm_rows, mm_counts, shape_key)
+    smm_tot = per_step(mm_rows, smm_counts, shape_key)
+    grouped = {path: {f: sum(r[f] for r in grp_rows if r["group"].startswith(path + "/"))
+                      for f in ("ms", "plain_ms")} for path in ("sim", "spmd")}
     adam_tot = per_step(adam_rows, adam_counts, lambda r: tuple(r["shape"]))
-    mm_flops = sum(2.0 * b * M_ * K_ * N_ * c for (b, M_, K_, N_, _, _), c in mm_counts.items())
-    mm_bytes = sum(4.0 * b * (M_ * K_ + K_ * N_ + M_ * N_) * c
-                   for (b, M_, K_, N_, _, _), c in mm_counts.items())
+    mm_bound, mm_bound_f32, mm_by = bounds(*mm_work([p for g in groups for p in g]), peaks,
+                                           TF32_PASSES)
     adam_bytes = sum(20.0 * math.prod(sh) * c for sh, c in adam_counts.items())
     adam_flops = sum(10.0 * math.prod(sh) * c for sh, c in adam_counts.items())
-    rows = []
-    for kname, src, replaces, tot, flops, nbytes, err, lib_ms in (
-        ("matmul", "src/repro_torch/kernels/csrc/matmul.cu",
-         "src/repro/kernels/matmul.py:30", mm_tot, mm_flops, mm_bytes, mm_err,
-         mm_tot["library_ms"]),
-        ("adam_scale", "src/repro_torch/kernels/csrc/adam_step.cu",
-         "src/repro/kernels/adam_step.py:28", adam_tot, adam_flops, adam_bytes, adam_err,
-         None),
-    ):
-        t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
-        rows.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sim["launches"][kname], "max_abs_err": err,
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
-        })
+    _, adam_bound, _ = bounds(adam_flops, adam_bytes, peaks)
+    rows = [{
+        "name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul.py:30", "launches": sim["launches"]["matmul"],
+        "max_abs_err": mm_err, "ms": grouped["sim"]["ms"], "plain_ms": grouped["sim"]["plain_ms"],
+        "bound_ms": mm_bound, "bound_by": mm_by, "library_ms": mm_tot["library_ms"],
+        "bound_fp32_ms": mm_bound_f32, "spmd_ms": grouped["spmd"]["ms"],
+        "spmd_plain_ms": grouped["spmd"]["plain_ms"], "spmd_library_ms": smm_tot["library_ms"],
+        "spmd_launches_1f1b": spmd["1f1b"]["launches"]["matmul"],
+    }, {
+        "name": "adam_scale", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adam_step.cu",
+        "replaces": "src/repro/kernels/adam_step.py:28", "launches": sim["launches"]["adam_scale"],
+        "max_abs_err": adam_err, "ms": adam_tot["ms"], "plain_ms": adam_tot["plain_ms"],
+        "bound_ms": adam_bound,
+        "bound_by": "operations" if adam_flops / peaks[0] >= adam_bytes / peaks[1] else "bytes",
+        "library_ms": None,
+    }]
     onef = spmd["1f1b"]
     for kname, src, replaces in (
         ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -526,10 +636,14 @@ def main() -> int:
             "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": per * t["library_ms"],
         })
+        if "bound_fp32_ms" in t:
+            rows[-1]["bound_fp32_ms"] = per * t["bound_fp32_ms"]
     (OUT_DIR / "chip_smoke_summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": rows, "note": "ms, plain_ms, bound_ms and library_ms "
          "are per training step: B4 and B5 of the sim path, B1-B3 of the SPMD 1F1B path; "
-         "launches are the counts of those runs. The library time of B2 and of B3 is the "
+         "launches are the counts of those runs. B4's spmd_* keys are per SPMD step. "
+         "bound_ms of B4 and B1 is the tensor route (3xTF32 at the TF32 rate, or bytes), "
+         "bound_fp32_ms the float32 FMA route. The library time of B2 and of B3 is the "
          "time of SDPA's whole backward (dQ, dK and dV in one call)",
          "spmd_fill_drain_launches": spmd["fill_drain"]["launches"]}, indent=1))
     emit({"kernels": rows})

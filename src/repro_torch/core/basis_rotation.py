@@ -86,6 +86,26 @@ def _refresh_ops(g, m, ops, freq: FreqSpec, step: int, source: str, beta2: float
     return tuple(out)
 
 
+def _kernel_steps(kops, rotated, updates, lr, beta2, eps, bc1, bc2) -> None:
+    """The rotated leaves' steps through the kernels, all leaves at once:
+    one grouped launch each for U^T [G, M], [G, M] V, U S and S V^T, and the
+    fused Adam scale per leaf between them. Fills ``updates`` and each
+    leaf's new ``v``. On the CPU every product is the same ``torch.matmul``
+    as a leaf-by-leaf rotation, so the two agree bitwise."""
+    _, gs, ms, Us, Vs, vs, nsts = zip(*rotated)
+    n = len(rotated)
+    rot = kops.two_sided_rotate_grouped(gs + ms, Us + Us, Vs + Vs, transpose=True)
+    steps = []
+    for i in range(n):
+        step_rot, nsts[i]["v"] = kops.adam_scale(rot[i], rot[n + i], vs[i], beta2, eps,
+                                                 bc1, bc2)
+        steps.append(step_rot)
+    del rot  # the rotated gradients and momenta are dead before the back-rotation
+    back = kops.two_sided_rotate_grouped(steps, Us, Vs, transpose=False)
+    for (k, *_), u in zip(rotated, back):
+        updates[k] = u.mul_(-lr)
+
+
 def basis_rotation_adam(
     schedule: Schedule,
     beta1: float = 0.9,
@@ -122,7 +142,7 @@ def basis_rotation_adam(
         lr = schedule(step)
         bc1, bc2 = bias_correction(beta1, step), bias_correction(beta2, step)
 
-        new_leaves, updates = [], {}
+        new_leaves, updates, rotated = [], {}, []
         for (k, g), st, plan, f in zip(grads.items(), state["leaves"], layout, freqs):
             g = g.float()
             m = beta1 * st["m"] + (1 - beta1) * g
@@ -132,27 +152,28 @@ def basis_rotation_adam(
                 U, V, L, R = _refresh_ops(
                     g, m, (st.get("U"), st.get("V"), st.get("L"), st.get("R")),
                     f, step, source, beta2)
+                for name, val in (("U", U), ("V", V), ("L", L), ("R", R)):
+                    if val is not None:
+                        nst[name] = val
                 if kops is not None:
-                    g_rot = kops.two_sided_rotate(g, U, V, transpose=True)
-                    m_rot = kops.two_sided_rotate(m, U, V, transpose=True)
-                    step_rot, v = kops.adam_scale(g_rot, m_rot, st["v"], beta2, eps, bc1, bc2)
-                    upd = -lr * kops.two_sided_rotate(step_rot, U, V, transpose=False)
+                    # rotated below with every other rotated leaf; the
+                    # placeholder keeps the updates in leaf order
+                    rotated.append((k, g, m, U, V, st["v"], nst))
+                    updates[k] = None
                 else:
                     g_rot = rotate(g, U, V)
                     m_rot = rotate(m, U, V)
                     v = beta2 * st["v"] + (1 - beta2) * torch.square(g_rot)
                     step_rot = (m_rot / bc1) / (torch.sqrt(v / bc2) + eps)
-                    upd = -lr * unrotate(step_rot, U, V)
-                nst["v"] = v
-                for name, val in (("U", U), ("V", V), ("L", L), ("R", R)):
-                    if val is not None:
-                        nst[name] = val
+                    nst["v"] = v
+                    updates[k] = -lr * unrotate(step_rot, U, V)
             else:
                 v = beta2 * st["v"] + (1 - beta2) * torch.square(g)
-                upd = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                updates[k] = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
                 nst["v"] = v
-            updates[k] = upd
             new_leaves.append(nst)
+        if rotated:
+            _kernel_steps(kops, rotated, updates, lr, beta2, eps, bc1, bc2)
 
         if weight_decay:
             # decoupled weight decay on matrices only (norms/biases exempt)

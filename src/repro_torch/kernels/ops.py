@@ -1,5 +1,7 @@
 """Public wrappers over the kernels. Port of ``repro/kernels/ops.py``
-(``two_sided_rotate``, ``adam_scale``, ``attention``).
+(``two_sided_rotate``, ``adam_scale``, ``attention``), plus
+``two_sided_rotate_grouped``, which rotates a list of leaves in two
+grouped launches.
 
 Leading batch dims fold into the kernels' own batch axis instead of a vmap,
 and operands are made contiguous here (a no-op for the contiguous tensors of
@@ -9,13 +11,13 @@ the CUDA kernels for CUDA tensors.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import adam_step
 from repro_torch.kernels.flash import flash_attention
-from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.matmul import matmul_grouped
 
 Tensor = torch.Tensor
 
@@ -24,18 +26,32 @@ def _batched(x: Tensor) -> Tensor:
     return x.float().contiguous().reshape((-1,) + tuple(x.shape[-2:]))
 
 
+def two_sided_rotate_grouped(xs: Sequence[Tensor], Us: Sequence[Optional[Tensor]],
+                             Vs: Sequence[Optional[Tensor]], *,
+                             transpose: bool = True) -> List[Tensor]:
+    """[U_i^T x_i V_i] (transpose=True) or [U_i x_i V_i^T] (transpose=False)
+    over a list of leaves, in two grouped launches: every left product in
+    one, then every right product in the other. A leaf whose U (or V) is
+    None skips that side; a launch with no product is not made. Each x_i:
+    (..., m, n); U_i: (..., m, m); V_i: (..., n, n)."""
+    ys = [_batched(x) for x in xs]
+    left = [i for i, U in enumerate(Us) if U is not None]
+    for i, y in zip(left, matmul_grouped([_batched(Us[i]) for i in left],
+                                         [ys[i] for i in left], trans_a=transpose)):
+        ys[i] = y
+    right = [i for i, V in enumerate(Vs) if V is not None]
+    for i, y in zip(right, matmul_grouped([ys[i] for i in right],
+                                          [_batched(Vs[i]) for i in right],
+                                          trans_b=not transpose)):
+        ys[i] = y
+    return [y.reshape(x.shape) for x, y in zip(xs, ys)]
+
+
 def two_sided_rotate(x: Tensor, U: Optional[Tensor] = None, V: Optional[Tensor] = None,
                      *, transpose: bool = True) -> Tensor:
-    """U^T x V (transpose=True) or U x V^T (transpose=False), two kernel
-    launches for a bilateral rotation. x: (..., m, n); U: (..., m, m);
-    V: (..., n, n); U or V may be None for a unilateral rotation."""
-    shape = x.shape
-    y = _batched(x)
-    if U is not None:
-        y = matmul(_batched(U), y, trans_a=transpose)
-    if V is not None:
-        y = matmul(y, _batched(V), trans_b=not transpose)
-    return y.reshape(shape)
+    """U^T x V (transpose=True) or U x V^T (transpose=False) for one leaf:
+    ``two_sided_rotate_grouped`` over a group of one."""
+    return two_sided_rotate_grouped([x], [U], [V], transpose=transpose)[0]
 
 
 def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,

@@ -47,6 +47,32 @@ def test_matmul_kernel_matches_plain_on_card(cuda, shape, trans_a, trans_b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, False), (False, True),
+                                             (True, True)])
+def test_matmul_grouped_kernel_matches_plain_on_card(cuda, trans_a, trans_b):
+    """One launch over problems of mixed shapes: a path shape, ragged edges,
+    batched and 2-D operands, and rows that are not 16-byte aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    As, Bs = [], []
+    for batch, M, K, N in [(1, 384, 384, 1536), (1, 100, 70, 50), (3, 17, 33, 65),
+                           (2, 130, 257, 129), (None, 64, 32, 48)]:
+        lead = (batch,) if batch else ()
+        a = torch.randn(lead + ((K, M) if trans_a else (M, K)), device=cuda, generator=gen)
+        As.append(a / K ** 0.5)
+        Bs.append(torch.randn(lead + ((N, K) if trans_b else (K, N)), device=cuda,
+                              generator=gen))
+    before = tmm.matmul.launches
+    got = tmm.matmul_grouped(As, Bs, trans_a=trans_a, trans_b=trans_b)
+    assert tmm.matmul.launches == before + 1
+    want = tmm.matmul_grouped_plain(As, Bs, trans_a=trans_a, trans_b=trans_b)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=ROT_RTOL, atol=ROT_ATOL)
+    again = tmm.matmul_grouped(As[::-1], Bs[::-1], trans_a=trans_a, trans_b=trans_b)
+    for g, a in zip(got, again[::-1]):  # a product does not depend on its group
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
 def test_matmul_kernel_refuses_what_it_does_not_take(cuda):
     a = torch.randn(64, 32, device=cuda)
     with pytest.raises(ValueError):
@@ -102,6 +128,17 @@ def test_flash_kernels_match_plain_on_card(cuda, shape, window):
     torch.testing.assert_close(dv, dv_p, rtol=BWD_RTOL, atol=BWD_ATOL)
     assert (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
             tflash.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((2, 200, 32), 100)])
+def test_flash_forward_is_bitwise_repeatable_on_card(cuda, shape, window):
+    """B1's warps merge their partial softmax sums in a fixed order: two runs
+    give the same bits."""
+    q, k, v, _ = _heads(cuda, shape, seed=5)
+    o1, L1 = tflash.flash_fwd(q, k, v, window=window)
+    o2, L2 = tflash.flash_fwd(q, k, v, window=window)
+    assert torch.equal(o1, o2) and torch.equal(L1, L2)
 
 
 @pytest.mark.cuda

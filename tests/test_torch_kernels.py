@@ -6,6 +6,8 @@ oracles on the same numpy inputs, with ``tests/test_kernels.py``'s shapes
 and tolerances. ``tests/test_torch_cuda.py`` holds the CUDA kernels to the
 plain versions on the card.
 """
+import bisect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -63,6 +65,133 @@ def test_matmul_matches_pallas_matmul(shape, trans_a, trans_b):
     np.testing.assert_allclose(got, want, rtol=ROT_RTOL, atol=ROT_ATOL)
     np.testing.assert_allclose(got, np.asarray(jref.matmul_ref(_j(a), _j(b))),
                                rtol=ROT_RTOL, atol=ROT_ATOL)
+
+
+# (batch or None for 2-D operands, M, K, N): a group of mixed, ragged shapes
+GROUP = [(None, 128, 128, 128), (2, 64, 256, 64), (None, 100, 50, 70), (3, 17, 33, 65),
+         (None, 256, 384, 128)]
+
+
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, False), (False, True)])
+def test_matmul_grouped_is_the_plain_loop_and_matches_pallas_matmul(trans_a, trans_b):
+    rng = np.random.RandomState(8)
+    As, Bs, plain = [], [], []
+    for batch, M, K, N in GROUP:
+        lead = () if batch is None else (batch,)
+        a = rng.randn(*lead, M, K).astype(np.float32)
+        b = rng.randn(*lead, K, N).astype(np.float32)
+        As.append(_t(np.swapaxes(a, -1, -2) if trans_a else a))
+        Bs.append(_t(np.swapaxes(b, -1, -2) if trans_b else b))
+        plain.append((a.reshape(-1, M, K), b.reshape(-1, K, N)))
+    before = tmm.matmul.launches
+    got = tmm.matmul_grouped(As, Bs, trans_a=trans_a, trans_b=trans_b)
+    assert tmm.matmul.launches == before  # CPU tensors never count a launch
+    for out, a, b, (a3, b3) in zip(got, As, Bs, plain):
+        assert torch.equal(out, tmm.matmul_plain(a, b, trans_a=trans_a, trans_b=trans_b))
+        want = np.stack([np.asarray(jops.pallas_matmul(_j(x), _j(y))) for x, y in zip(a3, b3)])
+        np.testing.assert_allclose(out.numpy().reshape(want.shape), want,
+                                   rtol=ROT_RTOL, atol=ROT_ATOL)
+
+
+def _tile_owner(dims, order, start, tile):
+    """(problem, batch entry, first row, first column) of block ``tile``,
+    found as ``csrc/matmul.cu`` finds it: the last prefix-sum entry at or
+    below the block, then batch entry, tile row and tile column."""
+    slot = bisect.bisect_right(start, tile) - 1
+    batch, M, N, _ = dims[order[slot]]
+    tiles_n = -(-N // tmm.TILE_N)
+    b, rem = divmod(tile - start[slot], -(-M // tmm.TILE_M) * tiles_n)
+    return order[slot], b, (rem // tiles_n) * tmm.TILE_M, (rem % tiles_n) * tmm.TILE_N
+
+
+def _path_group_dims():
+    """(batch, M, N, K) of the sim path's first grouped launch at paper_95m:
+    U^T G and U^T M over all 192 rotated leaves."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layout import build_layout
+    from repro_torch.models import Transformer, param_leaves
+
+    cfg = get_config("paper_95m").replace(scan_layers=False)
+    plans = build_layout(param_leaves(Transformer(cfg, device="meta", seed=None)), "bilateral")
+    return [(1, p.shape[0], p.shape[1], p.shape[0]) for p in plans if p.rotate] * 2
+
+
+@pytest.mark.parametrize("dims", [
+    [(1, 100, 70, 50), (3, 17, 65, 33), (2, 300, 129, 7), (1, 128, 128, 128), (4, 257, 1, 1000)],
+    [(32, 384, 1536, 384)] * 3 + [(32, 1536, 384, 1536)],
+    "sim_path",
+])
+def test_tile_table_gives_every_output_tile_exactly_once(dims):
+    """The launch's schedule, walked as the kernel walks it: block t maps to
+    (problem, batch entry, tile row, tile column), and every output tile of
+    every problem belongs to exactly one block. Longest K first."""
+    dims = _path_group_dims() if dims == "sim_path" else dims
+    order, start = tmm.tile_table(dims)
+    assert sorted(order) == list(range(len(dims)))
+    assert [dims[i][3] for i in order] == sorted((d[3] for d in dims), reverse=True)
+    owners = [_tile_owner(dims, order, start, t) for t in range(start[-1])]
+    want = {(p, b, m0, n0) for p, (batch, M, N, _) in enumerate(dims) for b in range(batch)
+            for m0 in range(0, M, tmm.TILE_M) for n0 in range(0, N, tmm.TILE_N)}
+    assert len(owners) == len(want) and set(owners) == want
+    if len(dims) == 384:
+        assert start[-1] == 6912  # 32 layers x 2 x (4 x 9 + 36 + 36) tiles of 128 x 128
+
+
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, False), (False, True)])
+def test_launch_tables_hold_each_problem_once_in_schedule_order(trans_a, trans_b):
+    """The tables the kernel receives: one launch per 512 problems, each
+    problem's pointers and sizes in ``tile_table``'s order, and 16-byte
+    loads only for an operand that starts aligned with rows of a multiple
+    of 4 floats."""
+    rng = np.random.RandomState(12)
+    dims = [tuple(int(x) for x in (rng.randint(1, 4), *rng.randint(1, 300, 3)))
+            for _ in range(1100)]
+    ptrs = [(16 * int(rng.randint(1, 1 << 20)) + 4 * int(rng.randint(0, 2)),
+             16 * int(rng.randint(1, 1 << 20)) + 4 * int(rng.randint(0, 2)), 16 * i)
+            for i in range(len(dims))]
+    tables = tmm.launch_tables(ptrs, dims, trans_a, trans_b)
+    assert [len(p) for p, _, _ in tables] == [512, 512, 76]
+    for n, (p, meta, tiles) in enumerate(tables):
+        part = dims[512 * n:512 * (n + 1)]
+        order, start = tmm.tile_table(part)
+        assert p.dtype == np.int64 and meta.dtype == np.int32 and tiles.dtype == np.int32
+        assert list(tiles) == start
+        for row, i in enumerate(order):
+            batch, M, N, K = part[i]
+            a, b, c = ptrs[512 * n + i]
+            a_vec = a % 16 == 0 and (M if trans_a else K) % 4 == 0
+            b_vec = b % 16 == 0 and (K if trans_b else N) % 4 == 0
+            assert list(p[row]) == [a, b, c]
+            assert list(meta[row]) == [M, N, K, batch, a_vec + 2 * b_vec]
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+def test_two_sided_rotate_grouped_is_per_leaf_bitwise(transpose):
+    """Bilateral and unilateral leaves, with batch dims, in one group: each
+    leaf gets exactly the products a rotation of its own would make, in the
+    same order, and the result matches the reference oracle."""
+    rng = np.random.RandomState(9)
+    leaves = [((3,), 48, 32, "bi"), ((), 24, 40, "left"), ((2, 2), 16, 24, "right"),
+              ((), 32, 32, "bi")]
+    xs, Us, Vs = [], [], []
+    for batch, m, n, sides in leaves:
+        xs.append(rng.randn(*batch, m, n).astype(np.float32))
+        Us.append(np.linalg.qr(rng.randn(*batch, m, m))[0].astype(np.float32)
+                  if sides != "right" else None)
+        Vs.append(np.linalg.qr(rng.randn(*batch, n, n))[0].astype(np.float32)
+                  if sides != "left" else None)
+    got = tops.two_sided_rotate_grouped([_t(x) for x in xs], [_t(U) for U in Us],
+                                        [_t(V) for V in Vs], transpose=transpose)
+    for out, x, U, V in zip(got, xs, Us, Vs):
+        m, n = x.shape[-2:]
+        y = _t(x).reshape(-1, m, n)
+        if U is not None:
+            y = tmm.matmul_plain(_t(U).reshape(-1, m, m), y, trans_a=transpose)
+        if V is not None:
+            y = tmm.matmul_plain(y, _t(V).reshape(-1, n, n), trans_b=not transpose)
+        assert out.shape == x.shape and torch.equal(out, y.reshape(x.shape))
+        oracle = np.asarray(jref.two_sided_rotate_ref(_j(x), _j(U), _j(V), transpose))
+        np.testing.assert_allclose(out.numpy(), oracle, rtol=ROT_RTOL, atol=ROT_ATOL)
 
 
 @pytest.mark.parametrize("batch", [(), (3,), (2, 2)])

@@ -151,6 +151,114 @@ def test_bilateral_rank_deficient_side_agrees_on_the_determined_subspace(use_ker
         assert _rel(ut @ P, uj @ P) < 2e-4, t
 
 
+def _per_leaf_kernel_update(schedule, freqs, geometry, weight_decay, grads, state, params,
+                            step, beta1=0.9, beta2=0.999, eps=1e-8, source="2nd"):
+    """The kernel branch rotating each leaf with launches of its own, leaf by
+    leaf: the order the grouped branch must reproduce exactly."""
+    from repro_torch.kernels import ops as kops
+
+    layout = tlayout.build_layout(params, geometry)
+    lr = schedule(step)
+    bc1, bc2 = tbase.bias_correction(beta1, step), tbase.bias_correction(beta2, step)
+    new_leaves, updates = [], {}
+    for (k, g), st, plan, f in zip(grads.items(), state["leaves"], layout, freqs):
+        g = g.float()
+        m = beta1 * st["m"] + (1 - beta1) * g
+        nst = dict(st)
+        nst["m"] = m
+        if plan.rotate:
+            U, V, L, R = tbr._refresh_ops(
+                g, m, (st.get("U"), st.get("V"), st.get("L"), st.get("R")),
+                f, step, source, beta2)
+            g_rot = kops.two_sided_rotate(g, U, V, transpose=True)
+            m_rot = kops.two_sided_rotate(m, U, V, transpose=True)
+            step_rot, v = kops.adam_scale(g_rot, m_rot, st["v"], beta2, eps, bc1, bc2)
+            upd = -lr * kops.two_sided_rotate(step_rot, U, V, transpose=False)
+            for name, val in (("U", U), ("V", V), ("L", L), ("R", R)):
+                if val is not None:
+                    nst[name] = val
+        else:
+            v = beta2 * st["v"] + (1 - beta2) * torch.square(g)
+            upd = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        nst["v"] = v
+        updates[k] = upd
+        new_leaves.append(nst)
+    if weight_decay:
+        for k, p in params.items():
+            if p.ndim >= 2:
+                updates[k] = updates[k] - lr * weight_decay * p.detach().float()
+    return updates, {"leaves": new_leaves}
+
+
+# stage-stacked (K=2, 3 layers) leaves beside plain ones; per-leaf refresh
+# periods: a tuple per stage for the stacked rotated leaves
+STACKED = {"a/mlp/w_up": (2, 3, 16, 40), "a/mixer/w_q": (2, 3, 24, 24),
+           "a/norm1/scale": (2, 3, 16), "embed/embedding": (30, 16), "w_o": (20, 12)}
+TUPLE_FREQS = [(1, 4), (2, 3), 3, 3, 2]
+
+
+@pytest.mark.parametrize("geometry", ["bilateral", "unilateral"])
+@pytest.mark.parametrize("freq,weight_decay", [(3, 0.0), (TUPLE_FREQS, 0.01)])
+def test_grouped_kernel_branch_is_bitwise_the_per_leaf_branch(geometry, freq, weight_decay):
+    """Seven steps across several refreshes (all stages at once with an int
+    period; stages on their own periods with tuples): the kernel branch,
+    which rotates every leaf in four grouped products, gives bitwise the
+    updates and state of rotating leaf by leaf, in the same leaf order."""
+    rng = np.random.RandomState(10)
+    params = {k: torch.from_numpy(rng.randn(*s).astype(np.float32)) for k, s in STACKED.items()}
+    schedule = tbase.make_schedule("cosine", 1e-3, 8, 0.012)
+    opt = tbr.basis_rotation_adam(schedule, freq=freq, geometry=geometry,
+                                  weight_decay=weight_decay, use_kernels=True)
+    freqs = [freq] * len(params) if isinstance(freq, int) else freq
+    got = want = opt.init(params)
+    for t in range(7):
+        grads = {k: torch.from_numpy((rng.randn(*s) * 0.1).astype(np.float32))
+                 for k, s in STACKED.items()}
+        gu, got = opt.update(grads, got, params, t)
+        wu, want = _per_leaf_kernel_update(schedule, freqs, geometry, weight_decay, grads,
+                                           want, params, t)
+        assert list(gu) == list(wu) == list(params)
+        for k in params:
+            assert torch.equal(gu[k], wu[k]), (t, k)
+        for sg, sw in zip(got["leaves"], want["leaves"]):
+            assert list(sg) == list(sw)
+            for name in sg:
+                assert torch.equal(sg[name], sw[name]), (t, name)
+
+
+def test_grouped_kernel_branch_tracks_reference_at_smoke_config():
+    """The paper_95m smoke model's leaves (2 layers, every rotated leaf
+    non-square), unilateral so every gram is full rank: the kernel branch
+    against the reference's kernel path through two refreshes. Every state
+    entry within 1e-5 at every step, normwise, and every update from step 1
+    on. At step 0, v = (1 - b2) g~^2, so each rotated step entry is
+    g~ / |g~|, a sign, which the few entries with |g~| at roundoff level flip
+    between any two implementations (1e-3 normwise, also with the port's
+    plain branch)."""
+    cfg = jget_config("paper_95m", smoke=True).replace(scan_layers=False)
+    pair = Pair(jax.tree.map(np.asarray, jinit_model(jax.random.PRNGKey(0), cfg)))
+    rng = np.random.RandomState(11)
+    kw = dict(freq=3, geometry="unilateral", use_kernels=True)
+    jo = jbr.basis_rotation_adam(jbase.make_schedule("cosine", 1e-3, 8, 0.012), **kw)
+    to = tbr.basis_rotation_adam(tbase.make_schedule("cosine", 1e-3, 8, 0.012), **kw)
+    j_update = jax.jit(jo.update)  # traces the interpret-mode kernels once, not per call
+    js, ts = jo.init(pair.jax), to.init(pair.torch)
+    for t in range(4):
+        leaves = [_well_conditioned(rng, x.shape) if x.ndim == 2 else
+                  (rng.randn(*x.shape) * 0.1).astype(np.float32)
+                  for x in jax.tree_util.tree_leaves(pair.tree)]
+        gj, gt = pair.grads(leaves)
+        ju, js = j_update(gj, js, pair.jax, jnp.int32(t))
+        tu, ts = to.update(gt, ts, pair.torch, t)
+        for sj, st in zip(js["leaves"], ts["leaves"]):
+            assert set(sj) == set(st)
+            for name in sj:
+                assert _rel(st[name].numpy(), np.asarray(sj[name])) < 1e-5, (t, name)
+        if t:
+            for k, uj in zip(pair.paths, jax.tree_util.tree_leaves(ju)):
+                assert _rel(tu[k].numpy(), np.asarray(uj)) < 1e-5, (t, k)
+
+
 def test_adam_matches_reference_to_float32_rounding():
     rng = np.random.RandomState(3)
     pair = Pair(_tree(rng, [(8, 8), (8, 12)]))

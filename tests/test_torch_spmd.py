@@ -326,24 +326,37 @@ def test_train_main_spmd_backend_on_cpu(monkeypatch, schedule):
     """The launcher's spmd path at smoke size, with the kernels' plain
     versions: every kernel wrapper is handed contiguous float32 tensors, and
     is called as often per step as the launch counts on the card expect
-    (B1 M*L for fill-drain, 2*M*L for 1F1B; B2, B3 M*L; B4 six per rotated
-    leaf kind, B5 one per kind, batched over the stacked layers)."""
+    (B1 M*L for fill-drain, 2*M*L for 1F1B; B2, B3 M*L; B4 four grouped
+    products holding six products per rotated leaf kind, B5 one per kind,
+    batched over the stacked layers)."""
     from repro_torch.kernels import adam_step, flash, ops
 
     calls = {}
 
+    def check(name, tensors):
+        for x in tensors:
+            if isinstance(x, torch.Tensor):
+                assert x.dtype == torch.float32 and x.is_contiguous(), name
+
     def strict(name, fn):
         def wrapped(*tensors, **kw):
-            for x in tensors:
-                if isinstance(x, torch.Tensor):
-                    assert x.dtype == torch.float32 and x.is_contiguous(), name
+            check(name, tensors)
             calls[name] = calls.get(name, 0) + 1
             return fn(*tensors, **kw)
         return wrapped
 
+    def strict_grouped(fn):
+        def wrapped(As, Bs, **kw):
+            check("matmul_grouped", (*As, *Bs))
+            calls["matmul_grouped"] = calls.get("matmul_grouped", 0) + 1
+            calls["products"] = calls.get("products", 0) + len(As)
+            return fn(As, Bs, **kw)
+        return wrapped
+
     for mod, name in ((flash, "flash_fwd"), (flash, "flash_bwd_dq"), (flash, "flash_bwd_dkv"),
-                      (ops, "matmul"), (adam_step, "adam_scale")):
+                      (adam_step, "adam_scale")):
         monkeypatch.setattr(mod, name, strict(name, getattr(mod, name)))
+    monkeypatch.setattr(ops, "matmul_grouped", strict_grouped(ops.matmul_grouped))
     steps, stages, layers = 3, 2, 2
     res = train.main(["--smoke", "--backend", "spmd", "--schedule", schedule, "--stages",
                       str(stages), "--steps", str(steps), "--batch", "4", "--seq", "16",
@@ -352,4 +365,5 @@ def test_train_main_spmd_backend_on_cpu(monkeypatch, schedule):
     ml = stages * layers  # M = K microbatches by default
     assert calls == {"flash_fwd": (2 if schedule == "1f1b" else 1) * ml * steps,
                      "flash_bwd_dq": ml * steps, "flash_bwd_dkv": ml * steps,
-                     "matmul": 6 * 6 * steps, "adam_scale": 6 * steps}
+                     "matmul_grouped": 4 * steps, "products": 6 * 6 * steps,
+                     "adam_scale": 6 * steps}
