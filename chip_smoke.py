@@ -10,7 +10,8 @@
    and times kernel, plain version and library call with CUDA events. B4
    runs per shape as a group of one and as the grouped launches of both
    paths (each path's four groups, a mixed ragged group for every pair of
-   transpose flags, a group of one); B1 must repeat bitwise.
+   transpose flags, a group of one); B1, B2 and B3 must each repeat
+   bitwise.
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
@@ -76,7 +77,9 @@ ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6  # tests/test_kernels.py fused Adam parity
 FWD_RTOL, FWD_ATOL = 2e-3, 2e-4  # tests/test_kernels.py:87 flash forward parity
 BWD_RTOL, BWD_ATOL = 2e-3, 1e-4  # tests/test_kernels.py:137-142 flash backward parity
 FLASH_PATH = (6, 256, 64)  # (heads, S, dh) of one attention call on the paper_95m path
-FWD_BLOCK_ROWS = 16  # query rows per B1 block (csrc/flash_fwd.cu's QT)
+# B2 and B3 at the path shape: relative error against a float64 backward at most this
+# many times the plain version's. One TF32 pass instead of three is ~1e3 times off.
+F64_ERR_FACTOR = 4
 
 
 def emit(obj) -> None:
@@ -310,9 +313,9 @@ def flash_work(BH: int, S: int, dh: int, window=None):
 def check_flash(torch, kflash, peaks):
     """B1-B3 against their plain versions: the path shape, the reference's
     sweeps (windows None, 100, 32; S 256, 128, 200, 100) and a fully-masked
-    row case; B1 run twice on every case must repeat bitwise. Times all
-    three, their plain versions and PyTorch's SDPA forward and backward at
-    the path shape. Returns (rows, errs, timing)."""
+    row case; each kernel run twice on every case must repeat bitwise. Times
+    all three, their plain versions and PyTorch's SDPA forward and backward
+    at the path shape. Returns (rows, errs, timing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -328,14 +331,21 @@ def check_flash(torch, kflash, peaks):
         o_p, L_p = kflash.flash_fwd_plain(q, k, v, window=window, seq_len=seq_len)
         D = (do * o).sum(-1)
         dq = kflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+        dq2 = kflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
         dq_p = kflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window)
         dk, dv = kflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+        dk2, dv2 = kflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
         dk_p, dv_p = kflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
         torch.cuda.synchronize()
-        row = {"shape": [BH, S, dh], "window": window, "seq_len": seq_len,
-               "flash_fwd_bitwise_repeat": bool(torch.equal(o, o2) and torch.equal(L, L2))}
-        if not row["flash_fwd_bitwise_repeat"]:
-            raise AssertionError(f"flash_fwd {(BH, S, dh)} window={window}: two runs differ")
+        row = {"shape": [BH, S, dh], "window": window, "seq_len": seq_len}
+        for name, pairs in (("flash_fwd", ((o, o2), (L, L2))), ("flash_bwd_dq", ((dq, dq2),)),
+                            ("flash_bwd_dkv", ((dk, dk2), (dv, dv2)))):
+            # bit patterns, so that a NaN repeats too: with seq_len the forward's L
+            # is -1e30 on rows whose keys the backward sees, and their dS overflows
+            row[name + "_bitwise_repeat"] = all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in pairs)
+            if not row[name + "_bitwise_repeat"]:
+                raise AssertionError(f"{name} {(BH, S, dh)} window={window}: two runs differ")
         for name, pairs, (rtol, atol) in (
                 ("flash_fwd", ((o, o_p), (L, L_p)), (FWD_RTOL, FWD_ATOL)),
                 ("flash_bwd_dq", ((dq, dq_p),), (BWD_RTOL, BWD_ATOL)),
@@ -360,6 +370,23 @@ def check_flash(torch, kflash, peaks):
     o, L = kflash.flash_fwd(q, k, v)
     D = (do * o).sum(-1)
     timing = {}
+    # B2 and B3 against a float64 backward from the same inputs, L and D:
+    # relative Frobenius error (of dK or dV, the larger), held to a multiple
+    # of the plain version's
+    x64 = [x.double() for x in (q, k, v, do, L, D)]
+    want = {"flash_bwd_dq": (kflash.flash_bwd_dq_plain(*x64),),
+            "flash_bwd_dkv": kflash.flash_bwd_dkv_plain(*x64)}
+    for name, w in want.items():
+        def rel(fn):
+            got = fn(q, k, v, do, L, D)
+            got = got if isinstance(got, tuple) else (got,)
+            return max(float((x.double() - y).norm() / y.norm()) for x, y in zip(got, w))
+        t = timing[name] = {"rel_err_f64": rel(getattr(kflash, name)),
+                            "plain_rel_err_f64": rel(getattr(kflash, name + "_plain"))}
+        if not t["rel_err_f64"] <= F64_ERR_FACTOR * t["plain_rel_err_f64"]:
+            raise AssertionError(f"{name}: relative error {t['rel_err_f64']} against float64 "
+                                 f"exceeds {F64_ERR_FACTOR}x the plain version's "
+                                 f"{t['plain_rel_err_f64']}")
     for name, fn, plain in (
             ("flash_fwd", lambda: kflash.flash_fwd(q, k, v),
              lambda: kflash.flash_fwd_plain(q, k, v)),
@@ -367,9 +394,11 @@ def check_flash(torch, kflash, peaks):
              lambda: kflash.flash_bwd_dq_plain(q, k, v, do, L, D)),
             ("flash_bwd_dkv", lambda: kflash.flash_bwd_dkv(q, k, v, do, L, D),
              lambda: kflash.flash_bwd_dkv_plain(q, k, v, do, L, D))):
-        t = timing[name] = {}
+        t = timing.setdefault(name, {})
         t["ms"], t["host_ms"] = time_ms(fn)
         t["plain_ms"], _ = time_ms(plain)
+    for name, n in kflash.launched_blocks().items():  # the grids of the timed launches
+        timing[name]["blocks"] = n
     q4, k4, v4 = (x.reshape(1, BH, S, dh).clone().requires_grad_(True) for x in (q, k, v))
     with torch.no_grad():
         sdpa_fwd, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
@@ -379,15 +408,9 @@ def check_flash(torch, kflash, peaks):
     timing["flash_fwd"]["library_ms"] = sdpa_fwd
     # SDPA's backward computes dQ, dK and dV in one call: B2 and B3 together
     timing["flash_bwd_dq"]["library_ms"] = timing["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
-    for name, (flops, nbytes) in flash_work(BH, S, dh).items():
+    for name, (flops, nbytes) in flash_work(BH, S, dh).items():  # all three in 3xTF32
         tc, f32, by = bounds(flops, nbytes, peaks, TF32_PASSES)
-        if name == "flash_fwd":  # B1 runs on the tensor cores; B2 and B3 on the FMA pipes
-            timing[name].update(bound_ms=tc, bound_fp32_ms=f32, bound_by=by,
-                                blocks=BH * -(-S // FWD_BLOCK_ROWS))
-        else:
-            timing[name]["bound_ms"] = f32
-            timing[name]["bound_by"] = ("operations" if flops / peaks[0] >= nbytes / peaks[1]
-                                        else "bytes")
+        timing[name].update(bound_ms=tc, bound_fp32_ms=f32, bound_by=by)
     return rows, errs, timing
 
 
@@ -541,8 +564,11 @@ def main() -> int:
           "flash_ms_per_launch": {k: {f: t[f] for f in ("ms", "plain_ms", "library_ms",
                                                         "bound_ms", "host_ms")}
                                   for k, t in flash_t.items()},
-          "flash_fwd_blocks": flash_t["flash_fwd"]["blocks"],
-          "flash_fwd_bitwise_repeat": all(r["flash_fwd_bitwise_repeat"] for r in flash_rows)})
+          "flash_blocks": {k: t["blocks"] for k, t in flash_t.items()},
+          "flash_bwd_rel_err_f64": {k: {f: t[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
+                                    for k, t in flash_t.items() if "rel_err_f64" in t},
+          "flash_bitwise_repeat": {k: all(r[k + "_bitwise_repeat"] for r in flash_rows)
+                                   for k in flash_t}})
 
     # phase 3: the sim path
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])
@@ -589,8 +615,8 @@ def main() -> int:
     # four grouped launches; the plain and library times summed per product
     # over the step's products); B1-B3: per training step of the SPMD 1F1B
     # path (launches per step times the per-launch time at the path shape).
-    # Bounds: B4 and B1 on the tensor route (3xTF32), with the float32 FMA
-    # route beside them; B2, B3 and B5 as they run, on the FMA pipes.
+    # Bounds: B4 and B1-B3 on the tensor route (3xTF32), with the float32
+    # FMA route beside them; B5 as it runs, on the FMA pipes.
     shape_key = lambda r: (*r["shape"], r["trans_a"], r["trans_b"])  # noqa: E731
     mm_tot = per_step(mm_rows, mm_counts, shape_key)
     smm_tot = per_step(mm_rows, smm_counts, shape_key)
@@ -607,7 +633,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/matmul.py:30", "launches": sim["launches"]["matmul"],
         "max_abs_err": mm_err, "ms": grouped["sim"]["ms"], "plain_ms": grouped["sim"]["plain_ms"],
         "bound_ms": mm_bound, "bound_by": mm_by, "library_ms": mm_tot["library_ms"],
-        "bound_fp32_ms": mm_bound_f32, "spmd_ms": grouped["spmd"]["ms"],
+        "spmd_ms": grouped["spmd"]["ms"],
         "spmd_plain_ms": grouped["spmd"]["plain_ms"], "spmd_library_ms": smm_tot["library_ms"],
         "spmd_launches_1f1b": spmd["1f1b"]["launches"]["matmul"],
     }, {
@@ -619,6 +645,7 @@ def main() -> int:
         "library_ms": None,
     }]
     onef = spmd["1f1b"]
+    bound_fp32 = {"matmul": mm_bound_f32}  # computed, so kept off the kernels line
     for kname, src, replaces in (
         ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
          "src/repro/kernels/flash.py:80"),
@@ -634,18 +661,20 @@ def main() -> int:
             "launches": onef["launches"][kname], "max_abs_err": flash_errs[kname],
             "ms": per * t["ms"], "plain_ms": per * t["plain_ms"],
             "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": per * t["library_ms"],
+            "library_ms": per * t["library_ms"], "blocks_per_launch": t["blocks"],
         })
-        if "bound_fp32_ms" in t:
-            rows[-1]["bound_fp32_ms"] = per * t["bound_fp32_ms"]
+        bound_fp32[kname] = per * t["bound_fp32_ms"]
     (OUT_DIR / "chip_smoke_summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": rows, "note": "ms, plain_ms, bound_ms and library_ms "
          "are per training step: B4 and B5 of the sim path, B1-B3 of the SPMD 1F1B path; "
          "launches are the counts of those runs. B4's spmd_* keys are per SPMD step. "
-         "bound_ms of B4 and B1 is the tensor route (3xTF32 at the TF32 rate, or bytes), "
-         "bound_fp32_ms the float32 FMA route. The library time of B2 and of B3 is the "
+         "bound_ms of B4 and B1-B3 is the tensor route (3xTF32 at the TF32 rate, or bytes), "
+         "bound_fp32_ms the float32 FMA route, per training step likewise. blocks_per_launch "
+         "is the grid that B1-B3's launches recorded at the path shape. The library time of B2 and of B3 is the "
          "time of SDPA's whole backward (dQ, dK and dV in one call)",
+         "bound_fp32_ms": bound_fp32,
          "spmd_fill_drain_launches": spmd["fill_drain"]["launches"]}, indent=1))
+    emit({"bound_fp32_ms": bound_fp32})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -28,9 +28,9 @@
 //   warps merge through shared memory in warp order, so the result is
 //   deterministic.
 // - QK^T and PV on the tensor cores, mma.sync.m16n8k8 in 3xTF32, so the
-//   scores stay within float32 roundoff of the FFMA scores that the
-//   backward kernels (B2, B3) recompute against this kernel's L: one TF32
-//   pass would put its L off theirs by ~1e-3 and the gradients with it.
+//   scores stay within float32 roundoff of the scores that the backward
+//   kernels (B2, B3) recompute, also in 3xTF32, against this kernel's L: one
+//   TF32 pass would put its L off theirs by ~1e-3 and the gradients with it.
 //   Q's fragments are split once and stay in registers; P goes from the
 //   score fragments to the PV operand through a small per-warp tile in
 //   shared memory. Padded rows keep every fragment read free of bank
@@ -47,28 +47,22 @@ namespace {
 
 using namespace rbr_tf32;
 
-constexpr int QT = 16;                     // query rows per block
-constexpr int KT = 16;                     // keys per warp step
-constexpr int FWD_WARPS = 8;
-constexpr int FWD_THREADS = 32 * FWD_WARPS;
-constexpr int LDP = KT + 4;                // P tile row stride: 20 = 4 * odd
-
 template <int DH>
 struct FwdGeom {
   static constexpr int LDK = DH + 4;  // Q and K rows: 4 * odd, conflict-free (g, t) reads
   static constexpr int LDV = DH + 8;  // V rows: 8 (mod 32) for DH 32 and 64, 24 for 16
-  static constexpr int K_FLOATS = KT * LDK;
-  static constexpr int V_FLOATS = KT * LDV;
-  static constexpr int WARP_FLOATS = 2 * (K_FLOATS + V_FLOATS) + QT * LDP;
-  static constexpr int Q_FLOATS = QT * LDK;
-  // the merge reuses the warps' space: m, l and a QT x DH accumulator per warp
-  static constexpr int MERGE_FLOATS = FWD_WARPS * (2 * QT + QT * DH);
-  static_assert(MERGE_FLOATS <= FWD_WARPS * WARP_FLOATS, "merge fits the warp buffers");
-  static constexpr size_t BYTES = sizeof(float) * (Q_FLOATS + FWD_WARPS * WARP_FLOATS);
+  static constexpr int K_FLOATS = STEP * LDK;
+  static constexpr int V_FLOATS = STEP * LDV;
+  static constexpr int WARP_FLOATS = 2 * (K_FLOATS + V_FLOATS) + ROWS * LDP;
+  static constexpr int Q_FLOATS = ROWS * LDK;
+  // the merge reuses the warps' space: m, l and a ROWS x DH accumulator per warp
+  static constexpr int MERGE_FLOATS = WARPS * (2 * ROWS + ROWS * DH);
+  static_assert(MERGE_FLOATS <= WARPS * WARP_FLOATS, "merge fits the warp buffers");
+  static constexpr size_t BYTES = sizeof(float) * (Q_FLOATS + WARPS * WARP_FLOATS);
 };
 
 template <int DH>
-__global__ void __launch_bounds__(FWD_THREADS)
+__global__ void __launch_bounds__(BLOCK_THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ L,
                  int BH, int S, int seq_len, int causal, int window, float scale) {
@@ -76,9 +70,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NF = DH / 8;  // n8 fragments of an output row block, k8 steps of QK^T
   extern __shared__ __align__(16) float smem[];
 
-  const int ntiles = (S + QT - 1) / QT;
+  const int ntiles = (S + ROWS - 1) / ROWS;
   const int bh = blockIdx.x % BH;
-  const int q0 = (ntiles - 1 - (int)(blockIdx.x / BH)) * QT;  // late tiles first
+  const int q0 = (ntiles - 1 - (int)(blockIdx.x / BH)) * ROWS;  // late tiles first
   const long long head = (long long)bh * S * DH;
   q += head;
   k += head;
@@ -94,21 +88,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vb = W + 2 * G::K_FLOATS;  // two V buffers
   float* Ps = Vb + 2 * G::V_FLOATS;
 
-  for (int idx = threadIdx.x; idx < QT * DH / 4; idx += FWD_THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * DH / 4; idx += BLOCK_THREADS) {
     const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
     const bool ok = q0 + r < S;
     cp_async16(Qs + r * G::LDK + c, ok ? q + (long long)(q0 + r) * DH + c : q, ok ? 16 : 0);
   }
   cp_async_commit();
 
-  // key steps [lo, hi) that can hold a visible key for these rows
-  const int lo_col = window >= 0 ? max(0, q0 - window + 1) : 0;
-  const int hi_col = causal ? min(seq_len, q0 + QT) : seq_len;
-  const int lo = lo_col / KT, hi = (hi_col + KT - 1) / KT;
+  int lo, hi;
+  key_steps(q0, seq_len, causal, window, lo, hi);
 
   auto load_kv = [&](int buf, int step) {
-    const int k0 = step * KT;
-    for (int idx = lane; idx < KT * DH / 4; idx += 32) {
+    const int k0 = step * STEP;
+    for (int idx = lane; idx < STEP * DH / 4; idx += 32) {
       const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
       const bool ok = k0 + r < S;
       const long long off = (long long)(k0 + r) * DH + c;
@@ -136,18 +128,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   int buf = 0;
-  for (int step = lo + warp; step < hi; step += FWD_WARPS, buf ^= 1) {
-    if (step + FWD_WARPS < hi) load_kv(buf ^ 1, step + FWD_WARPS);
+  for (int step = lo + warp; step < hi; step += WARPS, buf ^= 1) {
+    if (step + WARPS < hi) load_kv(buf ^ 1, step + WARPS);
     cp_async_commit();
     cp_async_wait<1>();  // this step's K and V have landed
     __syncwarp();
     const float* Kc = Kb + buf * G::K_FLOATS;
     const float* Vc = Vb + buf * G::V_FLOATS;
-    const int k0 = step * KT;
+    const int k0 = step * STEP;
 
-    float s[KT / 8][4];
+    float s[STEP / 8][4];
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
+    for (int j = 0; j < STEP / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
@@ -157,10 +149,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    bool ok[KT / 8][4];
+    bool ok[STEP / 8][4];
     float mt[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
+    for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e / 2;
@@ -180,7 +172,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     float ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
+    for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e / 2;
@@ -197,7 +189,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();
 
 #pragma unroll
-    for (int kk = 0; kk < KT / 8; ++kk) {
+    for (int kk = 0; kk < STEP / 8; ++kk) {
       const float* p0 = Ps + g * LDP + 8 * kk + t;
       const float* p1 = p0 + 8 * LDP;
       const FragA pa = split_a(p0[0], p1[0], p0[4], p1[4]);
@@ -218,34 +210,34 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with its buffers: reuse them for the merge
   float* Ms = smem + G::Q_FLOATS;
-  float* Ls = Ms + FWD_WARPS * QT;
-  float* As = Ls + FWD_WARPS * QT;
+  float* Ls = Ms + WARPS * ROWS;
+  float* As = Ls + WARPS * ROWS;
   if (t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      Ms[warp * QT + g + 8 * h] = m[h];
-      Ls[warp * QT + g + 8 * h] = l[h];
+      Ms[warp * ROWS + g + 8 * h] = m[h];
+      Ls[warp * ROWS + g + 8 * h] = l[h];
     }
   }
 #pragma unroll
   for (int j = 0; j < NF; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      As[(warp * QT + g + 8 * (e / 2)) * DH + 8 * j + 2 * t + e % 2] = acc[j][e];
+      As[(warp * ROWS + g + 8 * (e / 2)) * DH + 8 * j + 2 * t + e % 2] = acc[j][e];
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < QT * DH; idx += FWD_THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * DH; idx += BLOCK_THREADS) {
     const int r = idx / DH, c = idx % DH;
     if (q0 + r >= S) continue;
     float mx = NEG_INF;
 #pragma unroll
-    for (int w = 0; w < FWD_WARPS; ++w) mx = fmaxf(mx, Ms[w * QT + r]);
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, Ms[w * ROWS + r]);
     float lsum = 0.f, out = 0.f;
 #pragma unroll
-    for (int w = 0; w < FWD_WARPS; ++w) {  // in warp order: deterministic
-      const float f = expf(Ms[w * QT + r] - mx);
-      lsum += Ls[w * QT + r] * f;
-      out += As[(w * QT + r) * DH + c] * f;
+    for (int w = 0; w < WARPS; ++w) {  // in warp order: deterministic
+      const float f = expf(Ms[w * ROWS + r] - mx);
+      lsum += Ls[w * ROWS + r] * f;
+      out += As[(w * ROWS + r) * DH + c] * f;
     }
     const bool live = lsum > 0.f;
     o[(long long)(q0 + r) * DH + c] = live ? out / fmaxf(lsum, EPS) : 0.f;
@@ -256,20 +248,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DH>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* L, int BH,
                int S, int seq_len, int causal, int window, float scale, cudaStream_t stream) {
-  const size_t bytes = FwdGeom<DH>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)BH * ((S + QT - 1) / QT);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_fwd_kernel<DH><<<(unsigned)blocks, FWD_THREADS, bytes, stream>>>(
-      q, k, v, o, L, BH, S, seq_len, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch(SLOT_FWD, flash_fwd_kernel<DH>, (long long)BH * ((S + ROWS - 1) / ROWS),
+                FwdGeom<DH>::BYTES, stream, q, k, v, o, L, BH, S, seq_len, causal, window,
+                scale);
 }
 
 }  // namespace
 }  // namespace rbr_flash
+
+int rbr_flash_blocks[3] = {0, 0, 0};  // declared in flash_common.cuh
 
 // q, k, v, o: (BH, S, dh) float32 contiguous and 16-byte aligned; L: (BH, S).
 // Keys j >= seq_len are masked (seq_len <= S); window < 0 means no window.

@@ -1,15 +1,30 @@
 // Float32-accurate products on Hopper's tensor cores, shared by the rotation
-// matmul (matmul.cu, B4) and the flash forward (flash_fwd.cu, B1).
+// matmul (matmul.cu, B4), the flash forward (flash_fwd.cu, B1) and the flash
+// backward (flash_bwd.cu, B2 and B3).
 //
 // The 3xTF32 split: a float32 x is written as big + small, where
 // big = rna_tf32(x) keeps the top 11 significant bits and
 // small = rna_tf32(x - big) the next 11 (x - big is exact in float32). Then
 //     a * b ~= small_a * big_b + big_a * small_b + big_a * big_b,
 // dropping small_a * small_b, which is below 2^-22 of the product. Each
-// tf32 x tf32 product is exact in float32 and the tensor cores accumulate in
-// float32, so a product over K terms stays within a few float32 ulps per
-// term of the FFMA result, while one TF32 pass would keep about three
-// decimal digits. The small terms go first so the big term is added last.
+// tf32 x tf32 product is exact in float32, but the tensor cores' addition into
+// their float32 accumulator rounds more coarsely than an FFMA; one TF32 pass
+// would keep about three decimal digits. The small terms go first so the big
+// term is added last.
+//
+// Two ways to sum a chain of k8 products:
+//   mma_3xtf32     accumulates in the tensor cores. The rotation matmul (B4)
+//                  and the flash forward (B1) use it; both stay within their
+//                  parity limits against float32 references.
+//   mma_3xtf32_rn  sums each k8 product from zero and adds it to the running
+//                  sum with a float32 add. The flash backward (B2, B3) uses
+//                  it: its sums feed dP - D, which cancels, and accumulating
+//                  in the tensor cores there doubled the error of the model's
+//                  gradients at full width (chip_smoke.py's schedule check on
+//                  an H100: 6.3e-6 against 2.75e-6 with this form, limit 1e-5)
+//                  for 0.6 us (B2) and 1.0 us (B3) more per launch at the
+//                  path shape. Its cost and gain in B1 and B4 are not
+//                  measured.
 //
 // mma.sync.m16n8k8 fragments (g = lane / 4, t = lane % 4):
 //   A (16 x 8, row-major):  a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
@@ -76,6 +91,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a, const 
   mma_tf32(c, a.small, b.big);
   mma_tf32(c, a.big, b.small);
   mma_tf32(c, a.big, b.big);
+}
+
+// c += a * b as above, but the k8 product is summed from zero and added to c
+// with a float32 add, rounded to nearest, for 4 adds per call (see the header).
+__device__ __forceinline__ void mma_3xtf32_rn(float (&c)[4], const FragA& a, const FragB& b) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(d, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
 }
 
 // cp.async copies into shared memory; src_bytes < size zero-fills the rest

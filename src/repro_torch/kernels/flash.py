@@ -23,6 +23,7 @@ ragged end of S themselves, so nothing is padded.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -205,6 +206,13 @@ def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Ten
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+
+
+def launched_blocks() -> dict:
+    """Blocks in the grid of each kernel's last launch in this process, as the
+    launch recorded them (0 before a kernel's first launch)."""
+    grids = (ctypes.c_int * 3).in_dll(load_library().lib, "rbr_flash_blocks")
+    return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), grids))
 
 
 class FlashAttention(torch.autograd.Function):

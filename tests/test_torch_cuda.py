@@ -106,11 +106,13 @@ def _heads(cuda, shape, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((6, 256, 64), 32),
                                           ((4, 200, 32), 100), ((2, 100, 16), 16),
-                                          ((3, 130, 64), None), ((1, 64, 32), 1)])
+                                          ((3, 130, 64), None), ((1, 64, 32), 1),
+                                          ((6, 48, 64), None), ((2, 272, 32), None)])
 def test_flash_kernels_match_plain_on_card(cuda, shape, window):
     """B1, B2 and B3 against their plain versions: the training shape,
-    windows that leave whole tiles masked, and lengths that are no tile
-    multiple."""
+    windows that leave whole tiles masked, lengths that are no tile
+    multiple, and ranges that give a block's 8 warps uneven numbers of
+    16-row steps (3 steps at S = 48, 17 at S = 272)."""
     q, k, v, do = _heads(cuda, shape, seed=shape[1] + (window or 0))
     before = (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
               tflash.flash_bwd_dkv.launches)
@@ -128,17 +130,29 @@ def test_flash_kernels_match_plain_on_card(cuda, shape, window):
     torch.testing.assert_close(dv, dv_p, rtol=BWD_RTOL, atol=BWD_ATOL)
     assert (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
             tflash.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    # the grids the launches recorded: one block per 16 rows of each head
+    blocks = shape[0] * -(-shape[1] // 16)
+    assert tflash.launched_blocks() == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), blocks)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((2, 200, 32), 100)])
+@pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((2, 200, 32), 100),
+                                          ((6, 256, 64), 32), ((3, 130, 64), None),
+                                          ((2, 100, 16), 16)])
 def test_flash_forward_is_bitwise_repeatable_on_card(cuda, shape, window):
-    """B1's warps merge their partial softmax sums in a fixed order: two runs
-    give the same bits."""
-    q, k, v, _ = _heads(cuda, shape, seed=5)
+    """B1, B2 and B3 merge their warps' partial sums in a fixed order and use
+    no atomics: two runs of each give the same bits."""
+    q, k, v, do = _heads(cuda, shape, seed=5)
     o1, L1 = tflash.flash_fwd(q, k, v, window=window)
     o2, L2 = tflash.flash_fwd(q, k, v, window=window)
     assert torch.equal(o1, o2) and torch.equal(L1, L2)
+    D = (do * o1).sum(-1)
+    dq1 = tflash.flash_bwd_dq(q, k, v, do, L1, D, window=window)
+    dq2 = tflash.flash_bwd_dq(q, k, v, do, L1, D, window=window)
+    dk1, dv1 = tflash.flash_bwd_dkv(q, k, v, do, L1, D, window=window)
+    dk2, dv2 = tflash.flash_bwd_dkv(q, k, v, do, L1, D, window=window)
+    assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 @pytest.mark.cuda
