@@ -10,13 +10,17 @@
    and times kernel, plain version and library call with CUDA events. B4
    runs per shape as a group of one and as the grouped launches of both
    paths (each path's four groups, a mixed ragged group for every pair of
-   transpose flags, a group of one); B1, B2 and B3 must each repeat
-   bitwise.
+   transpose flags, a group of one); B5 per shape as a group of one, then
+   as one grouped launch over each path's rotated leaves (their own buffers,
+   timed cold per step beside the per-leaf sequence) and over a ragged
+   group, bitwise equal to its leaves launched alone; B1, B2 and B3 must
+   each repeat bitwise. ptxas must report no spill stores for B5.
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
    finite and that every rotation product and rotated Adam step went through
-   the kernels, by their launch counts (four grouped B4 launches per step).
+   the kernels, by their launch counts (four grouped B4 launches and one
+   grouped B5 launch per step).
 4. Holds both SPMD schedules' gradients at full width, through B1-B3, to
    the whole-model gradient on one batch. Then drives the SPMD path like
    the sim path: full-width paper_95m on 8 stacked stages with 8
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -72,6 +77,12 @@ PEAKS = {
 TF32_PASSES = 3  # the 3xTF32 split: three tensor-core products per float32 product
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 2 GHz: longer than the host takes to enqueue a timing run
+# ~0.2 s at 2 GHz: longer than the host takes to enqueue one step's B5 work leaf by leaf
+STEP_SLEEP_CYCLES = 400_000_000
+ADAM_SCALARS = (0.999, 1e-8, 1 - 0.9 ** 4, 1 - 0.999 ** 4)  # beta2, eps, bc1, bc2 at step 4
+# leaves per timed run of B5's plain version: its seven kernels a leaf must all wait
+# in the launch queue behind one sleep
+PLAIN_LEAVES_PER_RUN = 32
 MATMUL_RTOL, MATMUL_ATOL = 2e-3, 1e-4  # tests/test_kernels.py rotation parity
 ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6  # tests/test_kernels.py fused Adam parity
 FWD_RTOL, FWD_ATOL = 2e-3, 2e-4  # tests/test_kernels.py:87 flash forward parity
@@ -119,9 +130,10 @@ def path_groups(cfg, stages: int = 0):
     """One step of a path's rotation products as the optimizer issues them:
     four grouped B4 launches (U^T [G, M], [G, M] V, U S, S V^T over every
     rotated leaf in leaf order), each a list of problems
-    (batch, M, K, N, trans_a, trans_b), and {leaf shape: count} of B5
-    launches. With ``stages``, the SPMD path's stacked layout: one problem
-    per rotated leaf kind, batched over all its layers."""
+    (batch, M, K, N, trans_a, trans_b), and the rotated leaves' shapes in
+    leaf order, which one grouped B5 launch takes. With ``stages``, the SPMD
+    path's stacked layout: one problem per rotated leaf kind, batched over
+    all its layers."""
     from repro_torch.core.layout import build_layout
     from repro_torch.engine.spmd import opt_leaves, stack_stage_params
     from repro_torch.models import Transformer, param_leaves
@@ -136,7 +148,7 @@ def path_groups(cfg, stages: int = 0):
               [(b, m, n, n, False, False) for b, m, n in dims] * 2,
               [(b, m, m, n, False, False) for b, m, n in dims],
               [(b, m, n, n, False, True) for b, m, n in dims]]
-    return groups, Counter(p.shape for p in plans)
+    return groups, [p.shape for p in plans]
 
 
 def product_counts(groups):
@@ -150,6 +162,64 @@ def mm_work(problems):
     flops = sum(2.0 * b * M * K * N for b, M, K, N, _, _ in problems)
     nbytes = sum(4.0 * b * (M * K + K * N + M * N) for b, M, K, N, _, _ in problems)
     return flops, nbytes
+
+
+def time_step_ms(fn, reps: int = 10, warmup: int = 2):
+    """Device time of one step's work ``fn``: median over ``reps`` runs, each
+    alone between its own pair of CUDA events behind a sleep kernel. Also
+    the host's median time to issue it (ms) and whether every run was
+    issued before its sleep ended, so that no host gap lies between the
+    events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    dev, host, issued_ahead = [], [], True
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(STEP_SLEEP_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        ev[2].record()
+        torch.cuda.synchronize()
+        issued_ahead = issued_ahead and host[-1] < ev[0].elapsed_time(ev[1])
+        dev.append(ev[1].elapsed_time(ev[2]))
+    return statistics.median(dev), statistics.median(host), issued_ahead
+
+
+def time_leaves_ms(fn, leaves: int, per_run: int, split: bool = True):
+    """``time_step_ms`` of ``fn(lo, hi)`` over leaves lo <= i < hi, in runs of
+    at most ``per_run`` leaves, summed over the runs: (device ms, host ms,
+    leaves per run). A run that the host did not issue before its sleep
+    ended would count host gaps as device time, so then the runs are halved
+    and timed again when ``split`` allows it; otherwise this raises."""
+    while True:
+        runs = [time_step_ms(lambda lo=lo: fn(lo, min(lo + per_run, leaves)))
+                for lo in range(0, leaves, per_run)]
+        if all(r[2] for r in runs):
+            return sum(r[0] for r in runs), sum(r[1] for r in runs), per_run
+        if not split or per_run == 1:
+            raise AssertionError(f"runs of {per_run} leaves not issued ahead of the card: "
+                                 f"host {[r[1] for r in runs]} ms")
+        per_run //= 2
+
+
+def ptxas_report(log: str, kernel: str):
+    """{entry function: {"registers", "spill_stores"}} from ``nvcc -Xptxas -v``
+    output, for the entry functions whose (mangled) name holds ``kernel``."""
+    out = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if kernel in name:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            out[name] = {"registers": int(regs.group(1)) if regs else None,
+                         "spill_stores": int(spill.group(1)) if spill else None}
+    return out
 
 
 def bounds(flops, nbytes, peaks, passes=1):
@@ -263,21 +333,25 @@ def check_matmul(torch, kmm, peaks):
     return rows, worst
 
 
-def check_adam(torch, kadam, peaks):
-    """B5 at the path shapes, a ragged shape and a first-step (v = 0) case."""
+def check_adam(torch, kadam):
+    """B5 as a group of one at the path shapes, a ragged shape and a
+    first-step (v = 0) case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    beta2, eps, bc1, bc2 = 0.999, 1e-8, 1 - 0.9 ** 4, 1 - 0.999 ** 4
+    beta2, eps, bc1, bc2 = ADAM_SCALARS
     rows, worst = [], 0.0
-    cases = [((384, 384), True, False), ((384, 1536), True, False),
-             ((1536, 384), True, False), ((97, 33), False, False), ((384, 384), False, True),
-             ((8, 4, 384, 384), True, False), ((8, 4, 384, 1536), True, False),
-             ((8, 4, 1536, 384), True, False)]
-    for shape, timed, zero_v in cases:
+    cases = [((384, 384), False), ((384, 1536), False), ((1536, 384), False),
+             ((97, 33), False), ((384, 384), True), ((8, 4, 384, 384), False),
+             ((8, 4, 384, 1536), False), ((8, 4, 1536, 384), False)]
+    for shape, zero_v in cases:
         g = torch.randn(shape, device="cuda", generator=gen) * 1e-3
         m = torch.randn(shape, device="cuda", generator=gen) * 1e-3
         v = torch.zeros(shape, device="cuda") if zero_v else (
             torch.randn(shape, device="cuda", generator=gen).abs() * 1e-6 + 1e-8)
+        before = kadam.adam_scale.launches
         step, v_new = kadam.adam_scale(g, m, v, beta2, eps, bc1, bc2)
+        if kadam.adam_scale.launches != before + 1:
+            raise AssertionError(f"adam_scale {shape}: {kadam.adam_scale.launches - before} "
+                                 "launches")
         s_want, v_want = kadam.adam_scale_plain(g, m, v, beta2, eps, bc1, bc2)
         torch.cuda.synchronize()
         err = max((step - s_want).abs().max().item(), (v_new - v_want).abs().max().item())
@@ -287,15 +361,81 @@ def check_adam(torch, kadam, peaks):
         if not (torch.allclose(step, s_want, rtol=ADAM_RTOL, atol=ADAM_ATOL)
                 and torch.allclose(v_new, v_want, rtol=ADAM_RTOL, atol=ADAM_ATOL)):
             raise AssertionError(f"adam_scale {shape} (v=0: {zero_v}): max abs err {err}")
-        row = {"shape": list(shape), "zero_v": zero_v, "max_abs_err": err, "max_rel_err": rel,
-               "bitwise_equal": bool(torch.equal(step, s_want) and torch.equal(v_new, v_want))}
-        if timed:
-            row["ms"], row["host_ms"] = time_ms(
-                lambda: kadam.adam_scale(g, m, v, beta2, eps, bc1, bc2))
-            row["plain_ms"], _ = time_ms(
-                lambda: kadam.adam_scale_plain(g, m, v, beta2, eps, bc1, bc2))
-            row["bound_ms"] = 1e3 * 20.0 * g.numel() / peaks[1]
+        rows.append({"shape": list(shape), "zero_v": zero_v, "max_abs_err": err,
+                     "max_rel_err": rel, "bitwise_equal": bool(
+                         torch.equal(step, s_want) and torch.equal(v_new, v_want))})
+    return rows, worst
+
+
+def _adam_leaves(torch, gen, shapes):
+    """g, m, v of their own for each leaf shape, at the sizes of a rotated
+    step (v > 0)."""
+    gs, ms, vs = [], [], []
+    for shape in shapes:
+        gs.append(torch.randn(shape, device="cuda", generator=gen) * 1e-3)
+        ms.append(torch.randn(shape, device="cuda", generator=gen) * 1e-3)
+        vs.append(torch.randn(shape, device="cuda", generator=gen).abs() * 1e-6 + 1e-8)
+    return gs, ms, vs
+
+
+def check_adam_groups(torch, kadam, paths, peaks):
+    """The grouped B5 launch over each path's rotated leaves and over a
+    ragged group (a g that starts 4 bytes past a 16-byte boundary, a
+    97 x 33 leaf, empty and batched leaves beside aligned ones). Each leaf
+    has buffers of its own, so a step's 1.13 GB cannot sit in L2. Each group
+    must take one launch, stay within the Adam tolerances of the plain
+    version, and be bitwise equal to its leaves launched alone. Times each
+    path's step cold (``time_leaves_ms``): the grouped launch, the per-leaf
+    sequence of groups of one and the plain version (in runs of at most
+    ``PLAIN_LEAVES_PER_RUN`` leaves).
+    Returns (rows, max_abs_err)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, worst = [], 0.0
+    ragged = [(384, 1536), (384, 384), (97, 33), (0, 16), (8, 4, 40, 24), (5,), (0,)]
+    for name, shapes in (*paths.items(), ("ragged", ragged)):
+        gs, ms, vs = _adam_leaves(torch, gen, shapes)
+        if name == "ragged":
+            off = torch.empty(gs[1].numel() + 1, device="cuda")
+            off[1:] = gs[1].reshape(-1)
+            gs[1] = off[1:].view(gs[1].shape)
+        before = kadam.adam_scale.launches
+        steps, v_news = kadam.adam_scale_grouped(gs, ms, vs, *ADAM_SCALARS)
+        launches = kadam.adam_scale.launches - before
+        err, close, one = 0.0, True, True
+        for g, m, v, s, vn in zip(gs, ms, vs, steps, v_news):
+            s_one, vn_one = kadam.adam_scale(g, m, v, *ADAM_SCALARS)
+            s_p, vn_p = kadam.adam_scale_plain(g, m, v, *ADAM_SCALARS)
+            if g.numel():
+                err = max(err, (s - s_p).abs().max().item(), (vn - vn_p).abs().max().item())
+            close = close and (torch.allclose(s, s_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+                               and torch.allclose(vn, vn_p, rtol=ADAM_RTOL, atol=ADAM_ATOL))
+            one = one and torch.equal(s, s_one) and torch.equal(vn, vn_one)
+        del steps, v_news
+        worst = max(worst, err)
+        if not (launches == 1 and close and one):
+            raise AssertionError(f"adam_scale_grouped {name}: {launches} launches, max abs err "
+                                 f"{err}, bitwise to groups of one {one}")
+        elements = sum(g.numel() for g in gs)
+        row = {"group": name, "leaves": len(shapes), "elements": elements, "max_abs_err": err,
+               "bitwise_groups_of_one": one}
+        if name != "ragged":
+            n = len(gs)
+            for key, per_run, fn in (
+                    ("ms", n, lambda lo, hi: kadam.adam_scale_grouped(
+                        gs[lo:hi], ms[lo:hi], vs[lo:hi], *ADAM_SCALARS)),
+                    ("per_leaf_ms", n, lambda lo, hi: [
+                        kadam.adam_scale(g, m, v, *ADAM_SCALARS)
+                        for g, m, v in zip(gs[lo:hi], ms[lo:hi], vs[lo:hi])]),
+                    ("plain_ms", PLAIN_LEAVES_PER_RUN, lambda lo, hi: [
+                        kadam.adam_scale_plain(g, m, v, *ADAM_SCALARS)
+                        for g, m, v in zip(gs[lo:hi], ms[lo:hi], vs[lo:hi])])):
+                row[key], row["host_" + key], row["leaves_per_run_" + key] = time_leaves_ms(
+                    fn, n, per_run, split=key != "ms")
+            row["bound_ms"] = 1e3 * 20.0 * elements / peaks[1]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
+        del gs, ms, vs
+        torch.cuda.empty_cache()
     return rows, worst
 
 
@@ -532,27 +672,36 @@ def main() -> int:
     # phase 1: the card and the build
     lib = build.load_library()
     (OUT_DIR / "nvcc_log.txt").write_text(lib.log)
+    adam_ptxas = ptxas_report(lib.log, "adam_scale_grouped_kernel") if lib.log else None
+    if adam_ptxas is not None and (not adam_ptxas or any(
+            r["spill_stores"] != 0 for r in adam_ptxas.values())):
+        raise AssertionError(f"adam_scale_grouped_kernel: ptxas report {adam_ptxas}")
     emit({"phase": "device", "nvidia_smi": smi, "kind": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_for": part,
           "f32_peak_tflops": peaks[0] / 1e12, "mem_tb_s": peaks[1] / 1e12,
           "tf32_peak_tflops": peaks[2] / 1e12,
-          "build_s": lib.build_seconds, "library": lib.path.name})
+          "build_s": lib.build_seconds, "library": lib.path.name,
+          "adam_ptxas": adam_ptxas})
 
     # phase 2: each kernel against its plain version. B4 per shape as a
     # group of one, then as the grouped launches of the sim and SPMD paths
     # (K stages of L / K layers each)
     cfg = get_config("paper_95m")
     K, M, L = 8, 8, cfg.num_layers
-    (groups, adam_counts), (sgroups, sadam_counts) = path_groups(cfg), path_groups(cfg, K)
+    (groups, adam_leaves), (sgroups, sadam_leaves) = path_groups(cfg), path_groups(cfg, K)
     mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
     mm_rows, mm_err = check_matmul(torch, kmm, peaks)
     grp_rows, grp_err = check_matmul_groups(torch, kmm, {"sim": groups, "spmd": sgroups}, peaks)
     mm_err = max(mm_err, grp_err)
-    adam_rows, adam_err = check_adam(torch, kadam, peaks)
+    adam_rows, adam_err = check_adam(torch, kadam)
+    agrp_rows, agrp_err = check_adam_groups(torch, kadam, {"sim": adam_leaves,
+                                                           "spmd": sadam_leaves}, peaks)
+    adam_err = max(adam_err, agrp_err)
     flash_rows, flash_errs, flash_t = check_flash(torch, kflash, peaks)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
         {"matmul": mm_rows, "matmul_grouped": grp_rows, "adam_scale": adam_rows,
+         "adam_scale_grouped": agrp_rows,
          "flash": flash_rows, "flash_timing_per_launch": flash_t}, indent=1))
     emit({"phase": "kernels", "matmul_cases": len(mm_rows) + len(grp_rows),
           "matmul_max_abs_err": mm_err,
@@ -560,6 +709,10 @@ def main() -> int:
           "adam_cases": len(adam_rows), "adam_max_abs_err": adam_err,
           "adam_max_rel_err": max(r["max_rel_err"] for r in adam_rows),
           "adam_bitwise_equal": all(r["bitwise_equal"] for r in adam_rows),
+          "adam_grouped": {r["group"]: {k: r[k] for k in (
+              "leaves", "ms", "per_leaf_ms", "plain_ms", "bound_ms", "bound_share", "host_ms",
+              "host_per_leaf_ms", "leaves_per_run_per_leaf_ms", "leaves_per_run_plain_ms")
+              if k in r} for r in agrp_rows},
           "flash_cases": len(flash_rows), "flash_max_abs_err": flash_errs,
           "flash_ms_per_launch": {k: {f: t[f] for f in ("ms", "plain_ms", "library_ms",
                                                         "bound_ms", "host_ms")}
@@ -573,8 +726,9 @@ def main() -> int:
     # phase 3: the sim path
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])
     want = {k: 0 for k in kernels}
-    want.update(matmul=steps * sum(1 for g in groups if g),
-                adam_scale=steps * sum(adam_counts.values()))
+    adam_per_step = -(-len(adam_leaves) // kadam.MAX_LEAVES)  # one grouped launch
+    sadam_per_step = -(-len(sadam_leaves) // kadam.MAX_LEAVES)
+    want.update(matmul=steps * sum(1 for g in groups if g), adam_scale=steps * adam_per_step)
     sim = run_path(train, torch, kernels, MAIN_ARGS, want)
     emit({"phase": "main_path", **sim})
 
@@ -587,7 +741,7 @@ def main() -> int:
         fwd = 2 if schedule == "1f1b" else 1  # 1F1B recomputes in its backward
         want = {"flash_fwd": n * fwd * M * L, "flash_bwd_dq": n * M * L,
                 "flash_bwd_dkv": n * M * L, "matmul": n * sum(1 for g in sgroups if g),
-                "adam_scale": n * sum(sadam_counts.values())}
+                "adam_scale": n * sadam_per_step}
         spmd[schedule] = run_path(train, torch, kernels, args, want)
         emit({"phase": f"spmd_{schedule}", **spmd[schedule]})
 
@@ -613,8 +767,10 @@ def main() -> int:
 
     # the kernel table. B4 and B5: per training step of the sim path (B4: its
     # four grouped launches; the plain and library times summed per product
-    # over the step's products); B1-B3: per training step of the SPMD 1F1B
-    # path (launches per step times the per-launch time at the path shape).
+    # over the step's products; B5: its grouped launch over the step's
+    # leaves, cold, with the per-leaf sequence beside it); B1-B3: per
+    # training step of the SPMD 1F1B path (launches per step times the
+    # per-launch time at the path shape).
     # Bounds: B4 and B1-B3 on the tensor route (3xTF32), with the float32
     # FMA route beside them; B5 as it runs, on the FMA pipes.
     shape_key = lambda r: (*r["shape"], r["trans_a"], r["trans_b"])  # noqa: E731
@@ -622,11 +778,11 @@ def main() -> int:
     smm_tot = per_step(mm_rows, smm_counts, shape_key)
     grouped = {path: {f: sum(r[f] for r in grp_rows if r["group"].startswith(path + "/"))
                       for f in ("ms", "plain_ms")} for path in ("sim", "spmd")}
-    adam_tot = per_step(adam_rows, adam_counts, lambda r: tuple(r["shape"]))
+    b5_step = {r["group"]: r for r in agrp_rows}
     mm_bound, mm_bound_f32, mm_by = bounds(*mm_work([p for g in groups for p in g]), peaks,
                                            TF32_PASSES)
-    adam_bytes = sum(20.0 * math.prod(sh) * c for sh, c in adam_counts.items())
-    adam_flops = sum(10.0 * math.prod(sh) * c for sh, c in adam_counts.items())
+    adam_bytes = sum(20.0 * math.prod(sh) for sh in adam_leaves)
+    adam_flops = sum(10.0 * math.prod(sh) for sh in adam_leaves)
     _, adam_bound, _ = bounds(adam_flops, adam_bytes, peaks)
     rows = [{
         "name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -639,10 +795,14 @@ def main() -> int:
     }, {
         "name": "adam_scale", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adam_step.cu",
         "replaces": "src/repro/kernels/adam_step.py:28", "launches": sim["launches"]["adam_scale"],
-        "max_abs_err": adam_err, "ms": adam_tot["ms"], "plain_ms": adam_tot["plain_ms"],
+        "max_abs_err": adam_err, "ms": b5_step["sim"]["ms"],
+        "per_leaf_ms": b5_step["sim"]["per_leaf_ms"], "plain_ms": b5_step["sim"]["plain_ms"],
         "bound_ms": adam_bound,
         "bound_by": "operations" if adam_flops / peaks[0] >= adam_bytes / peaks[1] else "bytes",
-        "library_ms": None,
+        "library_ms": None, "spmd_ms": b5_step["spmd"]["ms"],
+        "spmd_per_leaf_ms": b5_step["spmd"]["per_leaf_ms"],
+        "spmd_plain_ms": b5_step["spmd"]["plain_ms"],
+        "spmd_launches_1f1b": spmd["1f1b"]["launches"]["adam_scale"],
     }]
     onef = spmd["1f1b"]
     bound_fp32 = {"matmul": mm_bound_f32}  # computed, so kept off the kernels line
@@ -667,7 +827,9 @@ def main() -> int:
     (OUT_DIR / "chip_smoke_summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": rows, "note": "ms, plain_ms, bound_ms and library_ms "
          "are per training step: B4 and B5 of the sim path, B1-B3 of the SPMD 1F1B path; "
-         "launches are the counts of those runs. B4's spmd_* keys are per SPMD step. "
+         "launches are the counts of those runs. B4's and B5's spmd_* keys are per SPMD step. "
+         "B5's ms is its grouped launch over the step's leaves, each with buffers of its own "
+         "(cold in L2), per_leaf_ms the same leaves launched one by one. "
          "bound_ms of B4 and B1-B3 is the tensor route (3xTF32 at the TF32 rate, or bytes), "
          "bound_fp32_ms the float32 FMA route, per training step likewise. blocks_per_launch "
          "is the grid that B1-B3's launches recorded at the path shape. The library time of B2 and of B3 is the "

@@ -88,18 +88,17 @@ def _refresh_ops(g, m, ops, freq: FreqSpec, step: int, source: str, beta2: float
 
 def _kernel_steps(kops, rotated, updates, lr, beta2, eps, bc1, bc2) -> None:
     """The rotated leaves' steps through the kernels, all leaves at once:
-    one grouped launch each for U^T [G, M], [G, M] V, U S and S V^T, and the
-    fused Adam scale per leaf between them. Fills ``updates`` and each
+    one grouped launch each for U^T [G, M], [G, M] V, U S and S V^T, and one
+    grouped fused Adam scale between them. Fills ``updates`` and each
     leaf's new ``v``. On the CPU every product is the same ``torch.matmul``
-    as a leaf-by-leaf rotation, so the two agree bitwise."""
+    and every Adam scale the same plain expression as a leaf-by-leaf
+    rotation, so the two agree bitwise."""
     _, gs, ms, Us, Vs, vs, nsts = zip(*rotated)
     n = len(rotated)
     rot = kops.two_sided_rotate_grouped(gs + ms, Us + Us, Vs + Vs, transpose=True)
-    steps = []
-    for i in range(n):
-        step_rot, nsts[i]["v"] = kops.adam_scale(rot[i], rot[n + i], vs[i], beta2, eps,
-                                                 bc1, bc2)
-        steps.append(step_rot)
+    steps, v_news = kops.adam_scale_grouped(rot[:n], rot[n:], vs, beta2, eps, bc1, bc2)
+    for nst, v in zip(nsts, v_news):
+        nst["v"] = v
     del rot  # the rotated gradients and momenta are dead before the back-rotation
     back = kops.two_sided_rotate_grouped(steps, Us, Vs, transpose=False)
     for (k, *_), u in zip(rotated, back):

@@ -1,9 +1,12 @@
-"""Fused second-moment / step update of the rotated Adam.
+"""Fused second-moment / step update of the rotated Adam, over a group of leaves.
 
 Port of ``repro/kernels/adam_step.py::fused_adam_scale`` (Pallas
-``_adam_kernel``). The CUDA kernel is ``csrc/adam_step.cu``. ``adam_scale``
-dispatches on the tensors' device: CPU tensors take ``adam_scale_plain``,
-CUDA tensors launch the kernel or raise.
+``_adam_kernel``). The CUDA kernel is ``csrc/adam_step.cu``; its header says
+what bounds it and how it is built. One launch updates a whole group of
+leaves of any shapes; ``adam_scale`` is a group of one. CPU tensors take
+``adam_scale_plain``, CUDA tensors launch the kernel or raise.
+``adam_scale.launches`` counts launches of the kernel, one per group of up
+to ``MAX_LEAVES`` leaves that holds any element.
 
 Computes, in float32:
     v'   = b2 * v + (1 - b2) * g^2
@@ -13,7 +16,7 @@ and (1 - b2) is formed from float32 b2.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +24,16 @@ import torch
 from repro_torch.kernels.build import check, load_library
 
 Tensor = torch.Tensor
+
+THREADS = 256  # threads of one block: csrc/adam_step.cu's THREADS
+MAX_LEAVES = 256  # leaves one launch's parameter table holds
+CHUNK_MIN, CHUNK_MAX = 4 * THREADS, 32 * THREADS  # elements one block takes
+FILL_BLOCKS = 1024  # blocks a launch should have before its chunks grow past CHUNK_MIN
+
+# one launch's parameter table: the g, m, v, step, v' addresses (int64, (L, 5)), the
+# element counts (int64, L), the 16-byte-load flags (int32, L), the chunk prefix sum
+# (int32, L + 1) and the chunk size in elements
+Table = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]
 
 
 def _scalars(beta2, eps, bc1, bc2):
@@ -39,32 +52,101 @@ def adam_scale_plain(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
     return step, v_new
 
 
-def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
-               bc1: float, bc2: float) -> Tuple[Tensor, Tensor]:
-    """(step, v') for float32 g, m, v of one shape; scalars are host floats."""
-    if g.device.type == "cpu" and m.device.type == "cpu" and v.device.type == "cpu":
-        return adam_scale_plain(g, m, v, beta2, eps, bc1, bc2)
-    if not (g.is_cuda and g.device == m.device == v.device):
-        raise ValueError(f"adam_scale: tensors on {g.device}, {m.device}, {v.device}")
+def chunk_size(elements: int) -> int:
+    """Elements per block for a launch over ``elements`` in all: the largest
+    power of two from ``CHUNK_MIN`` to ``CHUNK_MAX`` that still gives about
+    ``FILL_BLOCKS`` blocks, so a whole step takes long chunks and a lone
+    small leaf still spreads over the card."""
+    chunk = CHUNK_MAX
+    while chunk > CHUNK_MIN and elements < chunk * FILL_BLOCKS:
+        chunk //= 2
+    return chunk
+
+
+def launch_tables(ptrs: Sequence[Tuple[int, int, int, int, int]],
+                  numels: Sequence[int]) -> List[Table]:
+    """The kernel's parameter tables, one per launch of up to ``MAX_LEAVES``
+    leaves in the given order. A leaf's flag is 1 when its five addresses
+    are 16-byte aligned and its length is a multiple of 4, so the kernel
+    may move it by 16-byte loads and stores. Leaf i holds chunks
+    ``start[i] <= c < start[i + 1]``, each of ``chunk`` elements but its
+    last; a leaf with no elements holds none."""
+    ptrs = np.asarray(ptrs, dtype=np.int64).reshape(-1, 5)
+    n = np.asarray(numels, dtype=np.int64).reshape(-1)
+    vec = ((ptrs % 16 == 0).all(axis=1) & (n % 4 == 0)).astype(np.int32)
+    tables = []
+    for first in range(0, len(n), MAX_LEAVES):
+        part = slice(first, first + MAX_LEAVES)
+        chunk = chunk_size(int(n[part].sum()))
+        start = np.concatenate([[0], np.cumsum(-(-n[part] // chunk))])
+        if start[-1] >= 2 ** 31:
+            raise ValueError(f"adam_scale_grouped: {start[-1]} chunks in one launch")
+        tables.append((np.ascontiguousarray(ptrs[part]), np.ascontiguousarray(n[part]),
+                       np.ascontiguousarray(vec[part]), start.astype(np.int32), chunk))
+    return tables
+
+
+def _check(i: int, g: Tensor, m: Tensor, v: Tensor, device: torch.device) -> None:
+    """Raise on a leaf the kernel does not take."""
+    if not (g.device == m.device == v.device == device):
+        raise ValueError(f"adam_scale_grouped: leaf {i} on {g.device}, {m.device}, {v.device}"
+                         f" in a group on {device}")
     if not (g.dtype == m.dtype == v.dtype == torch.float32):
-        raise TypeError(f"adam_scale: float32 only, got {g.dtype}, {m.dtype}, {v.dtype}")
+        raise TypeError(f"adam_scale_grouped: leaf {i}: float32 only, got {g.dtype}, "
+                        f"{m.dtype}, {v.dtype}")
     if not (g.shape == m.shape == v.shape):
-        raise ValueError(f"adam_scale: shapes differ {g.shape}, {m.shape}, {v.shape}")
+        raise ValueError(f"adam_scale_grouped: leaf {i}: shapes differ {tuple(g.shape)}, "
+                         f"{tuple(m.shape)}, {tuple(v.shape)}")
     if not (g.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
-        raise ValueError("adam_scale: tensors must be contiguous")
-    step = torch.empty_like(g)
-    v_new = torch.empty_like(g)
-    if g.numel() == 0:
-        return step, v_new
+        raise ValueError(f"adam_scale_grouped: leaf {i}: tensors must be contiguous")
+
+
+def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[Tensor],
+                       beta2: float, eps: float, bc1: float, bc2: float
+                       ) -> Tuple[List[Tensor], List[Tensor]]:
+    """([step_i], [v'_i]) for lists of float32 g_i, m_i, v_i (one shape per
+    leaf, contiguous; shapes differ from leaf to leaf); scalars are host
+    floats. Every output has storage of its own, allocated step, v' leaf by
+    leaf as launches of one leaf each allocated them: each v'_i outlives the
+    step as optimizer state."""
+    if not (len(gs) == len(ms) == len(vs)):
+        raise ValueError(f"adam_scale_grouped: {len(gs)} g, {len(ms)} m, {len(vs)} v")
+    if not gs:
+        return [], []
+    if all(x.device.type == "cpu" for x in (*gs, *ms, *vs)):
+        pairs = [adam_scale_plain(g, m, v, beta2, eps, bc1, bc2) for g, m, v in zip(gs, ms, vs)]
+        return [s for s, _ in pairs], [vn for _, vn in pairs]
+    device = gs[0].device
+    if not gs[0].is_cuda:
+        raise ValueError(f"adam_scale_grouped: tensors on {device}, not on a CUDA device")
+    for i, (g, m, v) in enumerate(zip(gs, ms, vs)):
+        _check(i, g, m, v, device)
+    outs = [(torch.empty_like(g), torch.empty_like(g)) for g in gs]
+    steps, v_news = [s for s, _ in outs], [vn for _, vn in outs]
+    ptrs = [(g.data_ptr(), m.data_ptr(), v.data_ptr(), s.data_ptr(), vn.data_ptr())
+            for g, m, v, (s, vn) in zip(gs, ms, vs, outs)]
     b2, _, eps, bc1, bc2 = _scalars(beta2, eps, bc1, bc2)
     lib = load_library().lib
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    check(lib.rbr_adam_scale_f32(g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                                 step.data_ptr(), v_new.data_ptr(), g.numel(),
-                                 b2, eps, bc1, bc2, g.device.index, stream),
-          "adam_scale")
-    adam_scale.launches += 1
-    return step, v_new
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for p, n, vec, start, chunk in launch_tables(ptrs, [g.numel() for g in gs]):
+        if start[-1] == 0:
+            continue  # no leaf of this part holds an element
+        check(lib.rbr_adam_scale_grouped_f32(p.ctypes.data, n.ctypes.data, vec.ctypes.data,
+                                             start.ctypes.data, len(n), chunk, b2, eps, bc1,
+                                             bc2, device.index, stream),
+              "adam_scale_grouped")
+        adam_scale.launches += 1
+    return steps, v_news
+
+
+def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
+               bc1: float, bc2: float) -> Tuple[Tensor, Tensor]:
+    """(step, v') for float32 g, m, v of one shape: ``adam_scale_grouped``
+    over a group of one."""
+    if g.device.type == "cpu" and m.device.type == "cpu" and v.device.type == "cpu":
+        return adam_scale_plain(g, m, v, beta2, eps, bc1, bc2)
+    steps, v_news = adam_scale_grouped([g], [m], [v], beta2, eps, bc1, bc2)
+    return steps[0], v_news[0]
 
 
 adam_scale.launches = 0

@@ -27,13 +27,15 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # ptrs (int64 A, B, C per problem), dims (int32 M, N, K, batch, flags per
     # problem), tile_start (int32, count + 1), count, trans_a, trans_b, device, stream
     "rbr_matmul_grouped_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # g, m, v, step, v_out, n, b2, eps, bc1, bc2, device, stream
-    "rbr_adam_scale_f32": (_P, _P, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _P),
+    # ptrs (int64 g, m, v, step, v_out per leaf), n (int64 per leaf), vec (int32 per
+    # leaf), chunk_start (int32, count + 1), count, chunk, b2, eps, bc1, bc2, device,
+    # stream
+    "rbr_adam_scale_grouped_f32": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
     # q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device, stream
     "rbr_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device, stream

@@ -1,7 +1,8 @@
 """Public wrappers over the kernels. Port of ``repro/kernels/ops.py``
 (``two_sided_rotate``, ``adam_scale``, ``attention``), plus
 ``two_sided_rotate_grouped``, which rotates a list of leaves in two
-grouped launches.
+grouped launches, and ``adam_scale_grouped``, which updates a list of
+leaves in one.
 
 Leading batch dims fold into the kernels' own batch axis instead of a vmap,
 and operands are made contiguous here (a no-op for the contiguous tensors of
@@ -52,6 +53,15 @@ def two_sided_rotate(x: Tensor, U: Optional[Tensor] = None, V: Optional[Tensor] 
     """U^T x V (transpose=True) or U x V^T (transpose=False) for one leaf:
     ``two_sided_rotate_grouped`` over a group of one."""
     return two_sided_rotate_grouped([x], [U], [V], transpose=transpose)[0]
+
+
+def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[Tensor],
+                       beta2: float, eps: float, bc1: float,
+                       bc2: float) -> Tuple[List[Tensor], List[Tensor]]:
+    """Fused ([step_dir_i], [v_new_i]) over a list of leaves of any shapes,
+    in one launch."""
+    gs, ms, vs = ([x.float().contiguous() for x in xs] for xs in (gs, ms, vs))
+    return adam_step.adam_scale_grouped(gs, ms, vs, beta2, eps, bc1, bc2)
 
 
 def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,

@@ -32,7 +32,7 @@ from repro_torch.launch import train
 
 GROUPS = (  # first match wins; names are the kernels' symbol names
     ("port: matmul.cu", ("grouped_tf32x3_kernel<",)),
-    ("port: adam_step.cu", ("adam_scale_vec4", "adam_scale_scalar")),
+    ("port: adam_step.cu", ("adam_scale_grouped_kernel",)),
     ("port: flash_fwd.cu (B1)", ("flash_fwd_kernel",)),
     ("port: flash_bwd.cu dq (B2)", ("flash_bwd_dq_kernel",)),
     ("port: flash_bwd.cu dkv (B3)", ("flash_bwd_dkv_kernel",)),

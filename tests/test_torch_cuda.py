@@ -98,6 +98,78 @@ def test_adam_kernel_matches_plain_on_card(cuda, shape):
     torch.testing.assert_close(vn, vn_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
 
 
+def _adam_group(cuda, shapes, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    gs, ms, vs = [], [], []
+    for shape in shapes:
+        gs.append(torch.randn(shape, device=cuda, generator=gen))
+        ms.append(torch.randn(shape, device=cuda, generator=gen))
+        v = torch.randn(shape, device=cuda, generator=gen).abs()
+        if v.numel():
+            v.view(-1)[:7] = 0.0
+        vs.append(v)
+    return gs, ms, vs
+
+
+@pytest.mark.cuda
+def test_adam_grouped_kernel_matches_plain_and_groups_of_one_on_card(cuda):
+    """One launch over aligned leaves beside a leaf whose g starts 4 bytes
+    past a 16-byte boundary, a leaf of 97 x 33 (n % 4 == 1), a batched leaf
+    and empty leaves: within the tolerances of the plain version, and
+    bitwise equal to each leaf launched alone."""
+    shapes = [(384, 1536), (384, 384), (97, 33), (0, 16), (8, 4, 40, 24), (5,), (0,)]
+    gs, ms, vs = _adam_group(cuda, shapes, 5)
+    off = torch.empty(gs[1].numel() + 1, device=cuda)
+    off[1:] = gs[1].reshape(-1)
+    gs[1] = off[1:].view(shapes[1])
+    assert gs[1].data_ptr() % 16 == 4
+    scal = (0.999, 1e-8, 0.5, 0.25)
+    before = tadam.adam_scale.launches
+    steps, v_news = tadam.adam_scale_grouped(gs, ms, vs, *scal)
+    assert tadam.adam_scale.launches == before + 1
+    for g, m, v, s, vn in zip(gs, ms, vs, steps, v_news):
+        s_p, vn_p = tadam.adam_scale_plain(g, m, v, *scal)
+        torch.testing.assert_close(s, s_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+        torch.testing.assert_close(vn, vn_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+        s_one, vn_one = tadam.adam_scale(g, m, v, *scal)
+        assert torch.equal(s, s_one) and torch.equal(vn, vn_one)
+        assert s.data_ptr() % 16 == 0 and vn.data_ptr() % 16 == 0
+
+
+@pytest.mark.cuda
+def test_adam_grouped_kernel_splits_past_max_leaves_on_card(cuda):
+    """A group of 2 * MAX_LEAVES + 3 leaves takes three launches; a group
+    whose leaves are all empty takes none."""
+    shapes = [(3 + i % 5, 4 + i % 3) for i in range(2 * tadam.MAX_LEAVES + 3)]
+    gs, ms, vs = _adam_group(cuda, shapes, 6)
+    before = tadam.adam_scale.launches
+    steps, v_news = tadam.adam_scale_grouped(gs, ms, vs, 0.999, 1e-8, 0.9, 0.1)
+    assert tadam.adam_scale.launches == before + 3
+    for g, m, v, s, vn in zip(gs, ms, vs, steps, v_news):
+        s_p, vn_p = tadam.adam_scale_plain(g, m, v, 0.999, 1e-8, 0.9, 0.1)
+        torch.testing.assert_close(s, s_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+        torch.testing.assert_close(vn, vn_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+    empty = [torch.empty(0, 4, device=cuda)] * 3
+    out = tadam.adam_scale_grouped(empty, empty, empty, 0.999, 1e-8, 0.9, 0.1)
+    assert tadam.adam_scale.launches == before + 3
+    assert [x.shape for x in out[0] + out[1]] == [(0, 4)] * 6
+    assert tadam.adam_scale_grouped([], [], [], 0.999, 1e-8, 0.9, 0.1) == ([], [])
+
+
+@pytest.mark.cuda
+def test_adam_kernel_refuses_what_it_does_not_take(cuda):
+    a = torch.randn(64, 32, device=cuda)
+    scal = (0.999, 1e-8, 0.5, 0.25)
+    with pytest.raises(TypeError):
+        tadam.adam_scale_grouped([a, a.double()], [a, a.double()], [a, a.double()], *scal)
+    with pytest.raises(ValueError):
+        tadam.adam_scale_grouped([a, a.mT], [a, a.mT], [a, a.mT], *scal)  # not contiguous
+    with pytest.raises(ValueError):
+        tadam.adam_scale_grouped([a, a.cpu()], [a, a.cpu()], [a, a.cpu()], *scal)
+    with pytest.raises(ValueError):
+        tadam.adam_scale(a, a, a[:32], *scal)  # shapes differ
+
+
 def _heads(cuda, shape, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     return [torch.randn(shape, device=cuda, generator=gen) for _ in range(4)]

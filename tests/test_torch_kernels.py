@@ -244,3 +244,89 @@ def test_adam_scale_plain_follows_the_kernel_arithmetic(shape):
     s_k, vn_k = jops.adam_scale(_j(g), _j(m), _j(v), *scal)
     np.testing.assert_allclose(s.numpy(), np.asarray(s_k), rtol=ADAM_RTOL, atol=ADAM_ATOL)
     np.testing.assert_allclose(vn.numpy(), np.asarray(vn_k), rtol=ADAM_RTOL, atol=ADAM_ATOL)
+
+
+# a ragged group: 2-D, stacked 4-D, odd-sized, 1-D and empty leaves
+ADAM_GROUP = [(64, 64), (2, 3, 16, 24), (17, 33), (0, 8), (7,), (3, 0, 5), (40, 24)]
+
+
+@pytest.mark.parametrize("shapes", [ADAM_GROUP, ADAM_GROUP[:1], []])
+def test_adam_scale_grouped_is_the_plain_loop_and_matches_reference(shapes):
+    """On the CPU the grouped wrapper is the loop of the plain version,
+    bitwise, leaf by leaf; each leaf with elements also matches the Pallas
+    kernel (interpret mode), within test_adam_scale_matches_reference's
+    tolerance."""
+    leaves = [_adam_inputs(shape, 20 + i, 1e-3) for i, shape in enumerate(shapes)]
+    scal = (0.999, 1e-8, 0.5, 0.25)
+    gs, ms, vs = ([_t(leaf[j]) for leaf in leaves] for j in range(3))
+    steps, v_news = tadam.adam_scale_grouped(gs, ms, vs, *scal)
+    assert len(steps) == len(v_news) == len(shapes)
+    for (g, m, v), s, vn in zip(leaves, steps, v_news):
+        s_p, vn_p = tadam.adam_scale_plain(_t(g), _t(m), _t(v), *scal)
+        assert s.shape == vn.shape == g.shape
+        assert torch.equal(s, s_p) and torch.equal(vn, vn_p)
+        if g.size:
+            s_k, vn_k = jops.adam_scale(_j(g), _j(m), _j(v), *scal)
+            np.testing.assert_allclose(s.numpy(), np.asarray(s_k), rtol=ADAM_RTOL,
+                                       atol=ADAM_ATOL)
+            np.testing.assert_allclose(vn.numpy(), np.asarray(vn_k), rtol=ADAM_RTOL,
+                                       atol=ADAM_ATOL)
+    via_ops = tops.adam_scale_grouped(gs, ms, vs, *scal)
+    assert all(torch.equal(a, b) for a, b in zip(via_ops[0] + via_ops[1], steps + v_news))
+
+
+def _chunk_owner(start, chunk):
+    """The leaf the kernel's binary search gives chunk ``chunk``."""
+    lo, hi = 0, len(start) - 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if start[mid] <= chunk:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+@pytest.mark.parametrize("numels", [
+    [147456] * 128 + [589824] * 64,  # the sim path's 192 leaves
+    [4718592] * 4 + [18874368] * 2,  # the SPMD path's 6 stacked leaves
+    [0, 5, 0, 4096, 1023, 1, 0],  # ragged, empty leaves at both ends
+    [3 * 2 ** 31 + 5, 12],  # a leaf past 2^31 elements
+    list(range(0, 2 * tadam.MAX_LEAVES + 3, 1)),  # three launches
+])
+def test_adam_launch_tables_cover_every_element_once(numels):
+    """Without a card: the launch tables split the group at MAX_LEAVES,
+    keep the leaves in order with 64-bit counts, and give every element of
+    every leaf to exactly one chunk, as the kernel's search reads them."""
+    rng = np.random.RandomState(5)
+    ptrs = [tuple(int(x) for x in 16 * rng.randint(1, 2 ** 40, size=5)) for _ in numels]
+    tables = tadam.launch_tables(ptrs, numels)
+    assert len(tables) == -(-len(numels) // tadam.MAX_LEAVES)
+    seen = []
+    for p, n, vec, start, chunk in tables:
+        assert p.dtype == n.dtype == np.int64 and vec.dtype == start.dtype == np.int32
+        assert len(p) == len(n) == len(vec) == len(start) - 1 <= tadam.MAX_LEAVES
+        assert chunk == tadam.chunk_size(int(n.sum()))
+        assert chunk % (4 * tadam.THREADS) == 0
+        assert tadam.CHUNK_MIN <= chunk <= tadam.CHUNK_MAX
+        assert start[0] == 0 and all(np.diff(start) == -(-n // chunk))
+        owners = [_chunk_owner(start, c) for c in range(start[-1])]
+        for i, count in enumerate(n):  # leaf i's chunks are its own, in order, and cover it
+            mine = [c for c, o in enumerate(owners) if o == i]
+            assert mine == list(range(start[i], start[i + 1]))
+            assert len(mine) * chunk >= count > (len(mine) - 1) * chunk
+        seen += [tuple(int(x) for x in row) for row in p]
+    assert seen == ptrs
+    assert [int(x) for t in tables for x in t[1]] == list(numels)
+
+
+def test_adam_launch_table_flags_need_aligned_pointers_and_whole_vectors():
+    base = 1 << 20
+    ptrs = [(base,) * 5, (base,) * 5, (base,) * 4 + (base + 4,), (base + 8,) + (base,) * 4,
+            (base,) * 5]
+    numels = [4096, 4098, 4096, 4096, 0]
+    (_, _, vec, start, chunk), = tadam.launch_tables(ptrs, numels)
+    assert vec.tolist() == [1, 0, 0, 0, 1]
+    assert chunk == tadam.CHUNK_MIN and start.tolist() == [0, 4, 9, 13, 17, 17]
+    assert tadam.chunk_size(56_623_104) == tadam.CHUNK_MAX  # a paper_95m step's elements
+    assert tadam.chunk_size(384 * 384) == tadam.CHUNK_MIN  # one 384 x 384 leaf: 144 blocks

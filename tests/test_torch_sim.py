@@ -89,22 +89,24 @@ def test_main_path_hands_the_kernels_what_they_take(monkeypatch):
     """The CUDA wrappers take only contiguous float32 operands and raise on
     anything else. On the CPU they never check, so this run checks for them,
     and counts the calls the main path makes: four grouped products per step
-    holding six products per rotated leaf, and one Adam scale per rotated
-    leaf per step, as the launch counters on the card expect."""
+    holding six products per rotated leaf, and one grouped Adam scale per
+    step holding every rotated leaf, as the launch counters on the card
+    expect."""
     from repro_torch.kernels import adam_step, ops
 
-    calls = {"matmul_grouped": 0, "products": 0, "adam_scale": 0}
-    adam_scale, matmul_grouped = adam_step.adam_scale, ops.matmul_grouped
+    calls = {"matmul_grouped": 0, "products": 0, "adam_scale_grouped": 0, "adam_leaves": []}
+    adam_scale_grouped, matmul_grouped = adam_step.adam_scale_grouped, ops.matmul_grouped
 
     def check(name, tensors):
         for x in tensors:
             if isinstance(x, torch.Tensor):
                 assert x.dtype == torch.float32 and x.is_contiguous(), name
 
-    def strict_adam(*tensors, **kw):
-        check("adam_scale", tensors)
-        calls["adam_scale"] += 1
-        return adam_scale(*tensors, **kw)
+    def strict_adam(gs, ms, vs, *scalars, **kw):
+        check("adam_scale_grouped", (*gs, *ms, *vs))
+        calls["adam_scale_grouped"] += 1
+        calls["adam_leaves"].append(len(gs))
+        return adam_scale_grouped(gs, ms, vs, *scalars, **kw)
 
     def strict_grouped(As, Bs, **kw):
         check("matmul_grouped", (*As, *Bs))
@@ -113,13 +115,13 @@ def test_main_path_hands_the_kernels_what_they_take(monkeypatch):
         return matmul_grouped(As, Bs, **kw)
 
     monkeypatch.setattr(ops, "matmul_grouped", strict_grouped)
-    monkeypatch.setattr(adam_step, "adam_scale", strict_adam)
+    monkeypatch.setattr(adam_step, "adam_scale_grouped", strict_adam)
     steps = 3  # the refresh at step 0, then steps on the refreshed bases
     train.main(["--smoke", "--stages", "2", "--steps", str(steps), "--batch", "2",
                 "--seq", "16", "--use-kernels", "--log-every", "0", "--device", "cpu"])
     rotated = 12  # 2 layers x (w_q, w_k, w_v, w_o, w_up, w_down)
     assert calls == {"matmul_grouped": 4 * steps, "products": 6 * rotated * steps,
-                     "adam_scale": rotated * steps}
+                     "adam_scale_grouped": steps, "adam_leaves": [rotated] * steps}
 
 
 def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):

@@ -327,8 +327,8 @@ def test_train_main_spmd_backend_on_cpu(monkeypatch, schedule):
     versions: every kernel wrapper is handed contiguous float32 tensors, and
     is called as often per step as the launch counts on the card expect
     (B1 M*L for fill-drain, 2*M*L for 1F1B; B2, B3 M*L; B4 four grouped
-    products holding six products per rotated leaf kind, B5 one per kind,
-    batched over the stacked layers)."""
+    products holding six products per rotated leaf kind, B5 one grouped call
+    holding every kind, each batched over the stacked layers)."""
     from repro_torch.kernels import adam_step, flash, ops
 
     calls = {}
@@ -353,10 +353,19 @@ def test_train_main_spmd_backend_on_cpu(monkeypatch, schedule):
             return fn(As, Bs, **kw)
         return wrapped
 
-    for mod, name in ((flash, "flash_fwd"), (flash, "flash_bwd_dq"), (flash, "flash_bwd_dkv"),
-                      (adam_step, "adam_scale")):
+    def strict_adam(fn):
+        def wrapped(gs, ms, vs, *scalars, **kw):
+            check("adam_scale_grouped", (*gs, *ms, *vs))
+            calls["adam_scale_grouped"] = calls.get("adam_scale_grouped", 0) + 1
+            calls.setdefault("adam_leaves", []).append(len(gs))
+            return fn(gs, ms, vs, *scalars, **kw)
+        return wrapped
+
+    for mod, name in ((flash, "flash_fwd"), (flash, "flash_bwd_dq"), (flash, "flash_bwd_dkv")):
         monkeypatch.setattr(mod, name, strict(name, getattr(mod, name)))
     monkeypatch.setattr(ops, "matmul_grouped", strict_grouped(ops.matmul_grouped))
+    monkeypatch.setattr(adam_step, "adam_scale_grouped",
+                        strict_adam(adam_step.adam_scale_grouped))
     steps, stages, layers = 3, 2, 2
     res = train.main(["--smoke", "--backend", "spmd", "--schedule", schedule, "--stages",
                       str(stages), "--steps", str(steps), "--batch", "4", "--seq", "16",
@@ -366,4 +375,4 @@ def test_train_main_spmd_backend_on_cpu(monkeypatch, schedule):
     assert calls == {"flash_fwd": (2 if schedule == "1f1b" else 1) * ml * steps,
                      "flash_bwd_dq": ml * steps, "flash_bwd_dkv": ml * steps,
                      "matmul_grouped": 4 * steps, "products": 6 * 6 * steps,
-                     "adam_scale": 6 * steps}
+                     "adam_scale_grouped": steps, "adam_leaves": [6] * steps}
