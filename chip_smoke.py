@@ -29,10 +29,26 @@
    schedule's length is the step count, so the two curves differ after the
    first steps). Checks finite losses and the exact launch counts of all
    five kernels.
+   Then three phases of the other paths, each with every launch count
+   zeroed just before and read just after, writing checkpoints to a
+   temporary directory that the phase deletes (it first checks that the
+   disk has twice the checkpoint's bytes free):
+   ``resume_sim`` trains the sim path of phase 3 (built for 12 steps) for
+   steps 0-5, checkpoints at step 6, and resumes a fresh trainer from that
+   checkpoint through the launcher (``--ckpt-dir``; the stream fast-forwards
+   six batches) for steps 6-11, across the refresh at step 10;
+   ``resume_spmd`` does the same for the fill-drain SPMD path of phase 4
+   (built for 4 steps) in the sharded format, cut at step 2. Resumed losses
+   must be within 1e-6 of phases 3 and 4. ``sim_modes`` trains the sim path
+   for 6 steps in each of ``--no-stash`` and ``--weight-prediction``. Each
+   checks finite losses and the launch counts of the steps it ran, and
+   reports the snapshot, write, load and fast-forward seconds, the
+   checkpoint's bytes and the peak memory.
 5. Runs the reduced model for a few steps on the card and on the CPU (plain
    kernel versions) from the same seed, on both backends (and both SPMD
-   schedules), with Adam and with basis rotation through the kernels, and
-   compares the losses.
+   schedules, and the sim backend's no-stash and weight-prediction modes),
+   with Adam and with basis rotation through the kernels, and compares the
+   losses.
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -43,12 +59,15 @@ raises and the exit code is not 0. Without CUDA, or without the repository's
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -65,6 +84,9 @@ SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
              "--microbatches", "8", "--optimizer", "basis_rotation", "--use-kernels",
              "--batch", "8", "--seq", "256", "--log-every", "1"]
 SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
+RESUME_CUT = {"sim": 6, "spmd": 2}  # the step each resume check checkpoints at
+MODE_STEPS = 6  # steps of each sim staleness mode
+RESUME_TOL = 1e-6  # resumed losses against the uninterrupted run's, same card and code
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores, device memory bandwidth, and TF32 on the tensor cores. The SXM part
@@ -638,6 +660,133 @@ def run_path(train, torch, kernels, args, want):
             "wall_s": wall, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nest of dicts, lists and tuples: an engine
+    state's parameters, optimizer state and delay queues, which its
+    checkpoint holds."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def run_to_checkpoint(train, torch, kernels, args, cut, ckpt_dir, want):
+    """First leg of a resume check: the launcher's trainer for ``args`` (its
+    schedule built for all of their steps) runs steps 0..cut-1 and
+    checkpoints at ``cut`` into ``ckpt_dir``. Refuses to start unless the
+    disk holds twice the checkpoint's bytes (the resumed leg's final
+    checkpoint is written before the first is collected)."""
+    from repro_torch.engine import run_loop
+
+    engine, data, loop_cfg = train.build(train.parse_args(args))
+    held = [engine.init_state()]
+    nbytes = tensor_bytes(held[0].params) + tensor_bytes(held[0].opt_state)
+    disk = shutil.disk_usage(ckpt_dir)
+    disk_line = {"path": ckpt_dir, "total": disk.total, "used": disk.used, "free": disk.free,
+                 "state_bytes": nbytes}
+    print(json.dumps({"disk_usage": disk_line}), flush=True)
+    if disk.free < 2 * nbytes:
+        raise AssertionError(f"{ckpt_dir}: {disk.free} bytes free, a checkpoint of {nbytes} "
+                             f"bytes needs twice that")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    _, losses, timings = run_loop(
+        engine, data, dataclasses.replace(loop_cfg, steps=cut, ckpt_dir=ckpt_dir),
+        state=held.pop())
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    if len(losses) != cut or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{' '.join(args)} to step {cut}: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{' '.join(args)} to step {cut}: kernel launches {launches}, "
+                             f"expected {want}")
+    ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).iterdir())
+    return {"losses": losses, "launches": launches, "state_bytes": nbytes,
+            "ckpt_bytes": ckpt_bytes, "ckpt_files": sorted(f.name for f in Path(ckpt_dir).iterdir()),
+            "snapshot_s": timings.ckpt_s, "write_s": timings.write_s,
+            "median_step_s": statistics.median(timings.step_s), "wall_s": wall,
+            "disk": disk_line, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def resume_from_checkpoint(train, torch, kernels, args, cut, ckpt_dir, want):
+    """Second leg: a fresh trainer through the launcher with ``--ckpt-dir``,
+    which resumes at ``cut`` (fast-forwarding the stream) and runs the rest.
+    The stream's draws and the checkpoint load are timed by wrapping them."""
+    from repro_torch import data as rdata
+    from repro_torch.checkpoint import ckpt as rckpt
+
+    draws, loads = [], []
+    real_batches, real_load = rdata.batches, rckpt.load_checkpoint
+
+    def timed_batches(*a, **kw):
+        it = real_batches(*a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it)
+            draws.append(time.perf_counter() - t0)
+            yield b
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        out = real_load(path)
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    rdata.batches, rckpt.load_checkpoint = timed_batches, timed_load
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        result = train.main(args + ["--ckpt-dir", ckpt_dir])
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+    finally:
+        rdata.batches, rckpt.load_checkpoint = real_batches, real_load
+    losses = result["losses"]
+    steps = int(args[args.index("--steps") + 1])
+    if result["start_step"] != cut or len(losses) != steps - cut or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"{' '.join(args)} resumed at {result['start_step']}: "
+                             f"losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{' '.join(args)} resumed: kernel launches {launches}, "
+                             f"expected {want}")
+    return {"start_step": cut, "losses": losses, "launches": launches,
+            "load_s": loads, "fast_forward_s": sum(draws[:cut]),
+            "fast_forward_per_batch_s": draws[:cut], "final_snapshot_s": result["ckpt_s"],
+            "final_write_s": result["write_s"], "median_step_s": statistics.median(result["step_s"]),
+            "median_data_s": statistics.median(result["data_s"]), "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_resume(train, torch, kernels, args, cut, want_per_step, uninterrupted):
+    """Both legs in a temporary directory that is deleted after; the resumed
+    losses against the uninterrupted run's (``uninterrupted``, same args)."""
+    steps = int(args[args.index("--steps") + 1])
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first = run_to_checkpoint(train, torch, kernels, args, cut, ckpt_dir,
+                                  {k: cut * n for k, n in want_per_step.items()})
+        second = resume_from_checkpoint(train, torch, kernels, args, cut, ckpt_dir,
+                                        {k: (steps - cut) * n for k, n in want_per_step.items()})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    diffs = [abs(a - b) for a, b in zip(first["losses"] + second["losses"], uninterrupted)]
+    resumed_diff = max(diffs[cut:])
+    if len(diffs) != steps or resumed_diff > RESUME_TOL:
+        raise AssertionError(f"{' '.join(args)}: resumed losses {second['losses']} against "
+                             f"{uninterrupted[cut:]} (max abs diff {resumed_diff})")
+    return {"args": " ".join(args), "cut": cut, "uninterrupted_losses": uninterrupted,
+            "max_abs_diff_resumed": resumed_diff, "max_abs_diff_first_leg": max(diffs[:cut]),
+            "first_leg": first, "resumed_leg": second}
+
+
 def main() -> int:
     import torch
 
@@ -745,6 +894,29 @@ def main() -> int:
         spmd[schedule] = run_path(train, torch, kernels, args, want)
         emit({"phase": f"spmd_{schedule}", **spmd[schedule]})
 
+    # phase 4, continued: the resume paths, then the sim staleness modes
+    sim_per_step = {k: 0 for k in kernels}
+    sim_per_step.update(matmul=sum(1 for g in groups if g), adam_scale=adam_per_step)
+    torch.cuda.empty_cache()
+    resume_sim = check_resume(train, torch, kernels, MAIN_ARGS, RESUME_CUT["sim"], sim_per_step,
+                              sim["losses"])
+    emit({"phase": "resume_sim", **resume_sim})
+    torch.cuda.empty_cache()
+    fd_args = SPMD_ARGS + ["--schedule", "fill_drain", "--steps", str(SPMD_STEPS["fill_drain"])]
+    spmd_per_step = {"flash_fwd": M * L, "flash_bwd_dq": M * L, "flash_bwd_dkv": M * L,
+                     "matmul": sum(1 for g in sgroups if g), "adam_scale": sadam_per_step}
+    resume_spmd = check_resume(train, torch, kernels, fd_args, RESUME_CUT["spmd"],
+                               spmd_per_step, spmd["fill_drain"]["losses"])
+    emit({"phase": "resume_spmd", **resume_spmd})
+    modes = {}
+    for mode in ("--no-stash", "--weight-prediction"):
+        torch.cuda.empty_cache()
+        args = list(MAIN_ARGS)
+        args[args.index("--steps") + 1] = str(MODE_STEPS)
+        modes[mode] = run_path(train, torch, kernels, args + [mode],
+                               {k: MODE_STEPS * n for k, n in sim_per_step.items()})
+    emit({"phase": "sim_modes", **modes})
+
     # phase 5: the reduced model on the card against the CPU, same seed.
     # Adam has no QR: the devices differ only in float32 summation order
     # (measured ~1e-6 apart). Basis rotation: the refresh's QR of
@@ -752,7 +924,9 @@ def main() -> int:
     # so the runs are held to the reference's own tolerance for two
     # implementations of this step (tests/test_engine.py:437-438).
     for backend in (["--backend", "sim"], ["--backend", "spmd", "--schedule", "1f1b"],
-                    ["--backend", "spmd", "--schedule", "fill_drain"]):
+                    ["--backend", "spmd", "--schedule", "fill_drain"],
+                    ["--backend", "sim", "--no-stash"],
+                    ["--backend", "sim", "--weight-prediction"]):
         for opt, first2_tol, all_tol in ((["--optimizer", "adam"], 1e-4, 1e-4),
                                          (["--use-kernels"], 2e-3, 5e-2)):
             args = SMOKE_ARGS + backend + opt
@@ -835,7 +1009,12 @@ def main() -> int:
          "is the grid that B1-B3's launches recorded at the path shape. The library time of B2 and of B3 is the "
          "time of SDPA's whole backward (dQ, dK and dV in one call)",
          "bound_fp32_ms": bound_fp32,
-         "spmd_fill_drain_launches": spmd["fill_drain"]["launches"]}, indent=1))
+         "spmd_fill_drain_launches": spmd["fill_drain"]["launches"],
+         "resume_sim_launches": [resume_sim[leg]["launches"]
+                                 for leg in ("first_leg", "resumed_leg")],
+         "resume_spmd_launches": [resume_spmd[leg]["launches"]
+                                  for leg in ("first_leg", "resumed_leg")],
+         "sim_modes_launches": {m: r["launches"] for m, r in modes.items()}}, indent=1))
     emit({"bound_fp32_ms": bound_fp32})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,4 +1,4 @@
-"""Carry parameters between the reference's tree and the port's model.
+"""Carry parameters and optimizer state between the reference's tree and the port.
 
 The reference keeps parameters as a nested tree of dicts and tuples; after
 ``jax.tree.map(np.asarray, params)`` its leaves are numpy arrays.
@@ -8,10 +8,18 @@ shapes (projections stay (in, out)) and the same ``/``-joined leaf paths.
 ``stacked_from_numpy`` and ``stacked_to_numpy`` do the same for the SPMD
 engine's stage-stacked ``(stacked, shared)`` pair (the reference's
 ``stack_stage_params`` output).
+
+``opt_state_to_numpy`` and ``opt_state_from_numpy`` carry optimizer state:
+``adam``'s ``{"m": tree, "v": tree}``, ``basis_rotation``'s per-leaf dicts
+(``m``, ``v``, ``U``, ``V``, ``L``, ``R``) and the delay wrappers. There the
+layouts differ: the port keeps each FIFO as a ring buffer advanced by one
+shared ``head``, the reference in logical order with row 0 the oldest and no
+``head``. Logical row r is ring slot ``(head + r) % d``, for the per-leaf
+queues and the stage queues alike; a restored ring starts at ``head = 0``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,31 +63,43 @@ def unflatten_tree(flat: Dict[str, Any]) -> Any:
     return seal(root)
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` that nothing done to ``t`` afterwards changes
+    (``.cpu()`` of a CPU tensor would return the tensor itself)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _fill(dst: torch.Tensor, src: Any, what: str) -> None:
+    arr = np.asarray(src)
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"{what}: shape {arr.shape} != {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(np.array(arr)))
+
+
+@torch.no_grad()
+def copy_params_from_numpy(params: Dict[str, torch.Tensor], tree: Any) -> None:
+    """Copy the reference parameter tree's values into ``params`` in place."""
+    flat = flatten_tree(tree)
+    if set(flat) != set(params):
+        raise ValueError(
+            f"parameter trees differ: only in reference {sorted(set(flat) - set(params))}, "
+            f"only in port {sorted(set(params) - set(flat))}"
+        )
+    for k, p in params.items():
+        _fill(p, flat[k], k)
+
+
 def params_from_numpy(tree: Any, cfg: ModelConfig,
                       device: torch.device | str = "cuda") -> Transformer:
     """The port's model holding exactly the reference tree's weights."""
     model = Transformer(cfg, device=device, seed=None)
-    flat = flatten_tree(tree)
-    leaves = param_leaves(model)
-    if set(flat) != set(leaves):
-        raise ValueError(
-            f"parameter trees differ: only in reference {sorted(set(flat) - set(leaves))}, "
-            f"only in port {sorted(set(leaves) - set(flat))}"
-        )
-    with torch.no_grad():
-        for path, p in leaves.items():
-            arr = np.asarray(flat[path])
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{path}: shape {arr.shape} != {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr)))
+    copy_params_from_numpy(param_leaves(model), tree)
     return model
 
 
 def params_to_numpy(model: Transformer) -> Any:
     """The model's weights as the reference's nested tree of numpy arrays."""
-    return unflatten_tree(
-        {k: p.detach().cpu().numpy().copy() for k, p in param_leaves(model).items()}
-    )
+    return unflatten_tree({k: host_copy(p) for k, p in param_leaves(model).items()})
 
 
 def _ordered(flat: Dict[str, Any]) -> Dict[str, Any]:
@@ -98,5 +118,81 @@ def stacked_from_numpy(tree: Tuple[Any, Any], device: torch.device | str = "cuda
 def stacked_to_numpy(stacked: Dict[str, torch.Tensor], shared: Dict[str, torch.Tensor]
                      ) -> Tuple[Any, Any]:
     """The inverse of ``stacked_from_numpy``."""
-    return tuple(unflatten_tree({k: v.detach().cpu().numpy().copy() for k, v in d.items()})
+    return tuple(unflatten_tree({k: host_copy(v) for k, v in d.items()})
                  for d in (stacked, shared))
+
+
+def _ring_to_logical(q: Optional[torch.Tensor], head: int) -> Optional[np.ndarray]:
+    if q is None:
+        return None
+    s = head % q.shape[0]
+    return host_copy(torch.roll(q, -s, 0) if s else q)
+
+
+def opt_state_to_numpy(state: Any) -> Any:
+    """The port's optimizer state as the reference's tree of numpy copies."""
+    if "head" in state:  # a ring-buffer delay wrapper
+        return {"grad_q": [_ring_to_logical(q, state["head"]) for q in state["grad_q"]],
+                "inner": opt_state_to_numpy(state["inner"])}
+    if "leaves" in state:  # basis_rotation
+        return {"leaves": [{k: host_copy(v) for k, v in st.items()} for st in state["leaves"]]}
+    if set(state) == {"m", "v"}:  # adam over {path: tensor}
+        return {k: unflatten_tree({p: host_copy(t) for p, t in d.items()})
+                for k, d in state.items()}
+    raise ValueError(f"unknown optimizer state with keys {sorted(state)}")
+
+
+@torch.no_grad()
+def opt_state_from_numpy(tree: Any, state: Any) -> Any:
+    """Copy the reference tree's values into ``state``, a freshly initialised
+    state of the same optimizer, in place, so that the restored state has
+    exactly the devices, dtypes and layouts of a fresh one. Returns it."""
+    if "head" in state:
+        if len(tree["grad_q"]) != len(state["grad_q"]):
+            raise ValueError("delay queues: leaf counts differ")
+        for i, (q, a) in enumerate(zip(state["grad_q"], tree["grad_q"])):
+            if (q is None) != (a is None):
+                raise ValueError(f"grad_q[{i}]: present in only one of the states")
+            if q is not None:
+                _fill(q, a, f"grad_q[{i}]")
+        state["head"] = 0
+        opt_state_from_numpy(tree["inner"], state["inner"])
+    elif "leaves" in state:
+        if len(tree["leaves"]) != len(state["leaves"]):
+            raise ValueError("basis-rotation state: leaf counts differ")
+        for i, (st, src) in enumerate(zip(state["leaves"], tree["leaves"])):
+            if set(st) != set(src):
+                raise ValueError(f"leaves[{i}]: keys {sorted(src)} != {sorted(st)}")
+            for k, v in st.items():
+                _fill(v, src[k], f"leaves[{i}][{k}]")
+    elif set(state) == {"m", "v"}:
+        for k, d in state.items():
+            flat = flatten_tree(tree[k])
+            if set(flat) != set(d):
+                raise ValueError(f"adam {k}: leaf paths differ")
+            for p, t in d.items():
+                _fill(t, flat[p], f"{k}/{p}")
+    else:
+        raise ValueError(f"unknown optimizer state with keys {sorted(state)}")
+    return state
+
+
+def stage_shard_axes(stacked: Dict[str, Any], shared: Dict[str, Any], opt_state: Any
+                     ) -> List[Optional[int]]:
+    """Per-leaf shard axes of the SPMD engine's checkpoint tree, in its leaf
+    order: axis 0 for the stacked parameters and their optimizer state, axis
+    1 for their stage delay queues ``(K-1, K, per, ...)``, None for the
+    shared leaves and theirs (stored whole in shard 0). These are the axes
+    the reference reads off its leaves' stage sharding."""
+    on_stage = [True] * len(stacked) + [False] * len(shared)
+    axes: List[Optional[int]] = [0 if s else None for s in on_stage]
+    inner = opt_state
+    if "head" in opt_state:
+        axes += [1 if s else None for s, q in zip(on_stage, opt_state["grad_q"]) if q is not None]
+        inner = opt_state["inner"]
+    if "leaves" in inner:
+        for s, st in zip(on_stage, inner["leaves"]):
+            axes += [0 if s else None] * len(st)
+    else:  # adam: m, then v, each over (stacked, shared)
+        axes += [0 if s else None for s in on_stage] * 2
+    return axes

@@ -7,7 +7,7 @@ only the finished batch becomes a tensor on the requested device.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -62,3 +62,16 @@ def batches(
         toks = torch.from_numpy(stream.sample(batch_size, seq_len).astype(np.int64))
         toks = toks.to(device)
         yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def eval_batches(
+    cfg: ModelConfig,
+    batch_size: int,
+    seq_len: int,
+    n: int,
+    seed: int = 10_000,
+    device: torch.device | str = "cuda",
+) -> List[Dict[str, torch.Tensor]]:
+    """``n`` held-out batches, from a stream of their own seed."""
+    it = batches(cfg, batch_size, seq_len, seed, device)
+    return [next(it) for _ in range(n)]

@@ -14,14 +14,23 @@ over the stacked layers.
 
 On one card the stages run in one process (see ``engine.schedules``); one
 rank per stage over ``torch.distributed``, the data axis and its
-asynchronous form, topologies and checkpoints are not ported yet.
+asynchronous form, and topologies are not ported yet. Checkpoints use the
+reference's sharded format, one arrays file per stage, written by this one
+process.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.checkpoint.convert import (
+    opt_state_from_numpy,
+    opt_state_to_numpy,
+    stacked_from_numpy,
+    stacked_to_numpy,
+    stage_shard_axes,
+)
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.engine.base import EngineState, PipelineEngine
 from repro_torch.engine.schedules import SCHEDULES, make_schedule_grad
@@ -117,6 +126,7 @@ class SpmdEngine(PipelineEngine):
         meta = Transformer(cfg, device="meta", seed=None)
         stacked_s, shared_s = stack_stage_params(param_leaves(meta), cfg, K)
         ctx = stage_context_for_stacked(stacked_s, shared_s, K)
+        self._leaf_shapes = {k: tuple(v.shape) for k, v in opt_leaves(stacked_s, shared_s).items()}
         base = build_optimizer(ocfg, opt_leaves(stacked_s, shared_s), cfg, num_stages=K,
                                apply_delay=False, use_kernels=use_kernels, stage_context=ctx)
         self.opt = (stage_delayed_optimizer(base, ctx.delay_specs(), K)
@@ -166,3 +176,40 @@ class SpmdEngine(PipelineEngine):
     def canonical_params(self, state: EngineState) -> Params:
         """Per-layer ``{path: tensor}``, e.g. for evaluation."""
         return unstack_stage_params(*state.params)
+
+    # -- checkpointing -----------------------------------------------------
+
+    def checkpoint_tree(self, state: EngineState) -> Any:
+        """``((stacked, shared), opt_state)``: the reference's 2-tuple."""
+        return (stacked_to_numpy(*state.params), opt_state_to_numpy(state.opt_state))
+
+    def load_state(self, tree: Any) -> EngineState:
+        params_tree, opt_tree = tree
+        stacked, shared = stacked_from_numpy(params_tree, "cpu")
+        got = {k: tuple(v.shape) for k, v in opt_leaves(stacked, shared).items()}
+        if got != self._leaf_shapes:
+            raise ValueError(f"checkpoint parameters {got} do not fit this engine's "
+                             f"{self._leaf_shapes}")
+        state = self.init_state((stacked, shared))
+        opt_state_from_numpy(opt_tree, state.opt_state)
+        return state
+
+    def checkpoint_job(self, path: str, state: EngineState, step: int = 0,
+                       meta: Optional[Dict] = None):
+        """Per-stage-shard save: one arrays file per pipeline stage. The
+        stacked parameters and their optimizer state are sliced on axis 0,
+        the stage delay queues on axis 1; the shared leaves go whole to
+        shard 0. The host snapshot is taken now, the returned closure only
+        writes files."""
+        from repro_torch.checkpoint.ckpt import snapshot_sharded, write_sharded_checkpoint
+
+        axes = stage_shard_axes(*state.params, state.opt_state)
+        snapshot = snapshot_sharded(self.checkpoint_tree(state), self.num_stages, axes)
+        # one process, one data replica; the port has only the f32 policy
+        full_meta = {"topology": f"{self.num_stages}x1", "precision": "f32",
+                     "num_processes": 1, **(meta or {})}
+
+        def write() -> None:
+            write_sharded_checkpoint(path, snapshot, step=step, meta=full_meta)
+
+        return write

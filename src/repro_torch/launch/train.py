@@ -17,6 +17,12 @@ and on the spmd backend attention runs in the flash-attention kernels too.
         --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
         --schedule 1f1b --optimizer basis_rotation --use-kernels --batch 8 --seq 256
 
+On the sim backend ``--weight-prediction`` (PipeMare) and ``--no-stash``
+select the other staleness modes. ``--ckpt-dir D --ckpt-every N``
+checkpoints every N steps and at the end, in the reference's format; a
+rerun with the same directory resumes from its checkpoint, fast-forwarding
+the data stream past the batches already consumed.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for but absent. The reference's flags are accepted; those whose
 feature is not ported yet exit with a message that says so.
@@ -78,15 +84,11 @@ def _refuse_unported(args) -> None:
     unported = {
         "--precision bf16": args.precision != "f32",
         "--data-async / --data-delay": args.data_async or args.data_delay is not None,
-        "--ckpt-dir": args.ckpt_dir is not None,
         "--coordinator / --num-processes / --process-id":
             args.coordinator is not None or args.num_processes > 1 or args.process_id != 0,
     }
     if args.backend == "spmd":
         unported["--pods / --data-par (the spmd data axis)"] = args.pods != 1 or args.data_par > 1
-    else:
-        unported["--weight-prediction"] = args.weight_prediction
-        unported["--no-stash"] = args.no_stash
     for flag, used in unported.items():
         if used:
             raise SystemExit(f"{flag} is not yet ported to repro_torch")
@@ -130,7 +132,9 @@ def build(args):
     from repro_torch.data import batches
     from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine
     from repro_torch.models import Transformer, init_model, param_count, param_leaves
+    from repro_torch.optim.base import make_schedule
     from repro_torch.optim.factory import build_optimizer
+    from repro_torch.pipeline.partition import delay_tree
 
     cfg = get_config(args.arch, smoke=args.smoke)
     cfg = PRECISION_POLICIES[args.precision].apply(cfg.replace(scan_layers=False))
@@ -165,15 +169,22 @@ def build(args):
         n_params = param_count(Transformer(cfg, device="meta", seed=None))
     else:
         model = init_model(cfg, seed=args.seed, device=device)
-        opt = build_optimizer(ocfg, param_leaves(model), cfg, num_stages=args.stages,
+        params = param_leaves(model)
+        opt = build_optimizer(ocfg, params, cfg, num_stages=args.stages,
                               apply_delay=not args.sync, use_kernels=args.use_kernels)
-        engine = SimEngine(model, opt, grad_clip=1.0)
+        sched = make_schedule(ocfg.schedule, ocfg.learning_rate, ocfg.total_steps,
+                              ocfg.warmup_frac)
+        engine = SimEngine(model, opt, grad_clip=1.0,
+                           weight_prediction=args.weight_prediction,
+                           delays_tree=delay_tree(params, cfg, args.stages),
+                           schedule=sched, no_stash=args.no_stash)
         n_params = param_count(model)
     print(f"arch={cfg.name} params={n_params:,} stages={args.stages} "
           f"optimizer={args.optimizer} backend={args.backend} device={device}")
     data = batches(cfg, args.batch, args.seq, seed=args.seed, device=device)
     loop_cfg = LoopConfig(
-        steps=args.steps, log_every=args.log_every, out_path=args.out,
+        steps=args.steps, log_every=args.log_every,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, out_path=args.out,
         out_meta={"arch": cfg.name, "optimizer": args.optimizer,
                   "stages": args.stages, "backend": args.backend,
                   "schedule": args.schedule if args.backend == "spmd" else None,
@@ -184,17 +195,29 @@ def build(args):
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
-    """Train; returns the losses and the per-step data and step times."""
-    from repro_torch.engine import run_loop
+    """Train; returns the losses (of the steps this run took), the step it
+    started from, and the per-step data and step times and the checkpoint
+    snapshot and write times."""
+    from repro_torch.engine import resume_if_present, run_loop
 
     args = parse_args(argv)
     engine, data, loop_cfg = build(args)
-    # run_loop builds the initial state itself, so that nothing here keeps
-    # it (and the step-0 optimizer state) alive for the whole run
-    _, losses, timings = run_loop(engine, data, loop_cfg)
+    # resume_if_present fast-forwards `data` past the consumed batches, so
+    # that a resumed run continues the uninterrupted stream
+    state, start_step = resume_if_present(engine, None, args.ckpt_dir, data)
+    if start_step:
+        print(f"resumed from {args.ckpt_dir} at step {start_step}", flush=True)
+    # run_loop builds the initial state itself when there is none, and is
+    # handed the resumed one as its only holder, so that nothing here keeps
+    # the first state (and its optimizer state) alive for the whole run
+    held = [state]
+    del state
+    _, losses, timings = run_loop(engine, data, loop_cfg, state=held.pop(),
+                                  start_step=start_step)
     if losses:
         print(f"final loss {losses[-1]:.4f}")
-    return {"losses": losses, "data_s": timings.data_s, "step_s": timings.step_s,
+    return {"losses": losses, "start_step": start_step, "data_s": timings.data_s,
+            "step_s": timings.step_s, "ckpt_s": timings.ckpt_s, "write_s": timings.write_s,
             "tokens_per_step": args.batch * args.seq}
 
 

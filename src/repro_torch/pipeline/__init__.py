@@ -7,7 +7,13 @@ from repro_torch.pipeline.partition import (
     stage_context_for_stacked,
     stage_context_for_tree,
 )
-from repro_torch.pipeline.simulate import make_sim_train_step
+from repro_torch.pipeline.simulate import (
+    make_sim_train_step,
+    make_two_version_loss,
+    predict_weights,
+    run_sim_training,
+    stale_forward_params,
+)
 
 __all__ = [
     "delayed_optimizer",
@@ -19,4 +25,8 @@ __all__ = [
     "stage_context_for_stacked",
     "stage_context_for_tree",
     "make_sim_train_step",
+    "make_two_version_loss",
+    "predict_weights",
+    "run_sim_training",
+    "stale_forward_params",
 ]

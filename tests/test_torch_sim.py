@@ -132,12 +132,30 @@ def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--backend", "spmd", "--data-par", "2"],
                                    ["--precision", "bf16"],
-                                   ["--weight-prediction"], ["--no-stash"],
-                                   ["--data-async"], ["--ckpt-dir", "ck"],
-                                   ["--num-processes", "2"], ["--schedule", "1f1b"]])
+                                   ["--data-async"],
+                                   ["--num-processes", "2"], ["--schedule", "1f1b"],
+                                   ["--backend", "spmd", "--weight-prediction"],
+                                   ["--backend", "spmd", "--no-stash"]])
 def test_train_main_refuses_unported_flags(flags):
     with pytest.raises(SystemExit, match="not yet ported|spmd|schedule"):
         train.main(["--smoke", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--weight-prediction"], ["--no-stash"], ["--ckpt-dir"]])
+def test_train_main_runs_ported_flags(tmp_path, flags):
+    """The sim backend's staleness modes and checkpointing run on the CPU;
+    a checkpoint directory gets its manifest, and a rerun resumes from it."""
+    if flags == ["--ckpt-dir"]:
+        flags = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
+    args = ["--smoke", "--stages", "2", "--steps", "3", "--batch", "2", "--seq", "16",
+            "--use-kernels", "--log-every", "0", "--device", "cpu"] + flags
+    res = train.main(args)
+    assert len(res["losses"]) == 3 and all(np.isfinite(res["losses"]))
+    if "--ckpt-dir" in flags:
+        assert (tmp_path / "ck" / "manifest.json").exists()
+        assert len(res["ckpt_s"]) == len(res["write_s"]) == 2  # at step 2 and at the end
+        more = train.main(args[:4] + ["5"] + args[5:])
+        assert more["start_step"] == 3 and len(more["losses"]) == 2
 
 
 def test_train_main_keeps_the_stage_divisibility_check():
