@@ -44,11 +44,18 @@
    checks finite losses and the launch counts of the steps it ran, and
    reports the snapshot, write, load and fast-forward seconds, the
    checkpoint's bytes and the peak memory.
+   ``baselines`` trains the paper's baseline optimizers on one list of six
+   batches sampled once: each of the seven on the sim path for 6 steps, and
+   delay compensation, pipedream_lr and muon on the SPMD 1F1B path for 4.
+   Each run's first loss must equal phase 3's (sim) or phase 4's 1F1B one
+   within 1e-6; B4 and B5 (basis rotation's) launch 0 times, B1-B3 as the
+   1F1B path launches them. It reports each run's losses, step times, peak
+   memory and, for delay compensation, its weight queues' bytes.
 5. Runs the reduced model for a few steps on the card and on the CPU (plain
    kernel versions) from the same seed, on both backends (and both SPMD
    schedules, and the sim backend's no-stash and weight-prediction modes),
    with Adam and with basis rotation through the kernels, and compares the
-   losses.
+   losses; then each baseline on the sim backend and the SPMD 1F1B one.
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -86,6 +93,18 @@ SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
 SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
 RESUME_CUT = {"sim": 6, "spmd": 2}  # the step each resume check checkpoints at
 MODE_STEPS = 6  # steps of each sim staleness mode
+# the paper's baselines: each on the sim path, and three on the SPMD 1F1B path
+# (the stage weight queues, per-stage factors, Newton-Schulz over stacked leaves)
+BASELINES_SIM = ("adasgd", "nesterov", "nesterov_pp", "pipedream_lr", "delay_compensation",
+                 "muon", "scion")
+BASELINES_SPMD = ("delay_compensation", "pipedream_lr", "muon")
+BASELINE_STEPS = {"sim": 6, "spmd": 4}
+FIRST_LOSS_TOL = 1e-6  # a first loss against phase 3's or 4's: same weights and batch, no update
+# card against CPU at smoke size: the elementwise baselines differ by float32
+# summation order, as Adam does; Newton-Schulz's quintic steps amplify that in
+# the smallest singular directions (muon, scion), and scion's sign flips where
+# its momentum is within roundoff of zero
+NEWTON_SCHULZ = ("muon", "scion")
 RESUME_TOL = 1e-6  # resumed losses against the uninterrupted run's, same card and code
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
@@ -787,6 +806,40 @@ def check_resume(train, torch, kernels, args, cut, want_per_step, uninterrupted)
             "first_leg": first, "resumed_leg": second}
 
 
+def run_baseline(train, torch, kernels, args, batch_list, want, first_loss):
+    """One baseline through the launcher's trainer with the phase's batches
+    in place of its stream; every launch count zeroed just before and read
+    just after. Checks finite losses, the launches, and the first loss
+    against ``first_loss`` (the same weights and batch, before any update).
+    For delay compensation also reports its weight queues' bytes."""
+    from repro_torch.engine import run_loop
+
+    steps = int(args[args.index("--steps") + 1])
+    engine, _, loop_cfg = train.build(train.parse_args(args))
+    held = [engine.init_state()]
+    opt_state = held[0].opt_state
+    param_q = tensor_bytes(opt_state["param_q"]) if "param_q" in opt_state else None
+    del opt_state
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    _, losses, timings = run_loop(engine, iter(batch_list), loop_cfg, state=held.pop())
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{' '.join(args)}: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{' '.join(args)}: kernel launches {launches}, expected {want}")
+    first_diff = abs(losses[0] - first_loss)
+    if first_diff > FIRST_LOSS_TOL:
+        raise AssertionError(f"{' '.join(args)}: first loss {losses[0]} against {first_loss}")
+    return {"losses": losses, "launches": launches, "first_loss_diff": first_diff,
+            "step_s": timings.step_s, "median_step_s_no_refresh": statistics.median(
+                timings.step_s[1:]), "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **({"param_q_bytes": param_q} if param_q is not None else {})}
+
+
 def main() -> int:
     import torch
 
@@ -917,6 +970,38 @@ def main() -> int:
                                {k: MODE_STEPS * n for k, n in sim_per_step.items()})
     emit({"phase": "sim_modes", **modes})
 
+    # the paper's baselines: one list of batches for every run (host sampling
+    # costs seconds a batch), the sim path and the SPMD 1F1B path at full
+    # width. B4 and B5 belong to basis rotation alone; B1-B3 run in every
+    # SPMD attention call
+    from itertools import islice
+
+    from repro_torch.data import batches as data_batches
+
+    t_phase = time.perf_counter()
+    batch_list = list(islice(data_batches(cfg, 8, 256, seed=0, device="cuda"),
+                             max(BASELINE_STEPS.values())))
+    sample_s = time.perf_counter() - t_phase
+    baselines = {"sim": {}, "spmd_1f1b": {}}
+    for opt in BASELINES_SIM:
+        torch.cuda.empty_cache()
+        args = list(MAIN_ARGS)
+        args[args.index("--optimizer") + 1] = opt
+        args[args.index("--steps") + 1] = str(BASELINE_STEPS["sim"])
+        baselines["sim"][opt] = run_baseline(train, torch, kernels, args, batch_list,
+                                             {k: 0 for k in kernels}, sim["losses"][0])
+    n = BASELINE_STEPS["spmd"]
+    for opt in BASELINES_SPMD:
+        torch.cuda.empty_cache()
+        args = SPMD_ARGS + ["--schedule", "1f1b", "--steps", str(n)]
+        args[args.index("--optimizer") + 1] = opt
+        want = {"flash_fwd": n * 2 * M * L, "flash_bwd_dq": n * M * L,
+                "flash_bwd_dkv": n * M * L, "matmul": 0, "adam_scale": 0}
+        baselines["spmd_1f1b"][opt] = run_baseline(train, torch, kernels, args, batch_list,
+                                                   want, spmd["1f1b"]["losses"][0])
+    emit({"phase": "baselines", "sample_s": sample_s,
+          "phase_s": time.perf_counter() - t_phase, **baselines})
+
     # phase 5: the reduced model on the card against the CPU, same seed.
     # Adam has no QR: the devices differ only in float32 summation order
     # (measured ~1e-6 apart). Basis rotation: the refresh's QR of
@@ -935,6 +1020,17 @@ def main() -> int:
             diffs = [abs(a - b) for a, b in zip(gpu, cpu)]
             if not (len(diffs) == len(cpu) and max(diffs[:2]) < first2_tol
                     and max(diffs) < all_tol):
+                raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
+            emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
+                  "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
+    for backend in (["--backend", "sim"], ["--backend", "spmd", "--schedule", "1f1b"]):
+        for opt in BASELINES_SIM:
+            all_tol = 1e-3 if opt in NEWTON_SCHULZ else 1e-4
+            args = SMOKE_ARGS + backend + ["--optimizer", opt, "--use-kernels"]
+            gpu = train.main(args)["losses"]
+            cpu = train.main(args + ["--device", "cpu"])["losses"]
+            diffs = [abs(a - b) for a, b in zip(gpu, cpu)]
+            if not (len(diffs) == len(cpu) and max(diffs[:2]) < 1e-4 and max(diffs) < all_tol):
                 raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
             emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
                   "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
@@ -1014,11 +1110,13 @@ def main() -> int:
                                  for leg in ("first_leg", "resumed_leg")],
          "resume_spmd_launches": [resume_spmd[leg]["launches"]
                                   for leg in ("first_leg", "resumed_leg")],
-         "sim_modes_launches": {m: r["launches"] for m, r in modes.items()}}, indent=1))
+         "sim_modes_launches": {m: r["launches"] for m, r in modes.items()},
+         "baselines_launches": {path: {n: r["launches"] for n, r in runs.items()}
+                                for path, runs in baselines.items()}}, indent=1))
     emit({"bound_fp32_ms": bound_fp32})
     emit({"kernels": rows})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -10,12 +10,16 @@ engine's stage-stacked ``(stacked, shared)`` pair (the reference's
 ``stack_stage_params`` output).
 
 ``opt_state_to_numpy`` and ``opt_state_from_numpy`` carry optimizer state:
-``adam``'s ``{"m": tree, "v": tree}``, ``basis_rotation``'s per-leaf dicts
-(``m``, ``v``, ``U``, ``V``, ``L``, ``R``) and the delay wrappers. There the
-layouts differ: the port keeps each FIFO as a ring buffer advanced by one
-shared ``head``, the reference in logical order with row 0 the oldest and no
-``head``. Logical row r is ring slot ``(head + r) % d``, for the per-leaf
-queues and the stage queues alike; a restored ring starts at ``head = 0``.
+moments kept per leaf (adam, nesterov, nesterov_pp, pipedream_lr,
+delay_compensation and muon: ``{"m": tree, "v": tree}``; scion: ``{"m":
+tree}``) or as one scalar (adasgd's ``v``), ``basis_rotation``'s per-leaf
+dicts (``m``, ``v``, ``U``, ``V``, ``L``, ``R``) and the delay wrappers'
+gradient queues ``grad_q`` and, for delay compensation, weight queues
+``param_q``. There the layouts differ: the port keeps each FIFO as a ring
+buffer advanced by one shared ``head``, the reference in logical order with
+row 0 the oldest and no ``head``. Logical row r is ring slot ``(head + r) %
+d``, for the per-leaf queues and the stage queues alike; a restored ring
+starts at ``head = 0``.
 """
 from __future__ import annotations
 
@@ -129,15 +133,23 @@ def _ring_to_logical(q: Optional[torch.Tensor], head: int) -> Optional[np.ndarra
     return host_copy(torch.roll(q, -s, 0) if s else q)
 
 
+QUEUES = ("grad_q", "param_q")  # a delay wrapper's rings, in the reference's key order
+MOMENT_KEYS = ({"m", "v"}, {"m"})  # the moment states' key sets
+
+
 def opt_state_to_numpy(state: Any) -> Any:
     """The port's optimizer state as the reference's tree of numpy copies."""
     if "head" in state:  # a ring-buffer delay wrapper
-        return {"grad_q": [_ring_to_logical(q, state["head"]) for q in state["grad_q"]],
-                "inner": opt_state_to_numpy(state["inner"])}
+        out = {"inner": opt_state_to_numpy(state["inner"])}
+        for name in QUEUES:
+            if name in state:
+                out[name] = [_ring_to_logical(q, state["head"]) for q in state[name]]
+        return out
     if "leaves" in state:  # basis_rotation
         return {"leaves": [{k: host_copy(v) for k, v in st.items()} for st in state["leaves"]]}
-    if set(state) == {"m", "v"}:  # adam over {path: tensor}
-        return {k: unflatten_tree({p: host_copy(t) for p, t in d.items()})
+    if set(state) in MOMENT_KEYS:  # {path: tensor} per moment, or one scalar
+        return {k: host_copy(d) if isinstance(d, torch.Tensor)
+                else unflatten_tree({p: host_copy(t) for p, t in d.items()})
                 for k, d in state.items()}
     raise ValueError(f"unknown optimizer state with keys {sorted(state)}")
 
@@ -148,13 +160,17 @@ def opt_state_from_numpy(tree: Any, state: Any) -> Any:
     state of the same optimizer, in place, so that the restored state has
     exactly the devices, dtypes and layouts of a fresh one. Returns it."""
     if "head" in state:
-        if len(tree["grad_q"]) != len(state["grad_q"]):
-            raise ValueError("delay queues: leaf counts differ")
-        for i, (q, a) in enumerate(zip(state["grad_q"], tree["grad_q"])):
-            if (q is None) != (a is None):
-                raise ValueError(f"grad_q[{i}]: present in only one of the states")
-            if q is not None:
-                _fill(q, a, f"grad_q[{i}]")
+        names = [n for n in QUEUES if n in state]
+        if sorted(tree) != sorted(names + ["inner"]):
+            raise ValueError(f"delay wrapper: keys {sorted(tree)} != {sorted(names + ['inner'])}")
+        for name in names:
+            if len(tree[name]) != len(state[name]):
+                raise ValueError(f"delay queues {name}: leaf counts differ")
+            for i, (q, a) in enumerate(zip(state[name], tree[name])):
+                if (q is None) != (a is None):
+                    raise ValueError(f"{name}[{i}]: present in only one of the states")
+                if q is not None:
+                    _fill(q, a, f"{name}[{i}]")
         state["head"] = 0
         opt_state_from_numpy(tree["inner"], state["inner"])
     elif "leaves" in state:
@@ -165,11 +181,16 @@ def opt_state_from_numpy(tree: Any, state: Any) -> Any:
                 raise ValueError(f"leaves[{i}]: keys {sorted(src)} != {sorted(st)}")
             for k, v in st.items():
                 _fill(v, src[k], f"leaves[{i}][{k}]")
-    elif set(state) == {"m", "v"}:
+    elif set(state) in MOMENT_KEYS:
+        if set(tree) != set(state):
+            raise ValueError(f"optimizer state: keys {sorted(tree)} != {sorted(state)}")
         for k, d in state.items():
+            if isinstance(d, torch.Tensor):
+                _fill(d, tree[k], k)
+                continue
             flat = flatten_tree(tree[k])
             if set(flat) != set(d):
-                raise ValueError(f"adam {k}: leaf paths differ")
+                raise ValueError(f"{k}: leaf paths differ")
             for p, t in d.items():
                 _fill(t, flat[p], f"{k}/{p}")
     else:
@@ -181,18 +202,26 @@ def stage_shard_axes(stacked: Dict[str, Any], shared: Dict[str, Any], opt_state:
                      ) -> List[Optional[int]]:
     """Per-leaf shard axes of the SPMD engine's checkpoint tree, in its leaf
     order: axis 0 for the stacked parameters and their optimizer state, axis
-    1 for their stage delay queues ``(K-1, K, per, ...)``, None for the
-    shared leaves and theirs (stored whole in shard 0). These are the axes
-    the reference reads off its leaves' stage sharding."""
+    1 for their stage delay queues ``(K-1, K, per, ...)`` (gradients and
+    weights alike), None for the shared leaves and theirs and for a scalar
+    state (stored whole in shard 0). These are the axes the reference reads
+    off its leaves' stage sharding."""
     on_stage = [True] * len(stacked) + [False] * len(shared)
     axes: List[Optional[int]] = [0 if s else None for s in on_stage]
-    inner = opt_state
+
+    def queue_axes(queues):
+        return [1 if s else None for s, q in zip(on_stage, queues) if q is not None]
+
+    inner = opt_state["inner"] if "head" in opt_state else opt_state
     if "head" in opt_state:
-        axes += [1 if s else None for s, q in zip(on_stage, opt_state["grad_q"]) if q is not None]
-        inner = opt_state["inner"]
+        axes += queue_axes(opt_state["grad_q"])
     if "leaves" in inner:
         for s, st in zip(on_stage, inner["leaves"]):
             axes += [0 if s else None] * len(st)
-    else:  # adam: m, then v, each over (stacked, shared)
-        axes += [0 if s else None for s in on_stage] * 2
+    else:  # each moment over (stacked, shared), or one scalar; keys sorted
+        for k in sorted(inner):
+            axes += ([None] if isinstance(inner[k], torch.Tensor)
+                     else [0 if s else None for s in on_stage])
+    if "param_q" in opt_state:  # sorts after "inner"
+        axes += queue_axes(opt_state["param_q"])
     return axes

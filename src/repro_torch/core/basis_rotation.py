@@ -129,7 +129,7 @@ def basis_rotation_adam(
         return {"leaves": [_init_leaf(p, pl, source)
                            for p, pl in zip(params.values(), layout)]}
 
-    def update(grads, state, params, step: int):
+    def update(grads, state, params, step: int, aux=None):
         layout = build_layout(params, geometry, min_dim)
         if isinstance(freq, int):
             freqs: List[FreqSpec] = [freq] * len(layout)

@@ -77,3 +77,10 @@ def build_layout(
     params: Dict[str, torch.Tensor], geometry: str, min_dim: int = 8
 ) -> List[LeafPlan]:
     return [plan_leaf(k, tuple(x.shape), geometry, min_dim) for k, x in params.items()]
+
+
+def rotated_fraction(params: Dict[str, torch.Tensor], layout: List[LeafPlan]) -> float:
+    """Fraction of parameters covered by rotation (the coverage metric)."""
+    tot = sum(x.numel() for x in params.values())
+    rot = sum(x.numel() for x, pl in zip(params.values(), layout) if pl.rotate)
+    return rot / max(tot, 1)

@@ -1,5 +1,5 @@
 """Stage-aware basis-refresh frequency allocation (paper Appendix I).
-Port of ``repro/core/stage_aware.py`` for the per-layer (sim) layout.
+Port of ``repro/core/stage_aware.py``.
 
 For pipeline depth P, base frequency f0 and per-stage delay tau:
 
@@ -64,6 +64,11 @@ def freqs_for_delays(
     return raw
 
 
+def budget(freqs: Sequence[int], steps: int) -> float:
+    """Total number of basis refreshes over a run (the conserved budget)."""
+    return sum(steps / f for f in freqs if f < NEVER)
+
+
 @dataclass(frozen=True)
 class StageContext:
     """Per-leaf staleness metadata, in the leaf order of the parameter dict.
@@ -108,7 +113,9 @@ class StageContext:
     def delay_scales(self, params) -> List[Union[int, torch.Tensor]]:
         """Per-leaf total delays (pipeline tau + ``data_delay``), each
         broadcastable over its leaf of ``params`` (ordered dict): an int, or a
-        ``(K, 1, ..., 1)`` float32 tensor over a stacked leaf's stage axis."""
+        ``(K, 1, ..., 1)`` float32 tensor over a stacked leaf's stage axis, on
+        the leaf's device (on the CPU for a weightless meta-device leaf; its
+        consumers copy it to the device of the leaf it multiplies)."""
         if len(params) != len(self.delays):
             raise ValueError("context must match leaf count")
         out: List[Union[int, torch.Tensor]] = []
@@ -116,8 +123,9 @@ class StageContext:
             if isinstance(d, tuple):
                 if p.shape[0] != len(d):
                     raise ValueError(f"stacked leaf {tuple(p.shape)} has no {len(d)}-stage axis")
+                dev = "cpu" if p.device.type == "meta" else p.device
                 t = torch.tensor([x + self.data_delay for x in d], dtype=torch.float32,
-                                 device=p.device)
+                                 device=dev)
                 out.append(t.reshape((len(d),) + (1,) * (p.ndim - 1)))
             else:
                 out.append(int(d) + self.data_delay)

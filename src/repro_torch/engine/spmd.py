@@ -129,7 +129,12 @@ class SpmdEngine(PipelineEngine):
         self._leaf_shapes = {k: tuple(v.shape) for k, v in opt_leaves(stacked_s, shared_s).items()}
         base = build_optimizer(ocfg, opt_leaves(stacked_s, shared_s), cfg, num_stages=K,
                                apply_delay=False, use_kernels=use_kernels, stage_context=ctx)
-        self.opt = (stage_delayed_optimizer(base, ctx.delay_specs(), K)
+        # delay compensation reads each stage's stale weights from the FIFO.
+        # Per-stage factors of the delay-aware bases are built here from the
+        # meta shapes on the host and follow the state to its device at
+        # their first use
+        self.opt = (stage_delayed_optimizer(base, ctx.delay_specs(), K,
+                                            store_params=(ocfg.name == "delay_compensation"))
                     if async_grads and K > 1 else base)
 
     def init_state(self, params: Any = None) -> EngineState:

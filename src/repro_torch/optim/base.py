@@ -3,8 +3,11 @@
 An optimizer is a pair of functions over ordered ``{path: tensor}`` dicts
 (see ``repro_torch.core.layout``):
   * ``init(params) -> state``
-  * ``update(grads, state, params, step) -> (updates, new_state)``
-where ``updates`` are additive deltas and ``step`` is a host int.
+  * ``update(grads, state, params, step, aux=None) -> (updates, new_state)``
+where ``updates`` are additive deltas and ``step`` is a host int. ``aux``
+carries what a wrapper hands the optimizer it wraps: the delay FIFO's stale
+weight snapshot, ``{"stale_params": {path: tensor}}``, which delay
+compensation reads. Every optimizer takes the keyword; the others ignore it.
 
 Schedules and bias corrections are computed on the host in float32, as the
 reference computes them on the device in float32, and reach the tensor math
@@ -27,7 +30,7 @@ f32 = np.float32
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Params], Any]
-    update: Callable[..., Tuple[Params, Any]]  # (grads, state, params, step)
+    update: Callable[..., Tuple[Params, Any]]  # (grads, state, params, step, aux=None)
 
 
 @torch.no_grad()

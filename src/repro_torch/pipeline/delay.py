@@ -12,6 +12,14 @@ The reference builds a new queue every step by concatenation. Here each
 queue is a ring buffer of tau slots with one head counter shared by all
 leaves (every leaf pushes once per step), updated in place: at paper_95m
 with 8 stages the queues hold about 1.3 GB of float32.
+
+``store_params=True`` also queues weight snapshots, so that delay
+compensation (Zheng et al. 2017) sees w_{t-tau}: rings of the same depths
+advanced by the same head, warm-started with copies of the initial weights
+(during warm-up the stale weights are the initial ones). A slot is written
+with ``copy_``: the parameters change in place, so a slot must never be a
+view of one. The stale snapshot reaches the wrapped optimizer as
+``aux={"stale_params": {path: tensor}}``.
 """
 from __future__ import annotations
 
@@ -22,12 +30,53 @@ import torch
 from repro_torch.optim.base import Optimizer
 
 
-def delayed_optimizer(inner: Optimizer, delays: Sequence[int]) -> Optimizer:
+def _warm_ring(p: torch.Tensor, depth: int):
+    """A ring of ``depth`` copies of ``p`` in float32, or None."""
+    if depth <= 0:
+        return None
+    return p.detach().float().unsqueeze(0).repeat((depth,) + (1,) * p.ndim)
+
+
+def _push(queues, fresh, head: int) -> None:
+    """Each ring's oldest slot takes its leaf's fresh value."""
+    with torch.no_grad():
+        for x, q in zip(fresh.values(), queues):
+            if q is not None:
+                q[head % q.shape[0]].copy_(x)
+
+
+def _wrapped_update(inner: Optimizer, pop, store_params: bool):
+    """The wrappers' update: pop each leaf's delayed gradient (and stale
+    weights) with ``pop(leaves, queues, head)``, run ``inner``, then push the
+    fresh values into the slots just popped. ``inner`` is handed ``aux``
+    only when there is any: an optimizer that reads no aux need not take it."""
+
+    def update(grads, state, params, step, aux=None):
+        head = state["head"]
+        if store_params:
+            aux = {**(aux or {}), "stale_params": pop(params, state["param_q"], head)}
+        delayed = pop(grads, state["grad_q"], head)
+        if aux:
+            updates, inner_state = inner.update(delayed, state["inner"], params, step, aux=aux)
+        else:
+            updates, inner_state = inner.update(delayed, state["inner"], params, step)
+        new_state = {**state, "inner": inner_state, "head": head + 1}
+        for name, fresh in (("grad_q", grads), ("param_q", params)):
+            if name in state:
+                _push(state[name], fresh, head)
+        return updates, new_state
+
+    return update
+
+
+def delayed_optimizer(inner: Optimizer, delays: Sequence[int],
+                      store_params: bool = False) -> Optimizer:
     """Wrap ``inner`` so each leaf's gradient is applied tau steps late.
 
     ``delays``: per-leaf ints in the parameter dict's leaf order. ``inner``
-    must not keep references to the gradients it is given: the slot a
-    delayed gradient is read from is overwritten once ``inner`` returns.
+    must not keep references to the gradients (or stale weights) it is
+    given: the slot they are read from is overwritten once ``inner``
+    returns.
     """
     delays = [int(d) for d in delays]
 
@@ -39,27 +88,22 @@ def delayed_optimizer(inner: Optimizer, delays: Sequence[int]) -> Optimizer:
             if d > 0 else None
             for p, d in zip(params.values(), delays)
         ]
-        return {"inner": inner.init(params), "grad_q": queues, "head": 0}
+        state = {"inner": inner.init(params), "grad_q": queues, "head": 0}
+        if store_params:
+            state["param_q"] = [_warm_ring(p, d) for p, d in zip(params.values(), delays)]
+        return state
 
-    def update(grads, state, params, step):
-        head = state["head"]
-        delayed = {}
-        for (k, g), q, d in zip(grads.items(), state["grad_q"], delays):
-            # slot head % d holds the gradient pushed d steps ago (zeros
-            # during warm-up): pop it
-            delayed[k] = g if d == 0 else q[head % d]
-        updates, inner_state = inner.update(delayed, state["inner"], params, step)
-        with torch.no_grad():
-            for g, q, d in zip(grads.values(), state["grad_q"], delays):
-                if d:
-                    q[head % d].copy_(g)  # push into the slot just popped
-        return updates, {"inner": inner_state, "grad_q": state["grad_q"], "head": head + 1}
+    def pop(leaves, queues, head):
+        # slot head % d holds the value pushed d steps ago: pop it
+        return {k: x if d == 0 else q[head % d]
+                for (k, x), q, d in zip(leaves.items(), queues, delays)}
 
-    return Optimizer(init, update)
+    return Optimizer(init, _wrapped_update(inner, pop, store_params))
 
 
 def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
-                            num_stages: int, store_params: bool = False) -> Optimizer:
+                            num_stages: int, store_params: bool = False,
+                            extra_param_delay: int = 0) -> Optimizer:
     """Delay wrapper for the stage-stacked layout.
 
     ``specs`` is per leaf: an int delay (shared leaves, as in
@@ -73,12 +117,14 @@ def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
 
     Both kinds of queue are ring buffers advanced by one head counter, as in
     ``delayed_optimizer``; logical row r of a depth-d queue is slot
-    ``(head + r) % d``. ``store_params=True`` (stale-weight snapshots for
-    delay compensation) is not ported yet.
+    ``(head + r) % d``. ``store_params=True`` queues weight snapshots with
+    the same reads, so stage k sees its own w_{t-tau_k} and the last stage
+    the live weights. ``extra_param_delay`` (the asynchronous data axis's
+    deeper weight queues) is not ported yet.
     """
-    if store_params:
+    if extra_param_delay:
         raise NotImplementedError(
-            "not yet ported: store_params (delay_compensation's stale weights)")
+            "not yet ported: extra_param_delay (the asynchronous data axis)")
     K = int(num_stages)
     specs = list(specs)
 
@@ -93,26 +139,23 @@ def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
             if depth(s) > 0 else None
             for p, s in zip(params.values(), specs)
         ]
-        return {"inner": inner.init(params), "grad_q": queues, "head": 0}
+        state = {"inner": inner.init(params), "grad_q": queues, "head": 0}
+        if store_params:
+            state["param_q"] = [_warm_ring(p, depth(s)) for p, s in zip(params.values(), specs)]
+        return state
 
-    def update(grads, state, params, step):
-        head = state["head"]
-        delayed = {}
-        for (k, g), q, s in zip(grads.items(), state["grad_q"], specs):
+    def pop(leaves, queues, head):
+        out = {}
+        for (k, x), q, s in zip(leaves.items(), queues, specs):
             if q is None:
-                delayed[k] = g
+                out[k] = x
             elif s == "stage":
                 d = K - 1
-                # stage j reads logical row j (pushed d - j steps ago), slice j
-                delayed[k] = torch.stack(
-                    [q[(head + j) % d, j] for j in range(d)] + [g[d].float()])
+                # stage j reads logical row j (pushed d - j steps ago), slice j;
+                # the last stage reads the fresh value
+                out[k] = torch.stack([q[(head + j) % d, j] for j in range(d)] + [x[d].float()])
             else:
-                delayed[k] = q[head % q.shape[0]]
-        updates, inner_state = inner.update(delayed, state["inner"], params, step)
-        with torch.no_grad():
-            for g, q in zip(grads.values(), state["grad_q"]):
-                if q is not None:
-                    q[head % q.shape[0]].copy_(g)  # the oldest slot takes the fresh gradient
-        return updates, {"inner": inner_state, "grad_q": state["grad_q"], "head": head + 1}
+                out[k] = q[head % q.shape[0]]
+        return out
 
-    return Optimizer(init, update)
+    return Optimizer(init, _wrapped_update(inner, pop, store_params))

@@ -370,7 +370,7 @@ def test_layout_delays_and_refresh_periods_match_reference_at_paper_95m(stage_aw
         assert tctx.refresh_freqs(10, True) == jctx.refresh_freqs(10, True)
 
 
-def test_build_optimizer_wraps_the_delay_fifo_and_refuses_unported_names():
+def test_build_optimizer_wraps_the_delay_fifo_and_refuses_unknown_names():
     ct = tget_config("paper_95m", smoke=True).replace(scan_layers=False)
     params = param_leaves(Transformer(ct, device="cpu", seed=0))
     opt = build_optimizer(OptimizerConfig(), params, ct, num_stages=2)
@@ -378,5 +378,5 @@ def test_build_optimizer_wraps_the_delay_fifo_and_refuses_unported_names():
     depths = [0 if q is None else q.shape[0] for q in state["grad_q"]]
     assert depths == tpart.leaf_delays(params, ct, 2)
     assert "leaves" in state["inner"]
-    with pytest.raises(NotImplementedError):
-        build_optimizer(OptimizerConfig(name="muon"), params, ct, num_stages=2)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        build_optimizer(OptimizerConfig(name="sgd"), params, ct, num_stages=2)

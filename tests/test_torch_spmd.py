@@ -167,8 +167,8 @@ def test_stage_delayed_optimizer_gives_exact_pipedream_delays():
         np.testing.assert_array_equal(upd["0/w"].numpy(), np.asarray(ju))
         np.testing.assert_array_equal(upd["1/embed"].numpy(), np.asarray(jsh["embed"]))
         np.testing.assert_array_equal(upd["1/lm_head"].numpy(), np.asarray(jsh["lm_head"]))
-    with pytest.raises(NotImplementedError, match="store_params"):
-        stage_delayed_optimizer(identity, specs, K, store_params=True)
+    with pytest.raises(NotImplementedError, match="extra_param_delay"):
+        stage_delayed_optimizer(identity, specs, K, store_params=True, extra_param_delay=1)
 
 
 def _batch(seed=0, mb=2, S=16):
