@@ -14,7 +14,12 @@
    as one grouped launch over each path's rotated leaves (their own buffers,
    timed cold per step beside the per-leaf sequence) and over a ragged
    group, bitwise equal to its leaves launched alone; B1, B2 and B3 must
-   each repeat bitwise. ptxas must report no spill stores for B5.
+   each repeat bitwise. ptxas must report no spill stores for B5, nor for
+   any of B1-B3's 18 instantiations (3 kernels, 2 input types, 3 head
+   widths). B1-B3's
+   bfloat16 entry points run the same cases on bf16 inputs (O, dQ, dK, dV
+   within 1e-2 of their plain versions, L within 1e-5, bitwise repeats) and
+   are timed at the path shape beside SDPA in bf16.
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
@@ -28,7 +33,11 @@
    schedule for 12 steps and the fill-drain schedule for 4 (the cosine
    schedule's length is the step count, so the two curves differ after the
    first steps). Checks finite losses and the exact launch counts of all
-   five kernels.
+   five kernels. ``spmd_bf16`` trains the 1F1B path under ``--precision
+   bf16`` for 6 steps: B1-B3 through their bf16 entry points only (2 M L and
+   M L launches a step), B4 and B5 as in float32; then one more step under
+   the dtype check (``analysis.dtype``: bfloat16 and float32 only, bfloat16
+   present, masters and optimizer state float32).
    Then three phases of the other paths, each with every launch count
    zeroed just before and read just after, writing checkpoints to a
    temporary directory that the phase deletes (it first checks that the
@@ -55,7 +64,8 @@
    kernel versions) from the same seed, on both backends (and both SPMD
    schedules, and the sim backend's no-stash and weight-prediction modes),
    with Adam and with basis rotation through the kernels, and compares the
-   losses; then each baseline on the sim backend and the SPMD 1F1B one.
+   losses; then each baseline on the sim backend and the SPMD 1F1B one, and
+   the SPMD 1F1B path in bf16 (first loss within 1e-2, all within 5e-2).
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -91,6 +101,7 @@ SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
              "--microbatches", "8", "--optimizer", "basis_rotation", "--use-kernels",
              "--batch", "8", "--seq", "256", "--log-every", "1"]
 SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
+BF16_STEPS = 6  # steps of the 1F1B path under --precision bf16
 RESUME_CUT = {"sim": 6, "spmd": 2}  # the step each resume check checkpoints at
 MODE_STEPS = 6  # steps of each sim staleness mode
 # the paper's baselines: each on the sim path, and three on the SPMD 1F1B path
@@ -108,12 +119,12 @@ NEWTON_SCHULZ = ("muon", "scion")
 RESUME_TOL = 1e-6  # resumed losses against the uninterrupted run's, same card and code
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
-# cores, device memory bandwidth, and TF32 on the tensor cores. The SXM part
-# is the default.
+# cores, device memory bandwidth, TF32 and bf16 on the tensor cores. The SXM
+# part is the default.
 PEAKS = {
-    "PCIe": (51.2e12, 2.0e12, 378e12),
-    "NVL": (60.0e12, 3.9e12, 417.5e12),
-    "SXM": (67.0e12, 3.35e12, 495e12),
+    "PCIe": (51.2e12, 2.0e12, 378e12, 756e12),
+    "NVL": (60.0e12, 3.9e12, 417.5e12, 835e12),
+    "SXM": (67.0e12, 3.35e12, 495e12, 989e12),
 }
 TF32_PASSES = 3  # the 3xTF32 split: three tensor-core products per float32 product
 
@@ -129,6 +140,9 @@ ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6  # tests/test_kernels.py fused Adam parity
 FWD_RTOL, FWD_ATOL = 2e-3, 2e-4  # tests/test_kernels.py:87 flash forward parity
 BWD_RTOL, BWD_ATOL = 2e-3, 1e-4  # tests/test_kernels.py:137-142 flash backward parity
 FLASH_PATH = (6, 256, 64)  # (heads, S, dh) of one attention call on the paper_95m path
+# B1-B3 on bf16 inputs against their plain versions on the same inputs: O, dQ,
+# dK and dV are each rounded to bf16 once (2^-8 relative); L is float32
+BF16_TOL, BF16_L_TOL = 1e-2, 1e-5
 # B2 and B3 at the path shape: relative error against a float64 backward at most this
 # many times the plain version's. One TF32 pass instead of three is ~1e3 times off.
 F64_ERR_FACTOR = 4
@@ -261,6 +275,12 @@ def ptxas_report(log: str, kernel: str):
             out[name] = {"registers": int(regs.group(1)) if regs else None,
                          "spill_stores": int(spill.group(1)) if spill else None}
     return out
+
+
+def flash_entry(mangled: str) -> str:
+    """``flash_fwd_kernel<64, bf16>`` for a flash kernel's mangled name."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E(\w+?)EEv", mangled)
+    return f"{m.group(1)}<{m.group(2)}, {'bf16' if 'bfloat16' in m.group(3) else 'f32'}>"
 
 
 def bounds(flops, nbytes, peaks, passes=1):
@@ -480,15 +500,17 @@ def check_adam_groups(torch, kadam, paths, peaks):
     return rows, worst
 
 
-def flash_work(BH: int, S: int, dh: int, window=None):
-    """Operations and bytes the three flash kernels need at one shape:
-    products over the visible (causal, windowed) entries only, each input
-    read once and each output written once. Returns {kernel: (flops, bytes)}."""
-    nnz = sum(min(i + 1, window or i + 1) for i in range(S))
-    head, row = 4.0 * BH * S * dh, 4.0 * BH * S  # float32 bytes of a (S, dh) and a (S,) per head
-    return {"flash_fwd": (4.0 * dh * nnz * BH, 3 * head + head + row),       # QK, PV; O and L
-            "flash_bwd_dq": (6.0 * dh * nnz * BH, 4 * head + 2 * row + head),  # QK, dO V, dS K
-            "flash_bwd_dkv": (8.0 * dh * nnz * BH, 4 * head + 2 * row + 2 * head)}
+def flash_work(BH: int, S: int, dh: int, elem: int = 4):
+    """Work of the three flash kernels at one causal shape, over the visible
+    entries only, with heads of ``elem`` bytes (L and D float32), each input
+    read once and each output written once. Returns {kernel: (flops of the
+    products of two inputs (QK^T, dO V^T), flops of the products of P or dS
+    by an input, bytes)}."""
+    prod = 2.0 * dh * (S * (S + 1) // 2) * BH  # one (S x S) by (S x dh) product
+    head, row = float(elem) * BH * S * dh, 4.0 * BH * S
+    return {"flash_fwd": (prod, prod, 3 * head + head + row),  # QK, PV; O and L
+            "flash_bwd_dq": (2 * prod, prod, 4 * head + 2 * row + head),  # QK, dO V; dS K
+            "flash_bwd_dkv": (2 * prod, 2 * prod, 4 * head + 2 * row + 2 * head)}
 
 
 def check_flash(torch, kflash, peaks):
@@ -589,9 +611,119 @@ def check_flash(torch, kflash, peaks):
     timing["flash_fwd"]["library_ms"] = sdpa_fwd
     # SDPA's backward computes dQ, dK and dV in one call: B2 and B3 together
     timing["flash_bwd_dq"]["library_ms"] = timing["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
-    for name, (flops, nbytes) in flash_work(BH, S, dh).items():  # all three in 3xTF32
-        tc, f32, by = bounds(flops, nbytes, peaks, TF32_PASSES)
+    for name, (f_in, f_p, nbytes) in flash_work(BH, S, dh).items():  # all in 3xTF32
+        tc, f32, by = bounds(f_in + f_p, nbytes, peaks, TF32_PASSES)
         timing[name].update(bound_ms=tc, bound_fp32_ms=f32, bound_by=by)
+    return rows, errs, timing
+
+
+def check_flash_bf16(torch, kflash, peaks):
+    """B1-B3's bfloat16 entry points against their plain versions on the
+    same bf16 inputs: the float32 check's cases (path shape, the reference's
+    sweeps, a fully-masked row case), each kernel run twice and required to
+    repeat bitwise. At the path shape: B2 and B3 against a float64 backward
+    (within F64_ERR_FACTOR of the plain versions' error), and the times of
+    all three, their plain versions and SDPA's bf16 forward and backward.
+    Returns (rows, errs, timing)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+    rows, errs = [], {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = [(FLASH_PATH, None, None)]
+    cases += [((6, S, 64), w, None) for S in (256, 128) for w in (None, 100, 32)]
+    cases += [((2, S, 32), w, None) for S in (200, 100) for w in (None, 100, 32, 16)]
+    cases += [((1, 128, 16), 8, 100)]
+    for (BH, S, dh), window, seq_len in cases:
+        q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen).to(bf16)
+                       for _ in range(4))
+        o, L = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
+        o2, L2 = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
+        o_p, L_p = kflash.flash_fwd_plain(q, k, v, window=window, seq_len=seq_len)
+        D = (do.float() * o.float()).sum(-1)
+        dq = kflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+        dq2 = kflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+        dq_p = kflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window)
+        dk, dv = kflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+        dk2, dv2 = kflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+        dk_p, dv_p = kflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
+        torch.cuda.synchronize()
+        if not all(x.dtype == bf16 for x in (o, dq, dk, dv)) or L.dtype != torch.float32:
+            raise AssertionError("flash bf16 output dtypes "
+                                 f"{[x.dtype for x in (o, L, dq, dk, dv)]}")
+        row = {"shape": [BH, S, dh], "window": window, "seq_len": seq_len}
+        for name, pairs in (("flash_fwd", ((o, o2), (L, L2))), ("flash_bwd_dq", ((dq, dq2),)),
+                            ("flash_bwd_dkv", ((dk, dk2), (dv, dv2)))):
+            row[name + "_bitwise_repeat"] = all(
+                torch.equal(a.view(torch.int16 if a.dtype == bf16 else torch.int32),
+                            b.view(torch.int16 if b.dtype == bf16 else torch.int32))
+                for a, b in pairs)
+            if not row[name + "_bitwise_repeat"]:
+                raise AssertionError(f"{name} bf16 {(BH, S, dh)} window={window}: two runs differ")
+        for name, pairs in (("flash_fwd", ((o, o_p, BF16_TOL), (L, L_p, BF16_L_TOL))),
+                            ("flash_bwd_dq", ((dq, dq_p, BF16_TOL),)),
+                            ("flash_bwd_dkv", ((dk, dk_p, BF16_TOL), (dv, dv_p, BF16_TOL)))):
+            if seq_len is not None and name != "flash_fwd":
+                continue  # the backward always sees every key
+            err = max((a.float() - b.float()).abs().max().item() for a, b, _ in pairs)
+            row[name + "_max_abs_err"] = err
+            errs[name] = max(errs[name], err)
+            if not all(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+                       for a, b, tol in pairs):
+                raise AssertionError(f"{name} bf16 {(BH, S, dh)} window={window}: "
+                                     f"max abs err {err}")
+        if seq_len is not None:
+            dead = seq_len - 1 + window
+            if not (o[:, dead:].abs().max().item() == 0.0 and bool((L[:, dead:] <= -1e29).all())):
+                raise AssertionError("flash_fwd bf16: fully-masked rows are not 0 with L = -1e30")
+            row["fully_masked_rows_zero"] = True
+        rows.append(row)
+
+    BH, S, dh = FLASH_PATH
+    q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen).to(bf16)
+                   for _ in range(4))
+    o, L = kflash.flash_fwd(q, k, v)
+    D = (do.float() * o.float()).sum(-1)
+    timing = {}
+    x64 = [x.double() for x in (q, k, v, do, L, D)]
+    want = {"flash_bwd_dq": (kflash.flash_bwd_dq_plain(*x64),),
+            "flash_bwd_dkv": kflash.flash_bwd_dkv_plain(*x64)}
+    for name, w in want.items():
+        def rel(fn):
+            got = fn(q, k, v, do, L, D)
+            got = got if isinstance(got, tuple) else (got,)
+            return max(float((x.double() - y).norm() / y.norm()) for x, y in zip(got, w))
+        t = timing[name] = {"rel_err_f64": rel(getattr(kflash, name)),
+                            "plain_rel_err_f64": rel(getattr(kflash, name + "_plain"))}
+        if not t["rel_err_f64"] <= F64_ERR_FACTOR * t["plain_rel_err_f64"]:
+            raise AssertionError(f"{name} bf16: relative error {t['rel_err_f64']} against "
+                                 f"float64 exceeds {F64_ERR_FACTOR}x the plain version's "
+                                 f"{t['plain_rel_err_f64']}")
+    for name, fn, plain in (
+            ("flash_fwd", lambda: kflash.flash_fwd(q, k, v),
+             lambda: kflash.flash_fwd_plain(q, k, v)),
+            ("flash_bwd_dq", lambda: kflash.flash_bwd_dq(q, k, v, do, L, D),
+             lambda: kflash.flash_bwd_dq_plain(q, k, v, do, L, D)),
+            ("flash_bwd_dkv", lambda: kflash.flash_bwd_dkv(q, k, v, do, L, D),
+             lambda: kflash.flash_bwd_dkv_plain(q, k, v, do, L, D))):
+        t = timing.setdefault(name, {})
+        t["ms"], t["host_ms"] = time_ms(fn)
+        t["plain_ms"], _ = time_ms(plain)
+    for name, n in kflash.launched_blocks().items():
+        timing[name]["blocks"] = n
+    q4, k4, v4 = (x.reshape(1, BH, S, dh).clone().requires_grad_(True) for x in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(1, BH, S, dh)
+    sdpa_bwd, _ = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True))
+    timing["flash_fwd"]["library_ms"] = sdpa_fwd
+    timing["flash_bwd_dq"]["library_ms"] = timing["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
+    for name, (f_in, f_p, nbytes) in flash_work(BH, S, dh, elem=2).items():
+        t_ops = f_in / peaks[3] + 2 * f_p / peaks[2]  # bf16 rate; 2xTF32 at the TF32 rate
+        t_bytes = nbytes / peaks[1]
+        timing[name].update(bound_ms=1e3 * max(t_ops, t_bytes),
+                            bound_by="operations" if t_ops >= t_bytes else "bytes")
     return rows, errs, timing
 
 
@@ -628,6 +760,28 @@ def check_schedule_grads(torch, cfg, K, M, rtol=1e-5):
     return out
 
 
+def check_bf16_dtypes(train, args):
+    """One more step of the bf16 path (a fresh trainer for ``args``) under
+    the dtype check: every float the step computes is bfloat16 or float32,
+    bfloat16 is among them, and the masters and optimizer state it reads
+    and writes are float32."""
+    from repro_torch.analysis import (
+        BF16_COMPUTE_POLICY,
+        check_dtype_policy,
+        record_float_dtypes,
+        state_leaves,
+    )
+
+    engine, data, _ = train.build(train.parse_args(args))
+    state = engine.init_state()
+    (state, loss, _), seen = record_float_dtypes(engine.step, state, next(data), 0)
+    res = check_dtype_policy(seen, state_leaves((state.params, state.opt_state)),
+                             BF16_COMPUTE_POLICY)
+    if not (res.passed and math.isfinite(float(loss))):
+        raise AssertionError(f"bf16 step: loss {float(loss)}, dtype check {res.to_json()}")
+    return res.to_json()
+
+
 def per_step(rows, counts, key_of):
     """Sum a per-launch measurement over one step's launch multiset."""
     by_key = {key_of(r): r for r in rows if "ms" in r}
@@ -641,12 +795,12 @@ def per_step(rows, counts, key_of):
 
 
 def zero_counts(kernels) -> None:
-    for fn in kernels.values():
-        fn.launches = 0
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(kernels):
-    return {name: fn.launches for name, fn in kernels.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
 
 
 def run_path(train, torch, kernels, args, want):
@@ -683,15 +837,9 @@ def tensor_bytes(tree) -> int:
     """Bytes of every tensor in a nest of dicts, lists and tuples: an engine
     state's parameters, optimizer state and delay queues, which its
     checkpoint holds."""
-    import torch
+    from repro_torch.analysis import state_leaves
 
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, dict):
-        return sum(tensor_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(tensor_bytes(v) for v in tree)
-    return 0
+    return sum(x.numel() * x.element_size() for x in state_leaves(tree).values())
 
 
 def run_to_checkpoint(train, torch, kernels, args, cut, ckpt_dir, want):
@@ -858,9 +1006,16 @@ def main() -> int:
     from repro_torch.kernels import matmul as kmm
     from repro_torch.launch import train
 
-    kernels = {"flash_fwd": kflash.flash_fwd, "flash_bwd_dq": kflash.flash_bwd_dq,
-               "flash_bwd_dkv": kflash.flash_bwd_dkv, "matmul": kmm.matmul,
-               "adam_scale": kadam.adam_scale}
+    # each kernel's launch count: (wrapper, attribute); B1-B3 count their
+    # float32 and bfloat16 entry points apart
+    kernels = {"flash_fwd": (kflash.flash_fwd, "launches"),
+               "flash_bwd_dq": (kflash.flash_bwd_dq, "launches"),
+               "flash_bwd_dkv": (kflash.flash_bwd_dkv, "launches"),
+               "flash_fwd_bf16": (kflash.flash_fwd, "launches_bf16"),
+               "flash_bwd_dq_bf16": (kflash.flash_bwd_dq, "launches_bf16"),
+               "flash_bwd_dkv_bf16": (kflash.flash_bwd_dkv, "launches_bf16"),
+               "matmul": (kmm.matmul, "launches"), "adam_scale": (kadam.adam_scale, "launches")}
+    none = {k: 0 for k in kernels}
     OUT_DIR.mkdir(exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -878,13 +1033,20 @@ def main() -> int:
     if adam_ptxas is not None and (not adam_ptxas or any(
             r["spill_stores"] != 0 for r in adam_ptxas.values())):
         raise AssertionError(f"adam_scale_grouped_kernel: ptxas report {adam_ptxas}")
+    # B1-B3, float32 and bf16 entry points at every head width: no spills
+    flash_ptxas = ptxas_report(lib.log, "flash_") if lib.log else None
+    if flash_ptxas is not None and (len(flash_ptxas) != 18 or any(
+            r["spill_stores"] != 0 for r in flash_ptxas.values())):
+        raise AssertionError(f"flash kernels: ptxas report {flash_ptxas}")
     emit({"phase": "device", "nvidia_smi": smi, "kind": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_for": part,
           "f32_peak_tflops": peaks[0] / 1e12, "mem_tb_s": peaks[1] / 1e12,
           "tf32_peak_tflops": peaks[2] / 1e12,
           "build_s": lib.build_seconds, "library": lib.path.name,
-          "adam_ptxas": adam_ptxas})
+          "adam_ptxas": adam_ptxas,
+          "flash_ptxas": None if flash_ptxas is None else {
+              flash_entry(k): v for k, v in flash_ptxas.items()}})
 
     # phase 2: each kernel against its plain version. B4 per shape as a
     # group of one, then as the grouped launches of the sim and SPMD paths
@@ -901,10 +1063,12 @@ def main() -> int:
                                                            "spmd": sadam_leaves}, peaks)
     adam_err = max(adam_err, agrp_err)
     flash_rows, flash_errs, flash_t = check_flash(torch, kflash, peaks)
+    bf16_rows, bf16_errs, bf16_t = check_flash_bf16(torch, kflash, peaks)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
         {"matmul": mm_rows, "matmul_grouped": grp_rows, "adam_scale": adam_rows,
          "adam_scale_grouped": agrp_rows,
-         "flash": flash_rows, "flash_timing_per_launch": flash_t}, indent=1))
+         "flash": flash_rows, "flash_timing_per_launch": flash_t,
+         "flash_bf16": bf16_rows, "flash_bf16_timing_per_launch": bf16_t}, indent=1))
     emit({"phase": "kernels", "matmul_cases": len(mm_rows) + len(grp_rows),
           "matmul_max_abs_err": mm_err,
           "matmul_grouped_ms": {r["group"]: r["ms"] for r in grp_rows if "ms" in r},
@@ -923,7 +1087,16 @@ def main() -> int:
           "flash_bwd_rel_err_f64": {k: {f: t[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
                                     for k, t in flash_t.items() if "rel_err_f64" in t},
           "flash_bitwise_repeat": {k: all(r[k + "_bitwise_repeat"] for r in flash_rows)
-                                   for k in flash_t}})
+                                   for k in flash_t},
+          "flash_bf16_cases": len(bf16_rows), "flash_bf16_max_abs_err": bf16_errs,
+          "flash_bf16_ms_per_launch": {k: {f: t[f] for f in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "host_ms")} for k, t in bf16_t.items()},
+          "flash_bf16_blocks": {k: t["blocks"] for k, t in bf16_t.items()},
+          "flash_bf16_bwd_rel_err_f64": {
+              k: {f: t[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
+              for k, t in bf16_t.items() if "rel_err_f64" in t},
+          "flash_bf16_bitwise_repeat": {k: all(r[k + "_bitwise_repeat"] for r in bf16_rows)
+                                        for k in bf16_t}})
 
     # phase 3: the sim path
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])
@@ -941,11 +1114,25 @@ def main() -> int:
     for schedule, n in SPMD_STEPS.items():
         args = SPMD_ARGS + ["--schedule", schedule, "--steps", str(n)]
         fwd = 2 if schedule == "1f1b" else 1  # 1F1B recomputes in its backward
-        want = {"flash_fwd": n * fwd * M * L, "flash_bwd_dq": n * M * L,
+        want = {**none, "flash_fwd": n * fwd * M * L, "flash_bwd_dq": n * M * L,
                 "flash_bwd_dkv": n * M * L, "matmul": n * sum(1 for g in sgroups if g),
                 "adam_scale": n * sadam_per_step}
         spmd[schedule] = run_path(train, torch, kernels, args, want)
         emit({"phase": f"spmd_{schedule}", **spmd[schedule]})
+
+    # phase 4, bf16: the 1F1B path under the bf16_compute policy; B1-B3 through
+    # their bf16 entry points only, B4 and B5 on the float32 gradients and state
+    torch.cuda.empty_cache()
+    bf16_args = SPMD_ARGS + ["--schedule", "1f1b", "--steps", str(BF16_STEPS),
+                             "--precision", "bf16"]
+    n = BF16_STEPS
+    spmd_bf16 = run_path(train, torch, kernels, bf16_args, {
+        **none, "flash_fwd_bf16": n * 2 * M * L, "flash_bwd_dq_bf16": n * M * L,
+        "flash_bwd_dkv_bf16": n * M * L, "matmul": n * sum(1 for g in sgroups if g),
+        "adam_scale": n * sadam_per_step})
+    torch.cuda.empty_cache()
+    spmd_bf16["dtype_check"] = check_bf16_dtypes(train, bf16_args)
+    emit({"phase": "spmd_bf16", **spmd_bf16})
 
     # phase 4, continued: the resume paths, then the sim staleness modes
     sim_per_step = {k: 0 for k in kernels}
@@ -956,8 +1143,9 @@ def main() -> int:
     emit({"phase": "resume_sim", **resume_sim})
     torch.cuda.empty_cache()
     fd_args = SPMD_ARGS + ["--schedule", "fill_drain", "--steps", str(SPMD_STEPS["fill_drain"])]
-    spmd_per_step = {"flash_fwd": M * L, "flash_bwd_dq": M * L, "flash_bwd_dkv": M * L,
-                     "matmul": sum(1 for g in sgroups if g), "adam_scale": sadam_per_step}
+    spmd_per_step = {**none, "flash_fwd": M * L, "flash_bwd_dq": M * L,
+                     "flash_bwd_dkv": M * L, "matmul": sum(1 for g in sgroups if g),
+                     "adam_scale": sadam_per_step}
     resume_spmd = check_resume(train, torch, kernels, fd_args, RESUME_CUT["spmd"],
                                spmd_per_step, spmd["fill_drain"]["losses"])
     emit({"phase": "resume_spmd", **resume_spmd})
@@ -989,14 +1177,14 @@ def main() -> int:
         args[args.index("--optimizer") + 1] = opt
         args[args.index("--steps") + 1] = str(BASELINE_STEPS["sim"])
         baselines["sim"][opt] = run_baseline(train, torch, kernels, args, batch_list,
-                                             {k: 0 for k in kernels}, sim["losses"][0])
+                                             none, sim["losses"][0])
     n = BASELINE_STEPS["spmd"]
     for opt in BASELINES_SPMD:
         torch.cuda.empty_cache()
         args = SPMD_ARGS + ["--schedule", "1f1b", "--steps", str(n)]
         args[args.index("--optimizer") + 1] = opt
-        want = {"flash_fwd": n * 2 * M * L, "flash_bwd_dq": n * M * L,
-                "flash_bwd_dkv": n * M * L, "matmul": 0, "adam_scale": 0}
+        want = {**none, "flash_fwd": n * 2 * M * L, "flash_bwd_dq": n * M * L,
+                "flash_bwd_dkv": n * M * L}
         baselines["spmd_1f1b"][opt] = run_baseline(train, torch, kernels, args, batch_list,
                                                    want, spmd["1f1b"]["losses"][0])
     emit({"phase": "baselines", "sample_s": sample_s,
@@ -1034,6 +1222,18 @@ def main() -> int:
                 raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
             emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
                   "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
+    # bf16: the card's cuBLAS and the CPU's products round to bf16 at other
+    # places, as two implementations of a bf16 step do (the CPU tests hold the
+    # port to the reference at 1e-2 on the first loss, 3e-2 on all)
+    args = SMOKE_ARGS + ["--backend", "spmd", "--schedule", "1f1b", "--precision", "bf16",
+                         "--use-kernels"]
+    gpu = train.main(args)["losses"]
+    cpu = train.main(args + ["--device", "cpu"])["losses"]
+    diffs = [abs(a - b) for a, b in zip(gpu, cpu)]
+    if not (len(diffs) == len(cpu) and diffs[0] < 1e-2 and max(diffs) < 5e-2):
+        raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
+    emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
+          "max_diff_first": diffs[0], "max_diff": max(diffs)})
 
     # the kernel table. B4 and B5: per training step of the sim path (B4: its
     # four grouped launches; the plain and library times summed per product
@@ -1094,6 +1294,24 @@ def main() -> int:
             "library_ms": per * t["library_ms"], "blocks_per_launch": t["blocks"],
         })
         bound_fp32[kname] = per * t["bound_fp32_ms"]
+    for kname, src, replaces in (
+        ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+         "src/repro/kernels/flash.py:80"),
+        ("flash_bwd_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+         "src/repro/kernels/flash.py:162"),
+        ("flash_bwd_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+         "src/repro/kernels/flash.py:196"),
+    ):
+        launches = spmd_bf16["launches"][kname + "_bf16"]
+        per = launches / BF16_STEPS
+        t = bf16_t[kname]
+        rows.append({
+            "name": kname + "_bf16", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": bf16_errs[kname],
+            "ms": per * t["ms"], "plain_ms": per * t["plain_ms"],
+            "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": per * t["library_ms"], "blocks_per_launch": t["blocks"],
+        })
     (OUT_DIR / "chip_smoke_summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": rows, "note": "ms, plain_ms, bound_ms and library_ms "
          "are per training step: B4 and B5 of the sim path, B1-B3 of the SPMD 1F1B path; "
@@ -1103,9 +1321,14 @@ def main() -> int:
          "bound_ms of B4 and B1-B3 is the tensor route (3xTF32 at the TF32 rate, or bytes), "
          "bound_fp32_ms the float32 FMA route, per training step likewise. blocks_per_launch "
          "is the grid that B1-B3's launches recorded at the path shape. The library time of B2 and of B3 is the "
-         "time of SDPA's whole backward (dQ, dK and dV in one call)",
+         "time of SDPA's whole backward (dQ, dK and dV in one call). The _bf16 rows are "
+         "B1-B3's bfloat16 entry points per step of the SPMD 1F1B path under --precision "
+         "bf16 (launches: its 6-step run); their bound_ms counts the bf16 x bf16 products "
+         "at the bf16 rate, the float32-by-bf16 products as two TF32 passes, and bf16 "
+         "heads with float32 L and D; library_ms is SDPA in bf16",
          "bound_fp32_ms": bound_fp32,
          "spmd_fill_drain_launches": spmd["fill_drain"]["launches"],
+         "spmd_bf16_launches": spmd_bf16["launches"],
          "resume_sim_launches": [resume_sim[leg]["launches"]
                                  for leg in ("first_leg", "resumed_leg")],
          "resume_spmd_launches": [resume_spmd[leg]["launches"]

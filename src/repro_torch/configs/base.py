@@ -2,8 +2,8 @@
 
 Port of ``repro/configs/base.py``, cut to what the dense attention models
 (the paper's nanoGPT family) use. Defaults are the reference's; dtype
-properties return torch dtypes. Only the ``f32`` precision policy exists so
-far: the bf16 policy arrives with the SPMD engine.
+properties return torch dtypes. Both of the reference's precision policies
+exist: ``f32`` and ``bf16`` (``bf16_compute``, the SPMD backend's).
 """
 from __future__ import annotations
 
@@ -92,12 +92,21 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class PrecisionPolicy:
-    """Compute/state dtype selection applied on top of a ModelConfig."""
+    """Compute/state dtype selection applied on top of a ModelConfig.
+
+    The policy only selects dtypes; the model and the schedules own every
+    cast (``models.model.cast_params``: float32 masters to compute-dtype
+    copies at use; float32 norms, softmax and cross-entropy; ``logits_fp32``),
+    and the optimizer only ever sees float32 state. ``bf16_compute`` is
+    bfloat16 activations and products with float32 masters, optimizer state
+    and loss reductions, which ``analysis.dtype.BF16_COMPUTE_POLICY`` checks
+    on a traced step.
+    """
 
     name: str = "f32"
-    dtype: str = "float32"
-    param_dtype: str = "float32"
-    logits_fp32: bool = True
+    dtype: str = "float32"  # activation / product compute dtype
+    param_dtype: str = "float32"  # parameter masters (and optimizer state)
+    logits_fp32: bool = True  # keep the vocab head in float32
 
     def apply(self, cfg: ModelConfig) -> ModelConfig:
         return cfg.replace(
@@ -106,7 +115,10 @@ class PrecisionPolicy:
         )
 
 
-PRECISION_POLICIES = {"f32": PrecisionPolicy()}
+PRECISION_POLICIES = {
+    "f32": PrecisionPolicy(),
+    "bf16": PrecisionPolicy(name="bf16_compute", dtype="bfloat16"),
+}
 
 
 @dataclass(frozen=True)

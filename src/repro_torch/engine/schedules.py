@@ -31,6 +31,14 @@ exact: M x (layers) stage-layer forwards for fill-drain, twice that for
   into float32 gradient buffers. The last stage seeds its backward with
   ce_m / M from this tick's fresh output; stage 0's input gradient becomes
   the embedding gradient. Activations held: O(K) per stage, whatever M.
+
+Under the ``bf16`` precision policy both schedules run on compute-dtype
+copies of the float32 masters (``cast_params``) and return float32
+gradients. Fill-drain casts each stage's weights at each use, so that
+autograd sums the microbatches' gradients into the masters in float32, as
+the reference's cast inside its stage function does. 1F1B casts once per
+step: each tick's gradients are taken against those copies and added into
+its float32 buffers, which is what the reference's per-tick cast gives.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import cross_entropy, embed, head_logits
+from repro_torch.models.model import cast_params, cross_entropy, embed, head_logits
 from repro_torch.models.transformer import stage_apply, template_block
 
 Tensor = torch.Tensor
@@ -142,9 +150,11 @@ def make_fill_drain_loss(cfg: ModelConfig, num_stages: int, num_microbatches: in
         saved = _SavedBytes(stats is not None)
         if stats is not None:
             stats.start()
+        cdt = cfg.compute_dtype
         stage_w = [{p: w[k] for p, w in stacked.items()} for k in range(K)]
         with saved.hooks():
-            emb = embed(shared, cfg, tokens)  # (M, mb, S, d): staged by stage 0
+            sh = cast_params(shared, cdt)  # each used once: embedding and head
+            emb = embed(sh, cfg, tokens)  # (M, mb, S, d): staged by stage 0
             recv: Dict[int, Tensor] = {}
             outs: List[Optional[Tensor]] = [None] * M
             for t in range(M + K - 1):
@@ -153,7 +163,8 @@ def make_fill_drain_loss(cfg: ModelConfig, num_stages: int, num_microbatches: in
                     m = t - k
                     if not 0 <= m < M:
                         continue  # bubble: the reference computes zeros here
-                    h = stage_apply(block, stage_w[k], emb[m] if k == 0 else recv[k])
+                    h = stage_apply(block, cast_params(stage_w[k], cdt),
+                                    emb[m] if k == 0 else recv[k])
                     if k == K - 1:
                         outs[m] = h  # the last stage collects microbatch m
                     else:
@@ -162,7 +173,7 @@ def make_fill_drain_loss(cfg: ModelConfig, num_stages: int, num_microbatches: in
                 if stats is not None:
                     stats.saved_bytes.append(saved.live)
             x = torch.stack(outs)  # (M, mb, S, d)
-            loss = cross_entropy(head_logits(shared, cfg, x), labels)
+            loss = cross_entropy(head_logits(sh, cfg, x), labels)
         if stats is not None:
             # staged embeddings and collected outputs (M each) plus a receive slot
             stats.held_bytes = _nbytes(emb) + _nbytes(x) + _nbytes(x[0])
@@ -193,6 +204,8 @@ def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
                    for p, w in stacked.items()}
         g_shared = {p: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
                     for p, w in shared.items()}
+        # every tick below runs on these compute-dtype copies
+        stacked, shared = cast_params(stacked, cdt), cast_params(shared, cdt)
         stash = [torch.zeros((Q,) + act, dtype=cdt, device=dev) for _ in range(K)]
         fwd_recv = [torch.zeros(act, dtype=cdt, device=dev) for _ in range(K)]
         bwd_recv = [torch.zeros(act, dtype=cdt, device=dev) for _ in range(K)]

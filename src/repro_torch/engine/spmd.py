@@ -31,7 +31,12 @@ from repro_torch.checkpoint.convert import (
     stacked_to_numpy,
     stage_shard_axes,
 )
-from repro_torch.configs.base import ModelConfig, OptimizerConfig
+from repro_torch.configs.base import (
+    PRECISION_POLICIES,
+    ModelConfig,
+    OptimizerConfig,
+    PrecisionPolicy,
+)
 from repro_torch.engine.base import EngineState, PipelineEngine
 from repro_torch.engine.schedules import SCHEDULES, make_schedule_grad
 from repro_torch.core.layout import tree_order_key
@@ -96,8 +101,12 @@ class SpmdEngine(PipelineEngine):
     the same optimisation problem as the one-stage simulation.
     ``use_kernels=True`` routes attention through the flash-attention
     kernels (B1-B3) and the basis-rotation products and Adam scale through
-    B4 and B5. ``device`` is where the state lives and the step runs;
-    ``seed`` draws the initial model when ``init_state`` is given none.
+    B4 and B5. ``precision`` (a ``PRECISION_POLICIES`` name or a policy;
+    None leaves ``cfg`` as it is) sets the compute dtype: under ``bf16``
+    the schedules run on bfloat16 copies of the weights, while the
+    masters, the gradients and the optimizer state stay float32.
+    ``device`` is where the state lives and the step runs; ``seed`` draws
+    the initial model when ``init_state`` is given none.
     """
 
     name = "spmd"
@@ -106,11 +115,17 @@ class SpmdEngine(PipelineEngine):
                  num_microbatches: int = 0, schedule: str = "fill_drain",
                  async_grads: bool = True, use_kernels: bool = False,
                  grad_clip: float = 1.0, device: Union[str, torch.device] = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, precision: Union[str, PrecisionPolicy, None] = None):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown pipeline schedule {schedule!r}; one of {SCHEDULES}")
         if cfg.scan_layers:
             raise ValueError("pipeline stacking starts from per-layer params (scan_layers=False)")
+        if isinstance(precision, str):
+            precision = PRECISION_POLICIES[precision]
+        if precision is not None:
+            cfg = precision.apply(cfg)
+        self.precision = (precision.name if precision is not None
+                          else ("bf16_compute" if cfg.dtype == "bfloat16" else "f32"))
         if use_kernels:
             cfg = cfg.replace(use_kernels=True)
         self.cfg = cfg
@@ -210,8 +225,8 @@ class SpmdEngine(PipelineEngine):
 
         axes = stage_shard_axes(*state.params, state.opt_state)
         snapshot = snapshot_sharded(self.checkpoint_tree(state), self.num_stages, axes)
-        # one process, one data replica; the port has only the f32 policy
-        full_meta = {"topology": f"{self.num_stages}x1", "precision": "f32",
+        # one process, one data replica
+        full_meta = {"topology": f"{self.num_stages}x1", "precision": self.precision,
                      "num_processes": 1, **(meta or {})}
 
         def write() -> None:

@@ -36,14 +36,19 @@ _SIGNATURES = {
     # leaf), chunk_start (int32, count + 1), count, chunk, b2, eps, bc1, bc2, device,
     # stream
     "rbr_adam_scale_grouped_f32": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
-    # q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device, stream
-    "rbr_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device, stream
-    "rbr_flash_bwd_dq_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale, device, stream
-    "rbr_flash_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                              _P),
 }
+# the flash kernels, each with a float32 and a bfloat16 entry point of one signature
+for _dt in ("f32", "bf16"):
+    _SIGNATURES.update({
+        # q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device, stream
+        f"rbr_flash_fwd_{_dt}": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device, stream
+        f"rbr_flash_bwd_dq_{_dt}": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                    _P),
+        # q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale, device, stream
+        f"rbr_flash_bwd_dkv_{_dt}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                     _I, _P),
+    })
 
 
 @dataclass

@@ -47,6 +47,19 @@
 // - Masked entries are selected to 0 before exp, never multiplied by a mask
 //   (fully-masked rows carry L = -1e30); the ragged end of S is masked in the
 //   kernel.
+// - bf16 inputs (the reference's casts at flash.py:174-177, :193 and
+//   :228-229): the same geometry on tiles of half the bytes, stored with
+//   rows padded by 16 bytes (LD16) instead of swizzled. The block's fixed
+//   operands stay in registers as bf16 pairs (no split to hold). The
+//   scores and dP = dO V^T (dP^T = V dO^T in B3) multiply two inputs on
+//   mma.sync.m16n8k16 bf16, exact products; dS K, P^T dO and dS^T Q
+//   multiply the float32 P or dS by an input in 2xTF32, so P and dS keep
+//   their float32 accuracy. Every sum is float32; dQ, dK and dV are rounded
+//   to bf16 once, in the merge. At the training shape B2 then moves 1.00 MB
+//   (0.30 us) against 0.15 us of products, B3 1.19 MB (0.36 us) against
+//   0.26 us: bytes still bound both.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "tf32_mma.cuh"
@@ -56,20 +69,28 @@ namespace {
 
 using namespace rbr_tf32;
 
-template <int DH>
+template <int DH, typename T>
 struct BwdGeom {
-  static constexpr int NF = DH / 8;                   // k8 steps over dh, n8 fragments of dh
-  static constexpr int TILE_FLOATS = STEP * DH;       // one streamed tile, swizzled
-  static constexpr int FIXED_FLOATS = 2 * NF * 2 * 32 * 4;  // two operands' split fragments
-  static constexpr int LDM = DH + 8;                  // merge rows: conflict-free float2 stores
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int NF = DH / 8;  // k8 steps over dh, n8 fragments of dh
+  // one streamed tile: STEP x DH floats, swizzled (swz); or STEP rows of LD16 bf16
+  static constexpr int TILE_ELEMS = F32 ? STEP * DH : STEP * LD16<DH>;
+  static constexpr int TILE_BYTES = (int)sizeof(T) * TILE_ELEMS;
+  // float32: the two fixed operands' split fragments; bf16 keeps them in registers
+  static constexpr int FIXED_BYTES = F32 ? (int)sizeof(float) * 2 * NF * 2 * 32 * 4 : 0;
+  static constexpr int LDM = DH + 8;  // merge rows: conflict-free float2 stores
+  static constexpr int P_BYTES = (int)sizeof(float) * ROWS * LDP;  // a P or dS tile
   // B2, per warp: two buffers of K and of V, and the dS tile
-  static constexpr int DQ_WARP = 4 * TILE_FLOATS + ROWS * LDP;
+  static constexpr int DQ_WARP_BYTES = 4 * TILE_BYTES + P_BYTES;
   // B3, per warp: two buffers of Q, of dO and of the step's L and D; the P and dS tiles
-  static constexpr int DKV_WARP = 4 * TILE_FLOATS + 4 * STEP + 2 * ROWS * LDP;
-  static_assert(ROWS * LDM <= DQ_WARP && 2 * ROWS * LDM <= DKV_WARP,
+  static constexpr int DKV_WARP_BYTES =
+      4 * TILE_BYTES + (int)sizeof(float) * 4 * STEP + 2 * P_BYTES;
+  static_assert(TILE_BYTES % 16 == 0, "16-byte aligned tiles");
+  static_assert((int)sizeof(float) * ROWS * LDM <= DQ_WARP_BYTES &&
+                    (int)sizeof(float) * 2 * ROWS * LDM <= DKV_WARP_BYTES,
                 "the merge fits the warp buffers");
-  static constexpr size_t DQ_BYTES = sizeof(float) * (FIXED_FLOATS + WARPS * DQ_WARP);
-  static constexpr size_t DKV_BYTES = sizeof(float) * (FIXED_FLOATS + WARPS * DKV_WARP);
+  static constexpr size_t DQ_BYTES = FIXED_BYTES + WARPS * DQ_WARP_BYTES;
+  static constexpr size_t DKV_BYTES = FIXED_BYTES + WARPS * DKV_WARP_BYTES;
 };
 static_assert(2 * STEP == 32, "one lane per L or D value of a step");
 
@@ -84,7 +105,8 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // This lane's share of the cp.async copies of rows [r0, r0 + STEP) of x
-// (S, DH) into the swizzled tile at dst; rows >= S are zero-filled.
+// (S, DH) into the tile at dst (float32: swizzled; bf16: rows of LD16);
+// rows >= S are zero-filled.
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ x, int r0, int S,
                                           int lane) {
@@ -98,17 +120,41 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
-// The block's two fixed operands x0, x1 (rows [r0, r0 + ROWS), 0 past S) as
-// split A fragments in shared memory, in fragment order: fragment f
-// (operand f / NF, k8 step f % NF) keeps each lane's four big values at
-// F[2 f * 32 + lane] and its four small ones at F[(2 f + 1) * 32 + lane].
-// Warp w splits fragments w, w + WARPS, ... straight from device memory.
 template <int DH>
-__device__ __forceinline__ void split_fixed(uint4* F, const float* __restrict__ x0,
-                                            const float* __restrict__ x1, int r0, int S,
-                                            int warp, int lane) {
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ x,
+                                          int r0, int S, int lane) {
+  static_assert(STEP * DH / 8 % 32 == 0, "whole 16-byte copies per lane");
+#pragma unroll
+  for (int i = 0; i < STEP * DH / 8 / 32; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * LD16<DH> + c, ok ? x + (long long)(r0 + r) * DH + c : x, ok ? 16 : 0);
+  }
+}
+
+// The block's two fixed operands x0, x1 (rows [r0, r0 + ROWS), 0 past S):
+// B2's Q and dO, B3's K and V. Float32: split A fragments in shared memory,
+// in fragment order: fragment f (operand f / NF, k8 step f % NF) keeps each
+// lane's four big values at F[2 f * 32 + lane] and its four small ones at
+// F[(2 f + 1) * 32 + lane]; warp w splits fragments w, w + WARPS, ...
+// straight from device memory. bf16: each lane's m16n8k16 A fragments of
+// both operands in registers, read straight from device memory.
+struct Fixed32 {
+  uint4* F;
+};
+template <int DH>
+struct Fixed16 {
+  uint32_t a[2][DH / 16][4];
+};
+
+template <int DH>
+__device__ __forceinline__ void load_fixed(Fixed32& fx, float* smem, const float* __restrict__ x0,
+                                           const float* __restrict__ x1, int r0, int S,
+                                           int warp, int lane) {
   constexpr int NF = DH / 8;
   const int g = lane / 4, t = lane % 4;
+  fx.F = reinterpret_cast<uint4*>(smem);
   for (int f = warp; f < 2 * NF; f += WARPS) {
     const float* x = f < NF ? x0 : x1;
     const int c = 8 * (f % NF) + t;
@@ -116,8 +162,27 @@ __device__ __forceinline__ void split_fixed(uint4* F, const float* __restrict__ 
       return r0 + r < S ? x[(long long)(r0 + r) * DH + cc] : 0.f;
     };
     const FragA a = split_a(at(g, c), at(g + 8, c), at(g, c + 4), at(g + 8, c + 4));
-    F[2 * f * 32 + lane] = make_uint4(a.big[0], a.big[1], a.big[2], a.big[3]);
-    F[(2 * f + 1) * 32 + lane] = make_uint4(a.small[0], a.small[1], a.small[2], a.small[3]);
+    fx.F[2 * f * 32 + lane] = make_uint4(a.big[0], a.big[1], a.big[2], a.big[3]);
+    fx.F[(2 * f + 1) * 32 + lane] = make_uint4(a.small[0], a.small[1], a.small[2], a.small[3]);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void load_fixed(Fixed16<DH>& fx, float*,
+                                           const __nv_bfloat16* __restrict__ x0,
+                                           const __nv_bfloat16* __restrict__ x1, int r0, int S,
+                                           int, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int op = 0; op < 2; ++op) {
+    const __nv_bfloat16* x = op ? x1 : x0;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // rows g, g + 8; columns 2t, 2t + 8
+        const int r = g + 8 * (e & 1), c = 16 * kk + 2 * t + 8 * (e >> 1);
+        fx.a[op][kk][e] = r0 + r < S ? bf16x2_at(x + (long long)(r0 + r) * DH + c) : 0u;
+      }
   }
 }
 
@@ -133,11 +198,56 @@ __device__ __forceinline__ FragB frag_bt(const float* X, int j, int kk, int g, i
   return split_b(X[swz<DH>(8 * j + g, 8 * kk + t)], X[swz<DH>(8 * j + g, 8 * kk + t + 4)]);
 }
 
-// B fragment of X itself, for the products over the step (contracting X's
-// rows): k8 step kk of the rows, n8 fragment j of dh.
+// The step's two score tiles, 16 x STEP each, from the fixed operands:
+// a += x0 Xa^T and b += x1 Xb^T (B2: s from Q and K, dP from dO and V; B3:
+// s^T from K and Q, dP^T from V and dO). UNROLL unrolls the dh loop.
+template <int DH, int UNROLL>
+__device__ __forceinline__ void score_pair(float (&a)[STEP / 8][4], float (&b)[STEP / 8][4],
+                                           const Fixed32& fx, const float* Xa, const float* Xb,
+                                           int g, int t, int lane) {
+  constexpr int NF = DH / 8;
+#pragma unroll (UNROLL)
+  for (int kk = 0; kk < NF; ++kk) {
+    const FragA fa = fixed_frag(fx.F, kk, lane), fb = fixed_frag(fx.F, NF + kk, lane);
+#pragma unroll
+    for (int j = 0; j < STEP / 8; ++j) {
+      mma_3xtf32_rn(a[j], fa, frag_bt<DH>(Xa, j, kk, g, t));
+      mma_3xtf32_rn(b[j], fb, frag_bt<DH>(Xb, j, kk, g, t));
+    }
+  }
+}
+
+template <int DH, int UNROLL>
+__device__ __forceinline__ void score_pair(float (&a)[STEP / 8][4], float (&b)[STEP / 8][4],
+                                           const Fixed16<DH>& fx, const __nv_bfloat16* Xa,
+                                           const __nv_bfloat16* Xb, int g, int t, int) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < STEP / 8; ++j) {
+      const int off = (8 * j + g) * LD16<DH> + 16 * kk + 2 * t;
+      const uint32_t ba[2] = {bf16x2_at(Xa + off), bf16x2_at(Xa + off + 8)};
+      const uint32_t bb[2] = {bf16x2_at(Xb + off), bf16x2_at(Xb + off + 8)};
+      mma_bf16_rn(a[j], fx.a[0][kk], ba);
+      mma_bf16_rn(b[j], fx.a[1][kk], bb);
+    }
+}
+
+// c += a X for the products over the step (contracting X's rows): k8 step
+// kk of the rows, n8 fragment j of dh. a is a split float32 P or dS fragment.
 template <int DH>
-__device__ __forceinline__ FragB frag_b(const float* X, int kk, int j, int g, int t) {
-  return split_b(X[swz<DH>(8 * kk + t, 8 * j + g)], X[swz<DH>(8 * kk + t + 4, 8 * j + g)]);
+__device__ __forceinline__ void prod_rn(float (&c)[4], const FragA& a, const float* X, int kk,
+                                        int j, int g, int t) {
+  mma_3xtf32_rn(c, a,
+                split_b(X[swz<DH>(8 * kk + t, 8 * j + g)], X[swz<DH>(8 * kk + t + 4, 8 * j + g)]));
+}
+
+template <int DH>
+__device__ __forceinline__ void prod_rn(float (&c)[4], const FragA& a, const __nv_bfloat16* X,
+                                        int kk, int j, int g, int t) {
+  const __nv_bfloat16* x = X + (8 * kk + t) * LD16<DH> + 8 * j + g;
+  const uint32_t b[2] = {tf32_of(x[0]), tf32_of(x[4 * LD16<DH>])};
+  mma_2xtf32_rn(c, a, b);
 }
 
 // A fragment of a warp's P or dS tile (ROWS x STEP, row stride LDP): k8 step kk.
@@ -151,20 +261,31 @@ __device__ __forceinline__ FragA frag_p(const float* P, int kk, int g, int t) {
 template <int DH>
 __device__ __forceinline__ void stage_sums(float* M, const float (&acc)[DH / 8][4], int g,
                                            int t) {
+  constexpr int LDM = DH + 8;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(M + (g + 8 * h) * BwdGeom<DH>::LDM + 8 * j + 2 * t) =
+      *reinterpret_cast<float2*>(M + (g + 8 * h) * LDM + 8 * j + 2 * t) =
           make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                            *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // out row r0 + r = mul * (sum over the warps' staged rows, in warp order),
 // for the rows below S. M holds WARPS blocks of ROWS rows, stride LDM.
-template <int DH>
-__device__ __forceinline__ void merge_rows(float* __restrict__ out, const float* M, int r0, int S,
+template <int DH, typename T>
+__device__ __forceinline__ void merge_rows(T* __restrict__ out, const float* M, int r0, int S,
                                            float mul) {
-  constexpr int LDM = BwdGeom<DH>::LDM;
+  constexpr int LDM = DH + 8;
   for (int idx = threadIdx.x; idx < ROWS * DH / 4; idx += BLOCK_THREADS) {
     const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
     if (r0 + r >= S) continue;
@@ -177,18 +298,19 @@ __device__ __forceinline__ void merge_rows(float* __restrict__ out, const float*
       sum.z += x.z;
       sum.w += x.w;
     }
-    *reinterpret_cast<float4*>(out + (long long)(r0 + r) * DH + c) =
-        make_float4(sum.x * mul, sum.y * mul, sum.z * mul, sum.w * mul);
+    store4(out + (long long)(r0 + r) * DH + c,
+           make_float4(sum.x * mul, sum.y * mul, sum.z * mul, sum.w * mul));
   }
 }
 
-template <int DH>
+template <int DH, typename T>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dO,
-                    const float* __restrict__ L, const float* __restrict__ D,
-                    float* __restrict__ dq, int BH, int S, int causal, int window, float scale) {
-  using G = BwdGeom<DH>;
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dO, const float* __restrict__ L,
+                    const float* __restrict__ D, T* __restrict__ dq, int BH, int S, int causal,
+                    int window, float scale) {
+  using G = BwdGeom<DH, T>;
+  using Fixed = std::conditional_t<G::F32, Fixed32, Fixed16<DH>>;
   constexpr int NF = G::NF;
   extern __shared__ __align__(16) float smem[];
 
@@ -206,21 +328,22 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  uint4* F = reinterpret_cast<uint4*>(smem);  // Q's fragments, then dO's
-  float* W = smem + G::FIXED_FLOATS + warp * G::DQ_WARP;
-  float* Kb = W;                        // two K buffers
-  float* Vb = W + 2 * G::TILE_FLOATS;   // two V buffers
-  float* dSs = W + 4 * G::TILE_FLOATS;  // dS[query row][key], stride LDP
+  unsigned char* W =
+      reinterpret_cast<unsigned char*>(smem) + G::FIXED_BYTES + warp * G::DQ_WARP_BYTES;
+  T* Kb = reinterpret_cast<T*>(W);                                // two K buffers
+  T* Vb = Kb + 2 * G::TILE_ELEMS;                                 // two V buffers
+  float* dSs = reinterpret_cast<float*>(Vb + 2 * G::TILE_ELEMS);  // dS[query row][key], stride LDP
 
   int lo, hi;
   key_steps(q0, S, causal, window, lo, hi);
   auto load_kv = [&](int buf, int step) {
-    load_tile<DH>(Kb + buf * G::TILE_FLOATS, k, step * STEP, S, lane);
-    load_tile<DH>(Vb + buf * G::TILE_FLOATS, v, step * STEP, S, lane);
+    load_tile<DH>(Kb + buf * G::TILE_ELEMS, k, step * STEP, S, lane);
+    load_tile<DH>(Vb + buf * G::TILE_ELEMS, v, step * STEP, S, lane);
   };
   if (lo + warp < hi) load_kv(0, lo + warp);
   cp_async_commit();
-  split_fixed<DH>(F, q, dO, q0, S, warp, lane);
+  Fixed fx;  // Q's fragments, then dO's
+  load_fixed<DH>(fx, smem, q, dO, q0, S, warp, lane);
   float Lr[2], Dr[2];  // rows g and g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -242,8 +365,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();  // this step's K and V have landed
     __syncwarp();
-    const float* Kc = Kb + buf * G::TILE_FLOATS;
-    const float* Vc = Vb + buf * G::TILE_FLOATS;
+    const T* Kc = Kb + buf * G::TILE_ELEMS;
+    const T* Vc = Vb + buf * G::TILE_ELEMS;
     const int k0 = step * STEP;
 
     float s[STEP / 8][4], dp[STEP / 8][4];
@@ -251,15 +374,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NF; ++kk) {
-      const FragA qa = fixed_frag(F, kk, lane), da = fixed_frag(F, NF + kk, lane);
-#pragma unroll
-      for (int j = 0; j < STEP / 8; ++j) {
-        mma_3xtf32_rn(s[j], qa, frag_bt<DH>(Kc, j, kk, g, t));
-        mma_3xtf32_rn(dp[j], da, frag_bt<DH>(Vc, j, kk, g, t));
-      }
-    }
+    score_pair<DH, NF>(s, dp, fx, Kc, Vc, g, t, lane);
 #pragma unroll
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
@@ -275,27 +390,27 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < STEP / 8; ++kk) {
       const FragA sa = frag_p(dSs, kk, g, t);
 #pragma unroll
-      for (int j = 0; j < NF; ++j) mma_3xtf32_rn(acc[j], sa, frag_b<DH>(Kc, kk, j, g, t));
+      for (int j = 0; j < NF; ++j) prod_rn<DH>(acc[j], sa, Kc, kk, j, g, t);
     }
     __syncwarp();  // dS and this buffer are read before they are written again
   }
 
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with its buffers: reuse them for the merge
-  float* M = smem + G::FIXED_FLOATS;
+  float* M = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + G::FIXED_BYTES);
   stage_sums<DH>(M + warp * ROWS * G::LDM, acc, g, t);
   __syncthreads();
   merge_rows<DH>(dq, M, q0, S, scale);
 }
 
-template <int DH>
+template <int DH, typename T>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dO,
-                     const float* __restrict__ L, const float* __restrict__ D,
-                     float* __restrict__ dk, float* __restrict__ dv, int BH, int S, int causal,
-                     int window, float scale) {
-  using G = BwdGeom<DH>;
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dO, const float* __restrict__ L,
+                     const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int BH,
+                     int S, int causal, int window, float scale) {
+  using G = BwdGeom<DH, T>;
+  using Fixed = std::conditional_t<G::F32, Fixed32, Fixed16<DH>>;
   constexpr int NF = G::NF;
   extern __shared__ __align__(16) float smem[];
 
@@ -313,27 +428,28 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  uint4* F = reinterpret_cast<uint4*>(smem);  // K's fragments, then V's
-  float* W = smem + G::FIXED_FLOATS + warp * G::DKV_WARP;
-  float* Qb = W;                         // two Q buffers
-  float* dOb = W + 2 * G::TILE_FLOATS;   // two dO buffers
-  float* LDb = W + 4 * G::TILE_FLOATS;   // two buffers of the step's L, then its D
-  float* Ps = LDb + 4 * STEP;            // P^T[key][query], stride LDP
-  float* dSs = Ps + ROWS * LDP;          // dS^T[key][query]
+  unsigned char* W =
+      reinterpret_cast<unsigned char*>(smem) + G::FIXED_BYTES + warp * G::DKV_WARP_BYTES;
+  T* Qb = reinterpret_cast<T*>(W);                               // two Q buffers
+  T* dOb = Qb + 2 * G::TILE_ELEMS;                               // two dO buffers
+  float* LDb = reinterpret_cast<float*>(dOb + 2 * G::TILE_ELEMS);  // two of the step's L, then D
+  float* Ps = LDb + 4 * STEP;                                    // P^T[key][query], stride LDP
+  float* dSs = Ps + ROWS * LDP;                                  // dS^T[key][query]
 
   int lo, hi;
   query_steps(k0, S, causal, window, lo, hi);
   auto load_step = [&](int buf, int step) {
     const int q0 = step * STEP;
-    load_tile<DH>(Qb + buf * G::TILE_FLOATS, q, q0, S, lane);
-    load_tile<DH>(dOb + buf * G::TILE_FLOATS, dO, q0, S, lane);
+    load_tile<DH>(Qb + buf * G::TILE_ELEMS, q, q0, S, lane);
+    load_tile<DH>(dOb + buf * G::TILE_ELEMS, dO, q0, S, lane);
     const float* src = lane < STEP ? L : D;  // lanes 0-15 copy L, 16-31 copy D
     const int r = q0 + lane % STEP;
     cp_async4(LDb + buf * 2 * STEP + lane, r < S ? src + r : src, r < S ? 4 : 0);
   };
   if (lo + warp < hi) load_step(0, lo + warp);
   cp_async_commit();
-  split_fixed<DH>(F, k, v, k0, S, warp, lane);
+  Fixed fx;  // K's fragments, then V's
+  load_fixed<DH>(fx, smem, k, v, k0, S, warp, lane);
   __syncthreads();  // every warp's fragments are in place
 
   float dk_acc[NF][4], dv_acc[NF][4];
@@ -348,8 +464,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();  // this step's Q, dO, L and D have landed
     __syncwarp();
-    const float* Qc = Qb + buf * G::TILE_FLOATS;
-    const float* dOc = dOb + buf * G::TILE_FLOATS;
+    const T* Qc = Qb + buf * G::TILE_ELEMS;
+    const T* dOc = dOb + buf * G::TILE_ELEMS;
     const float* Lc = LDb + buf * 2 * STEP;
     const float* Dc = Lc + STEP;
     const int q0 = step * STEP;
@@ -360,17 +476,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    // unrolled by 2, not NF: fully unrolled at DH = 64, ptxas keeps the fixed
-    // fragments of every k8 step live at once and spills (255 registers)
-#pragma unroll 2
-    for (int kk = 0; kk < NF; ++kk) {
-      const FragA ka = fixed_frag(F, kk, lane), va = fixed_frag(F, NF + kk, lane);
-#pragma unroll
-      for (int j = 0; j < STEP / 8; ++j) {
-        mma_3xtf32_rn(st[j], ka, frag_bt<DH>(Qc, j, kk, g, t));
-        mma_3xtf32_rn(dpt[j], va, frag_bt<DH>(dOc, j, kk, g, t));
-      }
-    }
+    // unrolled by 2, not NF: fully unrolled at DH = 64, ptxas keeps the float32
+    // fixed fragments of every k8 step live at once and spills (255 registers)
+    score_pair<DH, 2>(st, dpt, fx, Qc, dOc, g, t, lane);
 #pragma unroll
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
@@ -388,8 +496,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const FragA pa = frag_p(Ps, kk, g, t), sa = frag_p(dSs, kk, g, t);
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
-        mma_3xtf32_rn(dv_acc[j], pa, frag_b<DH>(dOc, kk, j, g, t));
-        mma_3xtf32_rn(dk_acc[j], sa, frag_b<DH>(Qc, kk, j, g, t));
+        prod_rn<DH>(dv_acc[j], pa, dOc, kk, j, g, t);
+        prod_rn<DH>(dk_acc[j], sa, Qc, kk, j, g, t);
       }
     }
     __syncwarp();  // P, dS and this buffer are read before they are written again
@@ -397,7 +505,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with its buffers: reuse them for the merge
-  float* Mk = smem + G::FIXED_FLOATS;
+  float* Mk = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + G::FIXED_BYTES);
   float* Mv = Mk + WARPS * ROWS * G::LDM;
   stage_sums<DH>(Mk + warp * ROWS * G::LDM, dk_acc, g, t);
   stage_sums<DH>(Mv + warp * ROWS * G::LDM, dv_acc, g, t);
@@ -406,34 +514,27 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   merge_rows<DH>(dv, Mv, k0, S, 1.f);
 }
 
-template <int DH>
-int launch_dq(const float* q, const float* k, const float* v, const float* dO, const float* L,
-              const float* D, float* dq, int BH, int S, int causal, int window, float scale,
-              cudaStream_t stream) {
-  return launch(SLOT_DQ, flash_bwd_dq_kernel<DH>, (long long)BH * ((S + ROWS - 1) / ROWS),
-                BwdGeom<DH>::DQ_BYTES, stream, q, k, v, dO, L, D, dq, BH, S, causal, window,
+template <int DH, typename T>
+int launch_dq(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
+              T* dq, int BH, int S, int causal, int window, float scale, cudaStream_t stream) {
+  return launch(SLOT_DQ, flash_bwd_dq_kernel<DH, T>, (long long)BH * ((S + ROWS - 1) / ROWS),
+                BwdGeom<DH, T>::DQ_BYTES, stream, q, k, v, dO, L, D, dq, BH, S, causal, window,
                 scale);
 }
 
-template <int DH>
-int launch_dkv(const float* q, const float* k, const float* v, const float* dO, const float* L,
-               const float* D, float* dk, float* dv, int BH, int S, int causal, int window,
-               float scale, cudaStream_t stream) {
-  return launch(SLOT_DKV, flash_bwd_dkv_kernel<DH>, (long long)BH * ((S + ROWS - 1) / ROWS),
-                BwdGeom<DH>::DKV_BYTES, stream, q, k, v, dO, L, D, dk, dv, BH, S, causal,
+template <int DH, typename T>
+int launch_dkv(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
+               T* dk, T* dv, int BH, int S, int causal, int window, float scale,
+               cudaStream_t stream) {
+  return launch(SLOT_DKV, flash_bwd_dkv_kernel<DH, T>, (long long)BH * ((S + ROWS - 1) / ROWS),
+                BwdGeom<DH, T>::DKV_BYTES, stream, q, k, v, dO, L, D, dk, dv, BH, S, causal,
                 window, scale);
 }
 
-}  // namespace
-}  // namespace rbr_flash
-
-// q, k, v, dO, dq: (BH, S, dh) float32 contiguous and 16-byte aligned;
-// L, D: (BH, S). window < 0 means no window. Returns a CUDA error code.
-extern "C" int rbr_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
-                                    const float* dO, const float* L, const float* D, float* dq,
-                                    int BH, int S, int dh, int causal, int window, float scale,
-                                    int device, cudaStream_t stream) {
-  using namespace rbr_flash;
+template <typename T>
+int dq_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
+             T* dq, int BH, int S, int dh, int causal, int window, float scale, int device,
+             cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (dh) {
@@ -444,12 +545,10 @@ extern "C" int rbr_flash_bwd_dq_f32(const float* q, const float* k, const float*
   }
 }
 
-// As above, writing dk and dv: (BH, S, dh).
-extern "C" int rbr_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
-                                     const float* dO, const float* L, const float* D, float* dk,
-                                     float* dv, int BH, int S, int dh, int causal, int window,
-                                     float scale, int device, cudaStream_t stream) {
-  using namespace rbr_flash;
+template <typename T>
+int dkv_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
+              T* dk, T* dv, int BH, int S, int dh, int causal, int window, float scale,
+              int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (dh) {
@@ -461,4 +560,46 @@ extern "C" int rbr_flash_bwd_dkv_f32(const float* q, const float* k, const float
       return launch_dkv<64>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+}  // namespace rbr_flash
+
+// q, k, v, dO, dq: (BH, S, dh) float32 (or bfloat16: _bf16) contiguous and
+// 16-byte aligned; L, D: (BH, S) float32. window < 0 means no window.
+// Returns a CUDA error code.
+extern "C" int rbr_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
+                                    const float* dO, const float* L, const float* D, float* dq,
+                                    int BH, int S, int dh, int causal, int window, float scale,
+                                    int device, cudaStream_t stream) {
+  return rbr_flash::dq_entry(q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device,
+                             stream);
+}
+
+extern "C" int rbr_flash_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                     const __nv_bfloat16* v, const __nv_bfloat16* dO,
+                                     const float* L, const float* D, __nv_bfloat16* dq, int BH,
+                                     int S, int dh, int causal, int window, float scale,
+                                     int device, cudaStream_t stream) {
+  return rbr_flash::dq_entry(q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device,
+                             stream);
+}
+
+// As above, writing dk and dv: (BH, S, dh).
+extern "C" int rbr_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
+                                     const float* dO, const float* L, const float* D, float* dk,
+                                     float* dv, int BH, int S, int dh, int causal, int window,
+                                     float scale, int device, cudaStream_t stream) {
+  return rbr_flash::dkv_entry(q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale,
+                              device, stream);
+}
+
+extern "C" int rbr_flash_bwd_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                      const __nv_bfloat16* v, const __nv_bfloat16* dO,
+                                      const float* L, const float* D, __nv_bfloat16* dk,
+                                      __nv_bfloat16* dv, int BH, int S, int dh, int causal,
+                                      int window, float scale, int device,
+                                      cudaStream_t stream) {
+  return rbr_flash::dkv_entry(q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale,
+                              device, stream);
 }

@@ -8,8 +8,16 @@
 // steps of STEP rows (keys in B1 and B2, queries in B3): warp w takes steps
 // w, w + WARPS, ... All products run on the tensor cores in 3xTF32
 // (tf32_mma.cuh), which keeps float32 accuracy.
+//
+// Each kernel is a template on its input type T, float or __nv_bfloat16,
+// with one block geometry for both. q, k, v and dO are T, L and D float32;
+// every product and sum is float32 and O, dQ, dK and dV are written as T.
+// With bf16 inputs, products of two inputs run on mma.sync.m16n8k16 bf16
+// (exact products) and products of a float32 P or dS by an input in 2xTF32
+// (tf32_mma.cuh); the streamed tiles are stored as T, half the bytes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Blocks in the grid of the last launch of B1, B2 and B3, in that order, as
@@ -28,6 +36,22 @@ constexpr int BLOCK_THREADS = 32 * WARPS;
 constexpr int LDP = STEP + 4;              // row stride of a warp's P or dS tile: 20 = 4 * odd
 constexpr float NEG_INF = -1e30f;          // the reference's sentinel for masked scores
 constexpr float EPS = 1e-30f;
+
+// Elements of T in one 16-byte cp.async copy.
+template <typename T>
+constexpr int CHUNK = 16 / (int)sizeof(T);
+
+// Row stride, in elements, of a bf16 tile of DH columns: one 16-byte chunk of
+// padding makes a row 16 (mod 128) bytes long, which keeps the fragment
+// reads free of bank conflicts (32-bit pairs at (row g, col 2t) and 16-bit
+// values at (row t, col g)).
+template <int DH>
+constexpr int LD16 = DH + 8;
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 // Whether query row r sees key column j: r is a row of the tensor, j is one
 // of the seq_len valid keys, and the causal and window (window < 0: none)

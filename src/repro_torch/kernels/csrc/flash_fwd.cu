@@ -38,6 +38,17 @@
 // - The ragged end of S and keys past seq_len are masked in the kernel;
 //   masked scores are selected away before exp, never multiplied by a mask;
 //   nothing is atomic.
+// - bf16 inputs (the reference's bf16 path, flash.py:94-96 and :149): the
+//   same geometry on tiles of half the bytes, rows padded by 16 bytes
+//   (LD16). QK^T runs on mma.sync.m16n8k16 bf16, whose products are exact
+//   in float32, straight from 32-bit pairs of Q and K; PV multiplies the
+//   float32 P by the bf16 V in 2xTF32, so P keeps its float32 accuracy. O
+//   is rounded to bf16 once, at the end; L stays float32. The bytes fall to
+//   0.79 MB a launch at the training shape (0.24 us at 3.35 TB/s); the
+//   products take 0.03 us at the bf16 rate (QK^T) plus 0.10 us in two TF32
+//   passes (PV), so the bytes still bound it.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "tf32_mma.cuh"
@@ -47,27 +58,119 @@ namespace {
 
 using namespace rbr_tf32;
 
-template <int DH>
+template <int DH, typename T>
 struct FwdGeom {
-  static constexpr int LDK = DH + 4;  // Q and K rows: 4 * odd, conflict-free (g, t) reads
-  static constexpr int LDV = DH + 8;  // V rows: 8 (mod 32) for DH 32 and 64, 24 for 16
-  static constexpr int K_FLOATS = STEP * LDK;
-  static constexpr int V_FLOATS = STEP * LDV;
-  static constexpr int WARP_FLOATS = 2 * (K_FLOATS + V_FLOATS) + ROWS * LDP;
-  static constexpr int Q_FLOATS = ROWS * LDK;
+  static constexpr bool F32 = sizeof(T) == 4;
+  // Q and K rows: 4 * odd floats, or LD16; conflict-free fragment reads
+  static constexpr int LDK = F32 ? DH + 4 : LD16<DH>;
+  // V rows: 8 (mod 32) floats for DH 32 and 64, 24 for 16; or LD16
+  static constexpr int LDV = F32 ? DH + 8 : LD16<DH>;
+  static constexpr int K_ELEMS = STEP * LDK;
+  static constexpr int V_ELEMS = STEP * LDV;
+  static constexpr int Q_BYTES = (int)sizeof(T) * ROWS * LDK;
+  static constexpr int WARP_BYTES =
+      (int)sizeof(T) * 2 * (K_ELEMS + V_ELEMS) + (int)sizeof(float) * ROWS * LDP;
+  static_assert(Q_BYTES % 16 == 0 && WARP_BYTES % 16 == 0, "16-byte aligned regions");
   // the merge reuses the warps' space: m, l and a ROWS x DH accumulator per warp
   static constexpr int MERGE_FLOATS = WARPS * (2 * ROWS + ROWS * DH);
-  static_assert(MERGE_FLOATS <= WARPS * WARP_FLOATS, "merge fits the warp buffers");
-  static constexpr size_t BYTES = sizeof(float) * (Q_FLOATS + WARPS * WARP_FLOATS);
+  static_assert((int)sizeof(float) * MERGE_FLOATS <= WARPS * WARP_BYTES,
+                "merge fits the warp buffers");
+  static constexpr size_t BYTES = Q_BYTES + WARPS * WARP_BYTES;
+};
+
+// Q's A fragments, held in registers for the whole block: split once into
+// TF32 halves (float32 inputs), or read as bf16 pairs.
+template <int DH>
+struct QFrag32 {
+  FragA f[DH / 8];
+};
+template <int DH>
+struct QFrag16 {
+  uint32_t f[DH / 16][4];
 };
 
 template <int DH>
+__device__ __forceinline__ void load_q(QFrag32<DH>& qf, const float* Qs, int g, int t) {
+  constexpr int LDK = FwdGeom<DH, float>::LDK;
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const float* r0 = Qs + g * LDK + 8 * kk + t;
+    const float* r1 = r0 + 8 * LDK;
+    qf.f[kk] = split_a(r0[0], r1[0], r0[4], r1[4]);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void load_q(QFrag16<DH>& qf, const __nv_bfloat16* Qs, int g, int t) {
+  constexpr int LDK = FwdGeom<DH, __nv_bfloat16>::LDK;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const __nv_bfloat16* r0 = Qs + g * LDK + 16 * kk + 2 * t;
+    const __nv_bfloat16* r1 = r0 + 8 * LDK;
+    qf.f[kk][0] = bf16x2_at(r0);
+    qf.f[kk][1] = bf16x2_at(r1);
+    qf.f[kk][2] = bf16x2_at(r0 + 8);
+    qf.f[kk][3] = bf16x2_at(r1 + 8);
+  }
+}
+
+// s += Q K^T for the step's keys 8j .. 8j + 7, over all of dh.
+template <int DH>
+__device__ __forceinline__ void scores(float (&s)[4], const QFrag32<DH>& qf, const float* Kc,
+                                       int j, int g, int t) {
+  constexpr int LDK = FwdGeom<DH, float>::LDK;
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const float* kr = Kc + (8 * j + g) * LDK + 8 * kk + t;
+    mma_3xtf32(s, qf.f[kk], split_b(kr[0], kr[4]));
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void scores(float (&s)[4], const QFrag16<DH>& qf,
+                                       const __nv_bfloat16* Kc, int j, int g, int t) {
+  constexpr int LDK = FwdGeom<DH, __nv_bfloat16>::LDK;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const __nv_bfloat16* kr = Kc + (8 * j + g) * LDK + 16 * kk + 2 * t;
+    const uint32_t b[2] = {bf16x2_at(kr), bf16x2_at(kr + 8)};
+    mma_bf16(s, qf.f[kk], b);
+  }
+}
+
+// acc[j] += P V over the step's keys 8kk .. 8kk + 7, for every n8 fragment j of dh.
+template <int DH>
+__device__ __forceinline__ void pv_step(float (&acc)[DH / 8][4], const FragA& pa,
+                                        const float* Vc, int kk, int g, int t) {
+  constexpr int LDV = FwdGeom<DH, float>::LDV;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const float* vr = Vc + (8 * kk + t) * LDV + 8 * j + g;
+    mma_3xtf32(acc[j], pa, split_b(vr[0], vr[4 * LDV]));
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void pv_step(float (&acc)[DH / 8][4], const FragA& pa,
+                                        const __nv_bfloat16* Vc, int kk, int g, int t) {
+  constexpr int LDV = FwdGeom<DH, __nv_bfloat16>::LDV;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const __nv_bfloat16* vr = Vc + (8 * kk + t) * LDV + 8 * j + g;
+    const uint32_t b[2] = {tf32_of(vr[0]), tf32_of(vr[4 * LDV])};
+    mma_2xtf32(acc[j], pa, b);
+  }
+}
+
+template <int DH, typename T>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ L,
-                 int BH, int S, int seq_len, int causal, int window, float scale) {
-  using G = FwdGeom<DH>;
-  constexpr int NF = DH / 8;  // n8 fragments of an output row block, k8 steps of QK^T
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ L, int BH, int S, int seq_len,
+                 int causal, int window, float scale) {
+  using G = FwdGeom<DH, T>;
+  using QFrags = std::conditional_t<G::F32, QFrag32<DH>, QFrag16<DH>>;
+  constexpr int NF = DH / 8;  // n8 fragments of an output row block
+  constexpr int CH = CHUNK<T>;
   extern __shared__ __align__(16) float smem[];
 
   const int ntiles = (S + ROWS - 1) / ROWS;
@@ -82,14 +185,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float* Qs = smem;
-  float* W = smem + G::Q_FLOATS + warp * G::WARP_FLOATS;
-  float* Kb = W;                    // two K buffers
-  float* Vb = W + 2 * G::K_FLOATS;  // two V buffers
-  float* Ps = Vb + 2 * G::V_FLOATS;
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  T* Qs = reinterpret_cast<T*>(base);
+  unsigned char* W = base + G::Q_BYTES + warp * G::WARP_BYTES;
+  T* Kb = reinterpret_cast<T*>(W);                      // two K buffers
+  T* Vb = Kb + 2 * G::K_ELEMS;                          // two V buffers
+  float* Ps = reinterpret_cast<float*>(Vb + 2 * G::V_ELEMS);
 
-  for (int idx = threadIdx.x; idx < ROWS * DH / 4; idx += BLOCK_THREADS) {
-    const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
+  for (int idx = threadIdx.x; idx < ROWS * DH / CH; idx += BLOCK_THREADS) {
+    const int r = idx / (DH / CH), c = (idx % (DH / CH)) * CH;
     const bool ok = q0 + r < S;
     cp_async16(Qs + r * G::LDK + c, ok ? q + (long long)(q0 + r) * DH + c : q, ok ? 16 : 0);
   }
@@ -100,12 +204,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto load_kv = [&](int buf, int step) {
     const int k0 = step * STEP;
-    for (int idx = lane; idx < STEP * DH / 4; idx += 32) {
-      const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
+    for (int idx = lane; idx < STEP * DH / CH; idx += 32) {
+      const int r = idx / (DH / CH), c = (idx % (DH / CH)) * CH;
       const bool ok = k0 + r < S;
       const long long off = (long long)(k0 + r) * DH + c;
-      cp_async16(Kb + buf * G::K_FLOATS + r * G::LDK + c, ok ? k + off : k, ok ? 16 : 0);
-      cp_async16(Vb + buf * G::V_FLOATS + r * G::LDV + c, ok ? v + off : v, ok ? 16 : 0);
+      cp_async16(Kb + buf * G::K_ELEMS + r * G::LDK + c, ok ? k + off : k, ok ? 16 : 0);
+      cp_async16(Vb + buf * G::V_ELEMS + r * G::LDV + c, ok ? v + off : v, ok ? 16 : 0);
     }
   };
   if (lo + warp < hi) load_kv(0, lo + warp);
@@ -113,13 +217,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<1>();  // this thread's part of Q has landed
   __syncthreads();     // ... and everyone's
 
-  FragA qf[NF];
-#pragma unroll
-  for (int kk = 0; kk < NF; ++kk) {
-    const float* r0 = Qs + g * G::LDK + 8 * kk + t;
-    const float* r1 = r0 + 8 * G::LDK;
-    qf[kk] = split_a(r0[0], r1[0], r0[4], r1[4]);
-  }
+  QFrags qf;
+  load_q<DH>(qf, Qs, g, t);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[NF][4];
 #pragma unroll
@@ -133,8 +232,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();  // this step's K and V have landed
     __syncwarp();
-    const float* Kc = Kb + buf * G::K_FLOATS;
-    const float* Vc = Vb + buf * G::V_FLOATS;
+    const T* Kc = Kb + buf * G::K_ELEMS;
+    const T* Vc = Vb + buf * G::V_ELEMS;
     const int k0 = step * STEP;
 
     float s[STEP / 8][4];
@@ -142,11 +241,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < STEP / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NF; ++kk) {
-        const float* kr = Kc + (8 * j + g) * G::LDK + 8 * kk + t;
-        mma_3xtf32(s[j], qf[kk], split_b(kr[0], kr[4]));
-      }
+      scores<DH>(s[j], qf, Kc, j, g, t);
     }
 
     bool ok[STEP / 8][4];
@@ -192,12 +287,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < STEP / 8; ++kk) {
       const float* p0 = Ps + g * LDP + 8 * kk + t;
       const float* p1 = p0 + 8 * LDP;
-      const FragA pa = split_a(p0[0], p1[0], p0[4], p1[4]);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const float* vr = Vc + (8 * kk + t) * G::LDV + 8 * j + g;
-        mma_3xtf32(acc[j], pa, split_b(vr[0], vr[4 * G::LDV]));
-      }
+      pv_step<DH>(acc, split_a(p0[0], p1[0], p0[4], p1[4]), Vc, kk, g, t);
     }
     __syncwarp();  // P and this buffer are read before they are written again
   }
@@ -209,7 +299,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with its buffers: reuse them for the merge
-  float* Ms = smem + G::Q_FLOATS;
+  float* Ms = reinterpret_cast<float*>(base + G::Q_BYTES);
   float* Ls = Ms + WARPS * ROWS;
   float* As = Ls + WARPS * ROWS;
   if (t == 0) {
@@ -240,31 +330,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       out += As[(w * ROWS + r) * DH + c] * f;
     }
     const bool live = lsum > 0.f;
-    o[(long long)(q0 + r) * DH + c] = live ? out / fmaxf(lsum, EPS) : 0.f;
+    store_out(o + (long long)(q0 + r) * DH + c, live ? out / fmaxf(lsum, EPS) : 0.f);
     if (c == 0) L[q0 + r] = live ? mx + logf(fmaxf(lsum, EPS)) : NEG_INF;
   }
 }
 
-template <int DH>
-int launch_fwd(const float* q, const float* k, const float* v, float* o, float* L, int BH,
-               int S, int seq_len, int causal, int window, float scale, cudaStream_t stream) {
-  return launch(SLOT_FWD, flash_fwd_kernel<DH>, (long long)BH * ((S + ROWS - 1) / ROWS),
-                FwdGeom<DH>::BYTES, stream, q, k, v, o, L, BH, S, seq_len, causal, window,
+template <int DH, typename T>
+int launch_fwd(const T* q, const T* k, const T* v, T* o, float* L, int BH, int S, int seq_len,
+               int causal, int window, float scale, cudaStream_t stream) {
+  return launch(SLOT_FWD, flash_fwd_kernel<DH, T>, (long long)BH * ((S + ROWS - 1) / ROWS),
+                FwdGeom<DH, T>::BYTES, stream, q, k, v, o, L, BH, S, seq_len, causal, window,
                 scale);
 }
 
-}  // namespace
-}  // namespace rbr_flash
-
-int rbr_flash_blocks[3] = {0, 0, 0};  // declared in flash_common.cuh
-
-// q, k, v, o: (BH, S, dh) float32 contiguous and 16-byte aligned; L: (BH, S).
-// Keys j >= seq_len are masked (seq_len <= S); window < 0 means no window.
-// Launches on `stream`; returns a CUDA error code (0 on success).
-extern "C" int rbr_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
-                                 float* L, int BH, int S, int dh, int seq_len, int causal,
-                                 int window, float scale, int device, cudaStream_t stream) {
-  using namespace rbr_flash;
+template <typename T>
+int fwd_entry(const T* q, const T* k, const T* v, T* o, float* L, int BH, int S, int dh,
+              int seq_len, int causal, int window, float scale, int device,
+              cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (dh) {
@@ -273,4 +355,28 @@ extern "C" int rbr_flash_fwd_f32(const float* q, const float* k, const float* v,
     case 64: return launch_fwd<64>(q, k, v, o, L, BH, S, seq_len, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+}  // namespace rbr_flash
+
+int rbr_flash_blocks[3] = {0, 0, 0};  // declared in flash_common.cuh
+
+// q, k, v, o: (BH, S, dh) float32 (or bfloat16: _bf16) contiguous and 16-byte
+// aligned; L: (BH, S) float32. Keys j >= seq_len are masked (seq_len <= S);
+// window < 0 means no window. Launches on `stream`; returns a CUDA error
+// code (0 on success).
+extern "C" int rbr_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
+                                 float* L, int BH, int S, int dh, int seq_len, int causal,
+                                 int window, float scale, int device, cudaStream_t stream) {
+  return rbr_flash::fwd_entry(q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device,
+                              stream);
+}
+
+extern "C" int rbr_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                  const __nv_bfloat16* v, __nv_bfloat16* o, float* L, int BH,
+                                  int S, int dh, int seq_len, int causal, int window,
+                                  float scale, int device, cudaStream_t stream) {
+  return rbr_flash::fwd_entry(q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device,
+                              stream);
 }

@@ -12,14 +12,19 @@ plain PyTorch version and its launch counter:
 * ``flash_bwd_dkv`` (B3, ``csrc/flash_bwd.cu``; replaces
   ``_flash_bwd_dkv_kernel``): dV = p^T dO, dK = scale * dS^T Q.
 
-Each wrapper takes the plain version for CPU tensors and launches its
-kernel for CUDA tensors, or raises. The kernels' headers say what bounds
-them on the card. ``FlashAttention`` joins them into one
-``torch.autograd.Function`` that saves only q, k, v, O and L, the residuals
-the 1F1B stash budget assumes; D = rowsum(dO * O) is an elementwise torch
-reduction, as the reference computes it outside Pallas. Layout: (BH, S, dh)
-at the kernels, (B, H, S, dh) at ``flash_attention``. The kernels mask the
-ragged end of S themselves, so nothing is padded.
+Each kernel has a float32 and a bfloat16 entry point (``_f32``, ``_bf16``),
+as the reference's kernels take either: q, k, v and dO in one of the two
+dtypes, L and D in float32, every product and sum in float32, and O, dQ, dK
+and dV written in the input dtype. Each wrapper takes the plain version for
+CPU tensors and launches its kernel for CUDA tensors, or raises; it counts
+its launches by input dtype (``launches`` for float32, ``launches_bf16``).
+The kernels' headers say what bounds them on the card. ``FlashAttention``
+joins them into one ``torch.autograd.Function`` that saves only q, k, v, O
+and L, the residuals the 1F1B stash budget assumes; D = rowsum(dO * O),
+computed in float32, is an elementwise torch reduction, as the reference
+computes it outside Pallas. Layout: (BH, S, dh) at the kernels, (B, H, S,
+dh) at ``flash_attention``. The kernels mask the ragged end of S
+themselves, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 _EPS = 1e-30
 HEAD_DIMS = (16, 32, 64)  # the head widths the kernels are built for
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the kernels' input dtypes
 
 
 def _scale(dh: int) -> float:
@@ -57,14 +63,22 @@ def visible_mask(S: int, seq_len: int, causal: bool, window: Optional[int],
 
 
 # ---------------------------------------------------------------------------
-# plain versions, in the kernels' operation order
+# plain versions, in the kernels' operation order: bfloat16 inputs are
+# upcast, everything is computed in float32 (or wider), and the head-shaped
+# outputs are cast back to the input dtype
 # ---------------------------------------------------------------------------
+
+
+def _up(*xs: Tensor):
+    return [x.float() if x.dtype == torch.bfloat16 else x for x in xs]
 
 
 def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: Optional[int] = None,
                     seq_len: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """B1's plain version: (O, L) for (BH, S, dh) float32 inputs."""
+    """B1's plain version: (O, L) for (BH, S, dh) inputs; O in their dtype."""
+    dt = q.dtype
+    q, k, v = _up(q, k, v)
     S, dh = q.shape[-2], q.shape[-1]
     mask = visible_mask(S, S if seq_len is None else seq_len, causal, window, q.device)
     s = torch.matmul(q, k.mT) * _scale(dh)
@@ -75,10 +89,11 @@ def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     live = l > 0
     o = torch.where(live, torch.matmul(p, v) / l.clamp(min=_EPS), torch.zeros_like(q))
     L = torch.where(live, m + torch.log(l.clamp(min=_EPS)), torch.full_like(l, NEG_INF))
-    return o, L[..., 0]
+    return o.to(dt), L[..., 0]
 
 
 def _p_ds(q, k, v, do, L, D, causal, window):
+    q, k, v, do = _up(q, k, v, do)
     S, dh = q.shape[-2], q.shape[-1]
     mask = visible_mask(S, S, causal, window, q.device)
     s = torch.matmul(q, k.mT) * _scale(dh)
@@ -91,17 +106,20 @@ def _p_ds(q, k, v, do, L, D, causal, window):
 
 def flash_bwd_dq_plain(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Tensor, *,
                        causal: bool = True, window: Optional[int] = None) -> Tensor:
-    """B2's plain version: dQ."""
+    """B2's plain version: dQ, in q's dtype."""
     _, ds = _p_ds(q, k, v, do, L, D, causal, window)
-    return torch.matmul(ds, k) * _scale(q.shape[-1])
+    kf, = _up(k)
+    return (torch.matmul(ds, kf) * _scale(q.shape[-1])).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Tensor, *,
                         causal: bool = True,
                         window: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """B3's plain version: (dK, dV)."""
+    """B3's plain version: (dK, dV), in k's and v's dtypes."""
     p, ds = _p_ds(q, k, v, do, L, D, causal, window)
-    return torch.matmul(ds.mT, q) * _scale(q.shape[-1]), torch.matmul(p.mT, do)
+    qf, dof = _up(q, do)
+    return ((torch.matmul(ds.mT, qf) * _scale(q.shape[-1])).to(k.dtype),
+            torch.matmul(p.mT, dof).to(v.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -113,13 +131,16 @@ def _on_cpu(*xs: Tensor) -> bool:
     return all(x.device.type == "cpu" for x in xs)
 
 
-def _check(what: str, heads: Tuple[Tensor, ...], rows: Tuple[Tensor, ...] = ()) -> None:
-    """Raise on anything the kernels do not take."""
+def _check(what: str, heads: Tuple[Tensor, ...], rows: Tuple[Tensor, ...] = ()) -> str:
+    """Raise on anything the kernels do not take; return the entry point's
+    dtype suffix (``f32`` or ``bf16``)."""
     x = heads[0]
     if not all(t.is_cuda and t.device == x.device for t in heads + rows):
         raise ValueError(f"{what}: tensors on {[str(t.device) for t in heads + rows]}")
-    if any(t.dtype != torch.float32 for t in heads + rows):
-        raise TypeError(f"{what}: float32 only, got {[t.dtype for t in heads + rows]}")
+    if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in heads) or any(
+            t.dtype != torch.float32 for t in rows):
+        raise TypeError(f"{what}: heads all float32 or all bfloat16, row statistics "
+                        f"float32; got {[t.dtype for t in heads]}, {[t.dtype for t in rows]}")
     if x.ndim != 3 or any(t.shape != x.shape for t in heads):
         raise ValueError(f"{what}: need (BH, S, dh) tensors of one shape, "
                          f"got {[tuple(t.shape) for t in heads]}")
@@ -136,6 +157,7 @@ def _check(what: str, heads: Tuple[Tensor, ...], rows: Tuple[Tensor, ...] = ()) 
             raise ValueError(f"{what}: tensors must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must be 16-byte aligned")
+    return DTYPES[x.dtype]
 
 
 def _window(window: Optional[int]) -> int:
@@ -155,18 +177,18 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     (default S) are masked, as the reference masks its padding."""
     if _on_cpu(q, k, v):
         return flash_fwd_plain(q, k, v, causal=causal, window=window, seq_len=seq_len)
-    _check("flash_fwd", (q, k, v))
+    dt = _check("flash_fwd", (q, k, v))
     BH, S, dh = q.shape
     seq_len = S if seq_len is None else int(seq_len)
     if not 0 <= seq_len <= S:
         raise ValueError(f"flash_fwd: seq_len {seq_len} outside [0, {S}]")
     o = torch.empty_like(q)
     L = torch.empty((BH, S), dtype=torch.float32, device=q.device)
-    check(load_library().lib.rbr_flash_fwd_f32(
+    check(getattr(load_library().lib, f"rbr_flash_fwd_{dt}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), L.data_ptr(), BH, S, dh,
         seq_len, int(causal), _window(window), _scale(dh), q.device.index, _stream(q)),
         "flash_fwd")
-    flash_fwd.launches += 1
+    _count(flash_fwd, dt)
     return o, L
 
 
@@ -175,14 +197,14 @@ def flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Tens
     """B2: dQ (BH, S, dh)."""
     if _on_cpu(q, k, v, do, L, D):
         return flash_bwd_dq_plain(q, k, v, do, L, D, causal=causal, window=window)
-    _check("flash_bwd_dq", (q, k, v, do), (L, D))
+    dt = _check("flash_bwd_dq", (q, k, v, do), (L, D))
     BH, S, dh = q.shape
     dq = torch.empty_like(q)
-    check(load_library().lib.rbr_flash_bwd_dq_f32(
+    check(getattr(load_library().lib, f"rbr_flash_bwd_dq_{dt}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), L.data_ptr(), D.data_ptr(),
         dq.data_ptr(), BH, S, dh, int(causal), _window(window), _scale(dh), q.device.index,
         _stream(q)), "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, dt)
     return dq
 
 
@@ -192,20 +214,26 @@ def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Ten
     """B3: (dK, dV), each (BH, S, dh)."""
     if _on_cpu(q, k, v, do, L, D):
         return flash_bwd_dkv_plain(q, k, v, do, L, D, causal=causal, window=window)
-    _check("flash_bwd_dkv", (q, k, v, do), (L, D))
+    dt = _check("flash_bwd_dkv", (q, k, v, do), (L, D))
     BH, S, dh = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    check(load_library().lib.rbr_flash_bwd_dkv_f32(
+    check(getattr(load_library().lib, f"rbr_flash_bwd_dkv_{dt}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), L.data_ptr(), D.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), BH, S, dh, int(causal), _window(window), _scale(dh),
         q.device.index, _stream(q)), "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, dt)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+def _count(wrapper, dt: str) -> None:
+    """One more launch of ``wrapper``'s kernel for inputs of dtype ``dt``."""
+    name = "launches" if dt == "f32" else "launches_bf16"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _fn.launches = 0  # float32 inputs
+    _fn.launches_bf16 = 0  # bfloat16 inputs
 
 
 def launched_blocks() -> dict:
@@ -230,7 +258,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do: Tensor):
         q, k, v, o, L = ctx.saved_tensors
         do = do.contiguous()
-        D = (do * o).sum(dim=-1)
+        D = (do.float() * o.float()).sum(dim=-1)
         kw = dict(causal=ctx.causal, window=ctx.window)
         dq = flash_bwd_dq(q, k, v, do, L, D, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, do, L, D, **kw)
@@ -239,7 +267,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: Optional[int] = None) -> Tensor:
-    """q, k, v: (B, H, S, dh) float32 -> (B, H, S, dh); differentiable."""
+    """q, k, v: (B, H, S, dh) float32 or bfloat16 -> (B, H, S, dh) in their
+    dtype; differentiable."""
     B, H, S, dh = q.shape
     flat = [x.reshape(B * H, S, dh).contiguous() for x in (q, k, v)]
     return FlashAttention.apply(*flat, causal, window).reshape(B, H, S, dh)

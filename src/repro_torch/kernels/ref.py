@@ -3,7 +3,8 @@
 The matmul and Adam-scale oracles are the plain versions that live beside
 their kernels; the two-sided rotation and attention oracles are written
 independently of the kernel modules, as einsums and a softmax, the way the
-reference writes them.
+reference writes them. Like the reference's, they take float32 or bfloat16
+inputs, compute in float32 and return float32.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def two_sided_rotate_ref(x: Tensor, U: Optional[Tensor], V: Optional[Tensor],
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                         window: Optional[int] = None,
                         scale: Optional[float] = None) -> Tensor:
-    """O = softmax(Q K^T * scale + mask) V. q, k, v: (B, H, S, dh)."""
+    """O = softmax(Q K^T * scale + mask) V in float32. q, k, v: (B, H, S, dh),
+    float32 or bfloat16."""
     S, dh = q.shape[-2], q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale

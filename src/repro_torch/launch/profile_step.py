@@ -6,16 +6,20 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
         --schedule 1f1b --use-kernels --batch 8 --seq 256
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \\
+        --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
+        --schedule 1f1b --use-kernels --batch 8 --seq 256 --precision bf16
 
 Builds the trainer exactly as ``launch.train`` does (same flags, either
-backend and either SPMD schedule), runs
+backend, either SPMD schedule and, on the spmd backend, ``--precision
+bf16``), runs
 ``--warmup`` steps (step 0 refreshes every basis), samples the batches of
 the next ``--profile-steps`` steps (timed apart), then traces those steps
 with ``torch.profiler``. Prints one JSON line: the data time per step, the
 traced wall time, the time the device was busy (the union of its kernel and
 copy intervals) and its share of the wall time, the device time by kernel
-group (each of this port's CUDA kernels, cuBLAS products, QR, everything
-else), the
+group (each of this port's CUDA kernels, B1-B3's bf16 entry points apart,
+cuBLAS products, QR, everything else), the
 top kernels by device time and the top host operations by their own host
 time. Needs CUDA.
 """
@@ -37,14 +41,16 @@ GROUPS = (  # first match wins; names are the kernels' symbol names
     ("port: flash_bwd.cu dq (B2)", ("flash_bwd_dq_kernel",)),
     ("port: flash_bwd.cu dkv (B3)", ("flash_bwd_dkv_kernel",)),
     ("qr", ("geqrf", "orgqr", "larf", "householder", "geqr2", "potrf", "trsm")),
-    ("library gemm", ("gemm", "xmma", "cutlass", "sm90", "dot_kernel")),
+    # cuBLAS's products: its bf16 ones run as nvjet kernels
+    ("library gemm", ("gemm", "xmma", "cutlass", "sm90", "dot_kernel", "nvjet")),
 )
 
 
 def _group(name: str) -> str:
     for group, keys in GROUPS:
         if any(k in name for k in keys):
-            return group
+            bf16 = group.startswith("port: flash") and "bfloat16" in name
+            return group + " bf16" if bf16 else group
     return "other"
 
 
@@ -104,6 +110,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "groups_ms": groups, "top_kernels_ms": top, "top_host_ops_self_ms": host,
         "final_loss": float(loss),
         "device": torch.cuda.get_device_name(0), "backend": args.backend,
+        "precision": args.precision,
         "schedule": args.schedule if args.backend == "spmd" else None,
     }
     print(json.dumps(result), flush=True)

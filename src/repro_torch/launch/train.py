@@ -18,7 +18,11 @@ and on the spmd backend attention runs in the flash-attention kernels too.
         --schedule 1f1b --optimizer basis_rotation --use-kernels --batch 8 --seq 256
 
 On the sim backend ``--weight-prediction`` (PipeMare) and ``--no-stash``
-select the other staleness modes. ``--ckpt-dir D --ckpt-every N``
+select the other staleness modes. ``--precision bf16`` (the
+``bf16_compute`` policy: bfloat16 activations and products, float32
+masters, optimizer state and loss) is an spmd-backend policy, as in the
+reference; with ``--use-kernels`` attention then runs in the flash
+kernels' bfloat16 entry points. ``--ckpt-dir D --ckpt-every N``
 checkpoints every N steps and at the end, in the reference's format; a
 rerun with the same directory resumes from its checkpoint, fast-forwarding
 the data stream past the batches already consumed.
@@ -82,7 +86,6 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--precision bf16": args.precision != "f32",
         "--data-async / --data-delay": args.data_async or args.data_delay is not None,
         "--coordinator / --num-processes / --process-id":
             args.coordinator is not None or args.num_processes > 1 or args.process_id != 0,
@@ -99,6 +102,11 @@ def _refuse_unported(args) -> None:
                 "backend imposes weight-stashing staleness physically"
             )
         return
+    if args.precision != "f32":
+        raise SystemExit(
+            "--precision bf16 is an spmd-backend policy; the sim backend "
+            "reproduces the paper's f32 runs bit-for-bit"
+        )
     if args.schedule != "fill_drain":
         raise SystemExit(
             "--schedule picks the SPMD tick schedule; the sim backend imposes "
@@ -116,9 +124,11 @@ def resolve_device(name: str) -> torch.device:
     if name == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
-        # the reference's sim path is exact float32: no TF32 anywhere
+        # the reference's sim path is exact float32: no TF32 anywhere; and its
+        # bfloat16 products accumulate in float32, so cuBLAS's must too
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
@@ -137,7 +147,9 @@ def build(args):
     from repro_torch.pipeline.partition import delay_tree
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    cfg = PRECISION_POLICIES[args.precision].apply(cfg.replace(scan_layers=False))
+    # the precision policy owns every dtype knob; the spmd engine applies it
+    cfg = cfg.replace(scan_layers=False)
+    policy = PRECISION_POLICIES[args.precision]
     if cfg.num_layers % args.stages != 0:
         if args.smoke:
             # pad the reduced config up to the nearest depth that both the
@@ -165,9 +177,10 @@ def build(args):
         engine = SpmdEngine(cfg, ocfg, num_stages=args.stages, num_microbatches=M,
                             schedule=args.schedule, async_grads=not args.sync,
                             use_kernels=args.use_kernels, grad_clip=1.0, device=device,
-                            seed=args.seed)
-        n_params = param_count(Transformer(cfg, device="meta", seed=None))
+                            seed=args.seed, precision=policy)
+        n_params = param_count(Transformer(engine.cfg, device="meta", seed=None))
     else:
+        cfg = policy.apply(cfg)
         model = init_model(cfg, seed=args.seed, device=device)
         params = param_leaves(model)
         opt = build_optimizer(ocfg, params, cfg, num_stages=args.stages,
@@ -180,7 +193,8 @@ def build(args):
                            schedule=sched, no_stash=args.no_stash)
         n_params = param_count(model)
     print(f"arch={cfg.name} params={n_params:,} stages={args.stages} "
-          f"optimizer={args.optimizer} backend={args.backend} device={device}")
+          f"optimizer={args.optimizer} backend={args.backend} precision={policy.name} "
+          f"device={device}")
     data = batches(cfg, args.batch, args.seq, seed=args.seed, device=device)
     loop_cfg = LoopConfig(
         steps=args.steps, log_every=args.log_every,

@@ -1,6 +1,7 @@
 from repro_torch.models.model import (
     IGNORE_INDEX,
     Transformer,
+    cast_params,
     cross_entropy,
     embed,
     forward_train,
@@ -16,6 +17,7 @@ from repro_torch.models.transformer import stage_apply, template_block
 __all__ = [
     "IGNORE_INDEX",
     "Transformer",
+    "cast_params",
     "cross_entropy",
     "embed",
     "forward_train",

@@ -8,6 +8,9 @@ their own copies of those weights.
 The module tree mirrors the reference's parameter tree, so that
 ``named_parameters`` names map onto its leaf paths (``blocks/3/mixer/w_q``,
 ``embed/embedding``, ``lm_head``, ``pos_emb``, ``final_norm/scale``).
+Parameters are float32 masters; under the ``bf16`` precision policy the
+SPMD schedules run on compute-dtype copies made by ``cast_params``, as the
+reference casts its masters at use.
 Weights are drawn from an explicit CPU ``torch.Generator`` and then moved to
 the device, so a seed gives the same weights on every device; they do not
 reproduce ``jax.random`` (the tests carry weights across with
@@ -82,6 +85,14 @@ def param_leaves(model: nn.Module) -> Dict[str, nn.Parameter]:
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def cast_params(params: Mapping[str, Tensor], dtype: torch.dtype) -> Dict[str, Tensor]:
+    """Mixed precision: float32 master weights -> compute-dtype copies at use.
+    Floating leaves go to ``dtype``, other leaves pass through; a leaf already
+    in ``dtype`` is returned as it is. The autograd of ``.to()`` hands each
+    master a float32 gradient."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
 
 
 def shared_leaves(model: Transformer) -> Dict[str, Tensor]:

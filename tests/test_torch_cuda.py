@@ -19,6 +19,10 @@ ROT_RTOL, ROT_ATOL = 2e-3, 1e-4
 ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6
 FWD_RTOL, FWD_ATOL = 2e-3, 2e-4
 BWD_RTOL, BWD_ATOL = 2e-3, 1e-4
+# B1-B3 on bfloat16 inputs against their plain versions on the same inputs:
+# O, dQ, dK and dV each rounded to bf16 once (2^-8 relative), L float32
+BF16_TOL = 1e-2
+BF16_L_TOL = 1e-5
 
 
 @pytest.fixture
@@ -256,6 +260,86 @@ def test_flash_attention_gradients_match_plain_on_card(cuda):
         torch.testing.assert_close(got.cpu(), w, rtol=BWD_RTOL, atol=BWD_ATOL)
     for a, b in zip(grads[0], grads[1]):  # no atomics: bitwise repeatable
         assert torch.equal(a, b)
+
+
+def _launch_counts():
+    return tuple((f.launches, f.launches_bf16) for f in (
+        tflash.flash_fwd, tflash.flash_bwd_dq, tflash.flash_bwd_dkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((6, 256, 64), 32),
+                                          ((4, 200, 32), 100), ((2, 100, 16), 16),
+                                          ((3, 130, 64), None), ((1, 64, 32), 1),
+                                          ((6, 48, 64), None), ((2, 272, 32), None)])
+def test_flash_bf16_kernels_match_plain_on_card(cuda, shape, window):
+    """B1, B2 and B3's bfloat16 entry points against their plain versions on
+    the same bf16 inputs, over the float32 kernels' cases: O, dQ, dK and dV
+    come back in bf16 within 1e-2, L in float32 within 1e-5, and each launch
+    counts as a bf16 launch."""
+    q, k, v, do = (x.to(torch.bfloat16) for x in _heads(cuda, shape, seed=shape[1] + 1))
+    before = _launch_counts()
+    o, L = tflash.flash_fwd(q, k, v, window=window)
+    o_p, L_p = tflash.flash_fwd_plain(q, k, v, window=window)
+    assert o.dtype == torch.bfloat16 and L.dtype == torch.float32
+    torch.testing.assert_close(o, o_p, rtol=BF16_TOL, atol=BF16_TOL)
+    torch.testing.assert_close(L, L_p, rtol=BF16_L_TOL, atol=BF16_L_TOL)
+    D = (do.float() * o.float()).sum(-1)
+    dq = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+    dk, dv = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+    dk_p, dv_p = tflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
+    for got, want in ((dq, tflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window)),
+                      (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+    assert _launch_counts() == tuple((n32, n16 + 1) for n32, n16 in before)
+    blocks = shape[0] * -(-shape[1] // 16)
+    assert tflash.launched_blocks() == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((2, 200, 32), 100),
+                                          ((2, 100, 16), 16)])
+def test_flash_bf16_kernels_are_bitwise_repeatable_on_card(cuda, shape, window):
+    q, k, v, do = (x.to(torch.bfloat16) for x in _heads(cuda, shape, seed=6))
+    o1, L1 = tflash.flash_fwd(q, k, v, window=window)
+    o2, L2 = tflash.flash_fwd(q, k, v, window=window)
+    assert torch.equal(o1, o2) and torch.equal(L1, L2)
+    D = (do.float() * o1.float()).sum(-1)
+    dq1 = tflash.flash_bwd_dq(q, k, v, do, L1, D, window=window)
+    dq2 = tflash.flash_bwd_dq(q, k, v, do, L1, D, window=window)
+    dk1, dv1 = tflash.flash_bwd_dkv(q, k, v, do, L1, D, window=window)
+    dk2, dv2 = tflash.flash_bwd_dkv(q, k, v, do, L1, D, window=window)
+    assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_gradients_match_plain_on_card(cuda):
+    """The autograd function on bf16 heads: bf16 gradients within 1e-2 of
+    the plain versions' on the CPU, from the same bf16 inputs."""
+    q, k, v, do = (x.to(torch.bfloat16) for x in _heads(cuda, (1, 6, 256, 64), seed=10))
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    got = torch.autograd.grad(tflash.flash_attention(q, k, v), (q, k, v), do)
+    plain = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(tflash.flash_attention(*plain), plain, do.cpu())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16
+        torch.testing.assert_close(g.cpu(), w, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_mixed_dtypes(cuda):
+    y = torch.randn(2, 64, 64, device=cuda)
+    b = y.to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        tflash.flash_fwd(b, y, y)  # heads of two dtypes
+    o, L = tflash.flash_fwd(b, b, b)
+    with pytest.raises(TypeError):
+        tflash.flash_bwd_dq(b, b, b, b, L.to(torch.bfloat16), L)  # row statistics in bf16
+    with pytest.raises(TypeError):
+        tflash.flash_bwd_dkv(b, b, b, y, L, L)
 
 
 @pytest.mark.cuda

@@ -131,7 +131,7 @@ def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--backend", "spmd", "--data-par", "2"],
-                                   ["--precision", "bf16"],
+                                   ["--backend", "sim", "--precision", "bf16"],
                                    ["--data-async"],
                                    ["--num-processes", "2"], ["--schedule", "1f1b"],
                                    ["--backend", "spmd", "--weight-prediction"],
@@ -141,10 +141,12 @@ def test_train_main_refuses_unported_flags(flags):
         train.main(["--smoke", "--device", "cpu"] + flags)
 
 
-@pytest.mark.parametrize("flags", [["--weight-prediction"], ["--no-stash"], ["--ckpt-dir"]])
+@pytest.mark.parametrize("flags", [["--weight-prediction"], ["--no-stash"], ["--ckpt-dir"],
+                                   ["--backend", "spmd", "--precision", "bf16"]])
 def test_train_main_runs_ported_flags(tmp_path, flags):
-    """The sim backend's staleness modes and checkpointing run on the CPU;
-    a checkpoint directory gets its manifest, and a rerun resumes from it."""
+    """The sim backend's staleness modes and checkpointing, and the spmd
+    backend's bf16 policy, run on the CPU; a checkpoint directory gets its
+    manifest, and a rerun resumes from it."""
     if flags == ["--ckpt-dir"]:
         flags = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
     args = ["--smoke", "--stages", "2", "--steps", "3", "--batch", "2", "--seq", "16",
