@@ -15,11 +15,14 @@
    timed cold per step beside the per-leaf sequence) and over a ragged
    group, bitwise equal to its leaves launched alone; B1, B2 and B3 must
    each repeat bitwise. ptxas must report no spill stores for B5, nor for
-   any of B1-B3's 18 instantiations (3 kernels, 2 input types, 3 head
-   widths). B1-B3's
+   any of B1-B3's 24 instantiations (3 kernels, 2 input types, head widths
+   16, 32, 64 and 128). B1-B3's
    bfloat16 entry points run the same cases on bf16 inputs (O, dQ, dK, dV
    within 1e-2 of their plain versions, L within 1e-5, bitwise repeats) and
-   are timed at the path shape beside SDPA in bf16.
+   are timed at the path shape beside SDPA in bf16. At head dim 128 both
+   entry points run qwen3_0_6b's path shape (16, 256, 128) and a windowed
+   ragged case (4, 200, 128), window 100, under the same gates, and are
+   timed at the path shape beside SDPA.
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
@@ -60,12 +63,25 @@
    within 1e-6; B4 and B5 (basis rotation's) launch 0 times, B1-B3 as the
    1F1B path launches them. It reports each run's losses, step times, peak
    memory and, for delay compensation, its weight queues' bytes.
+   ``catalog_1f1b`` trains the full-width qwen3_0_6b (28 layers, head dim
+   128, GQA 16/8, qk_norm, vocab 151,936) through the launcher on the SPMD
+   1F1B path (4 stages, 8 microbatches, basis rotation, ``--use-kernels``)
+   for 4 steps in ``--precision f32`` and 4 in ``bf16``, from one list of
+   four batches sampled once: finite losses and per step B1 448, B2 and B3
+   224 launches (in the entry point of the policy), B4 4 and B5 1; then one
+   bf16 step under the dtype check. ``serve_decode`` serves the full-width
+   qwen3_0_6b on the card (batch 4, prompt 8, 24 tokens): in float32
+   compute the decoded logits at the prompt's positions must equal
+   ``forward_train``'s within 2e-4; then in its own bf16; tokens/s of both.
 5. Runs the reduced model for a few steps on the card and on the CPU (plain
    kernel versions) from the same seed, on both backends (and both SPMD
    schedules, and the sim backend's no-stash and weight-prediction modes),
    with Adam and with basis rotation through the kernels, and compares the
-   losses; then each baseline on the sim backend and the SPMD 1F1B one, and
-   the SPMD 1F1B path in bf16 (first loss within 1e-2, all within 5e-2).
+   losses; then each baseline on the sim backend and the SPMD 1F1B one, the
+   dense public architectures (qwen3_0_6b on 1F1B at head dim 128,
+   qwen1_5_0_5b on the sim path, phi4_mini_3_8b_swa on 1F1B with a window of
+   16) with Adam and basis rotation, and the SPMD 1F1B path in bf16 (first
+   loss within 1e-2, all within 5e-2).
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -76,6 +92,7 @@ raises and the exit code is not 0. Without CUDA, or without the repository's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -117,6 +134,16 @@ FIRST_LOSS_TOL = 1e-6  # a first loss against phase 3's or 4's: same weights and
 # its momentum is within roundoff of zero
 NEWTON_SCHULZ = ("muon", "scion")
 RESUME_TOL = 1e-6  # resumed losses against the uninterrupted run's, same card and code
+# qwen3_0_6b at full width on the SPMD 1F1B path: 4 stages of 7 layers (its
+# 28 layers fix the stage counts that divide them), 8 microbatches of one
+# sequence; CATALOG_STEPS steps in float32 and then in bf16 on one list of
+# batches sampled once (host sampling at vocab 151,936 costs seconds a batch)
+CATALOG_ARGS = ["--arch", "qwen3_0_6b", "--backend", "spmd", "--schedule", "1f1b",
+                "--stages", "4", "--microbatches", "8", "--optimizer", "basis_rotation",
+                "--use-kernels", "--batch", "8", "--seq", "256", "--log-every", "1"]
+CATALOG_STEPS = 4
+SERVE = {"batch": 4, "prompt_len": 8, "gen_len": 24}  # full-width qwen3_0_6b decode
+DECODE_TOL = 2e-4  # decode against the training forward (tests/test_models.py:35)
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores, device memory bandwidth, TF32 and bf16 on the tensor cores. The SXM
@@ -140,12 +167,16 @@ ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6  # tests/test_kernels.py fused Adam parity
 FWD_RTOL, FWD_ATOL = 2e-3, 2e-4  # tests/test_kernels.py:87 flash forward parity
 BWD_RTOL, BWD_ATOL = 2e-3, 1e-4  # tests/test_kernels.py:137-142 flash backward parity
 FLASH_PATH = (6, 256, 64)  # (heads, S, dh) of one attention call on the paper_95m path
+# one attention call of qwen3_0_6b's 1F1B path: 16 query heads (its 8 KV heads
+# repeated to 16), one microbatch of one sequence of 256, head dim 128
+QWEN3_FLASH_PATH = (16, 256, 128)
 # B1-B3 on bf16 inputs against their plain versions on the same inputs: O, dQ,
 # dK and dV are each rounded to bf16 once (2^-8 relative); L is float32
 BF16_TOL, BF16_L_TOL = 1e-2, 1e-5
 # B2 and B3 at the path shape: relative error against a float64 backward at most this
 # many times the plain version's. One TF32 pass instead of three is ~1e3 times off.
 F64_ERR_FACTOR = 4
+FLASH_INSTANTIATIONS = 24  # 3 kernels x 2 input types x head dims 16, 32, 64, 128
 
 
 def emit(obj) -> None:
@@ -513,21 +544,30 @@ def flash_work(BH: int, S: int, dh: int, elem: int = 4):
             "flash_bwd_dkv": (2 * prod, 2 * prod, 4 * head + 2 * row + 2 * head)}
 
 
-def check_flash(torch, kflash, peaks):
-    """B1-B3 against their plain versions: the path shape, the reference's
-    sweeps (windows None, 100, 32; S 256, 128, 200, 100) and a fully-masked
-    row case; each kernel run twice on every case must repeat bitwise. Times
-    all three, their plain versions and PyTorch's SDPA forward and backward
-    at the path shape. Returns (rows, errs, timing)."""
+def flash_cases(path):
+    """B1-B3's cases at a path shape: the path shape itself and, at the
+    paper_95m path, the reference's sweeps (windows None, 100, 32; S 256,
+    128, 200, 100) and a fully-masked row case; at head dim 128 a windowed
+    case of ragged length."""
+    if path[2] == 128:
+        return [(path, None, None), ((4, 200, 128), 100, None)]
+    cases = [(path, None, None)]
+    cases += [((6, S, 64), w, None) for S in (256, 128) for w in (None, 100, 32)]
+    cases += [((2, S, 32), w, None) for S in (200, 100) for w in (None, 100, 32, 16)]
+    cases += [((1, 128, 16), 8, 100)]  # keys past 100 masked: rows >= 107 see none
+    return cases
+
+
+def check_flash(torch, kflash, peaks, path=FLASH_PATH):
+    """B1-B3 against their plain versions on ``flash_cases(path)``; each
+    kernel run twice on every case must repeat bitwise. Times all three,
+    their plain versions and PyTorch's SDPA forward and backward at the path
+    shape. Returns (rows, errs, timing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows, errs = [], {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    cases = [(FLASH_PATH, None, None)]
-    cases += [((6, S, 64), w, None) for S in (256, 128) for w in (None, 100, 32)]
-    cases += [((2, S, 32), w, None) for S in (200, 100) for w in (None, 100, 32, 16)]
-    cases += [((1, 128, 16), 8, 100)]  # keys past 100 masked: rows >= 107 see none
-    for (BH, S, dh), window, seq_len in cases:
+    for (BH, S, dh), window, seq_len in flash_cases(path):
         q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen) for _ in range(4))
         o, L = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
         o2, L2 = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
@@ -568,7 +608,7 @@ def check_flash(torch, kflash, peaks):
         rows.append(row)
 
     # timing at the path shape: one attention call of one microbatch
-    BH, S, dh = FLASH_PATH
+    BH, S, dh = path
     q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen) for _ in range(4))
     o, L = kflash.flash_fwd(q, k, v)
     D = (do * o).sum(-1)
@@ -617,24 +657,19 @@ def check_flash(torch, kflash, peaks):
     return rows, errs, timing
 
 
-def check_flash_bf16(torch, kflash, peaks):
+def check_flash_bf16(torch, kflash, peaks, path=FLASH_PATH):
     """B1-B3's bfloat16 entry points against their plain versions on the
-    same bf16 inputs: the float32 check's cases (path shape, the reference's
-    sweeps, a fully-masked row case), each kernel run twice and required to
-    repeat bitwise. At the path shape: B2 and B3 against a float64 backward
-    (within F64_ERR_FACTOR of the plain versions' error), and the times of
-    all three, their plain versions and SDPA's bf16 forward and backward.
-    Returns (rows, errs, timing)."""
+    same bf16 inputs: the float32 check's cases (``flash_cases(path)``),
+    each kernel run twice and required to repeat bitwise. At the path shape:
+    B2 and B3 against a float64 backward (within F64_ERR_FACTOR of the plain
+    versions' error), and the times of all three, their plain versions and
+    SDPA's bf16 forward and backward. Returns (rows, errs, timing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16 = torch.bfloat16
     rows, errs = [], {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    cases = [(FLASH_PATH, None, None)]
-    cases += [((6, S, 64), w, None) for S in (256, 128) for w in (None, 100, 32)]
-    cases += [((2, S, 32), w, None) for S in (200, 100) for w in (None, 100, 32, 16)]
-    cases += [((1, 128, 16), 8, 100)]
-    for (BH, S, dh), window, seq_len in cases:
+    for (BH, S, dh), window, seq_len in flash_cases(path):
         q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen).to(bf16)
                        for _ in range(4))
         o, L = kflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
@@ -679,7 +714,7 @@ def check_flash_bf16(torch, kflash, peaks):
             row["fully_masked_rows_zero"] = True
         rows.append(row)
 
-    BH, S, dh = FLASH_PATH
+    BH, S, dh = path
     q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen).to(bf16)
                    for _ in range(4))
     o, L = kflash.flash_fwd(q, k, v)
@@ -760,11 +795,11 @@ def check_schedule_grads(torch, cfg, K, M, rtol=1e-5):
     return out
 
 
-def check_bf16_dtypes(train, args):
-    """One more step of the bf16 path (a fresh trainer for ``args``) under
-    the dtype check: every float the step computes is bfloat16 or float32,
-    bfloat16 is among them, and the masters and optimizer state it reads
-    and writes are float32."""
+def check_bf16_dtypes(train, args, batch=None):
+    """One more step of the bf16 path (a fresh trainer for ``args``, on
+    ``batch`` or its stream's first) under the dtype check: every float the
+    step computes is bfloat16 or float32, bfloat16 is among them, and the
+    masters and optimizer state it reads and writes are float32."""
     from repro_torch.analysis import (
         BF16_COMPUTE_POLICY,
         check_dtype_policy,
@@ -774,12 +809,69 @@ def check_bf16_dtypes(train, args):
 
     engine, data, _ = train.build(train.parse_args(args))
     state = engine.init_state()
-    (state, loss, _), seen = record_float_dtypes(engine.step, state, next(data), 0)
+    batch = next(data) if batch is None else batch
+    (state, loss, _), seen = record_float_dtypes(engine.step, state, batch, 0)
     res = check_dtype_policy(seen, state_leaves((state.params, state.opt_state)),
                              BF16_COMPUTE_POLICY)
     if not (res.passed and math.isfinite(float(loss))):
         raise AssertionError(f"bf16 step: loss {float(loss)}, dtype check {res.to_json()}")
     return res.to_json()
+
+
+def check_serve_decode(torch, cfg):
+    """Full-width decode on the card in float32 compute: the logits decoded
+    at the prompt's positions against ``forward_train``'s on the prompt,
+    within the reference's consistency tolerance; then the same serving run
+    in the config's own compute dtype. Reports tokens per second of both."""
+    from repro_torch.launch.serve_decode import serve
+    from repro_torch.models import forward_train
+
+    out = {}
+    for dtype in ("float32", cfg.dtype):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = serve(cfg.replace(dtype=dtype), SERVE["batch"], SERVE["prompt_len"],
+                    SERVE["gen_len"], torch.device("cuda"))
+        row = {"dtype": dtype, "wall_s": time.perf_counter() - t0,
+               "tokens_per_s": res["tokens_per_s"], "decode_s": res["seconds"],
+               "generated_shape": list(res["generated"].shape),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if dtype == "float32":
+            with torch.no_grad():
+                full, _ = forward_train(res["model"], res["prompt"])
+            got = res["prompt_logits"]
+            err = row["prefill_vs_forward_train_max_abs_err"] = float((got - full).abs().max())
+            if not torch.allclose(got, full, rtol=DECODE_TOL, atol=DECODE_TOL):
+                raise AssertionError(f"serve_decode: decoded prompt logits differ from "
+                                     f"forward_train by {err}")
+        if tuple(res["generated"].shape) != (SERVE["batch"], SERVE["gen_len"]) or not bool(
+                ((res["generated"] >= 0) & (res["generated"] < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve_decode: generated {res['generated']}")
+        out[dtype] = row
+        del res
+    return out
+
+
+@contextlib.contextmanager
+def smoke_attention(arch, **changes):
+    """The launcher's ``--smoke`` config of ``arch`` with its attention
+    changed: a head dim or a window that ``reduce_for_smoke`` does not give."""
+    import repro_torch.configs as configs
+
+    real = configs.get_config
+
+    def get_config(name, smoke=False):
+        cfg = real(name, smoke)
+        if smoke and name == arch:
+            cfg = cfg.replace(attention=dataclasses.replace(cfg.attention, **changes))
+        return cfg
+
+    configs.get_config = get_config
+    try:
+        yield
+    finally:
+        configs.get_config = real
 
 
 def per_step(rows, counts, key_of):
@@ -954,12 +1046,12 @@ def check_resume(train, torch, kernels, args, cut, want_per_step, uninterrupted)
             "first_leg": first, "resumed_leg": second}
 
 
-def run_baseline(train, torch, kernels, args, batch_list, want, first_loss):
-    """One baseline through the launcher's trainer with the phase's batches
-    in place of its stream; every launch count zeroed just before and read
-    just after. Checks finite losses, the launches, and the first loss
-    against ``first_loss`` (the same weights and batch, before any update).
-    For delay compensation also reports its weight queues' bytes."""
+def run_baseline(train, torch, kernels, args, batch_list, want, first_loss=None):
+    """One run through the launcher's trainer with the phase's batches in
+    place of its stream; every launch count zeroed just before and read just
+    after. Checks finite losses, the launches, and the first loss against
+    ``first_loss`` (the same weights and batch, before any update) where one
+    is given. For delay compensation also reports its weight queues' bytes."""
     from repro_torch.engine import run_loop
 
     steps = int(args[args.index("--steps") + 1])
@@ -978,8 +1070,8 @@ def run_baseline(train, torch, kernels, args, batch_list, want, first_loss):
         raise AssertionError(f"{' '.join(args)}: losses {losses}")
     if launches != want:
         raise AssertionError(f"{' '.join(args)}: kernel launches {launches}, expected {want}")
-    first_diff = abs(losses[0] - first_loss)
-    if first_diff > FIRST_LOSS_TOL:
+    first_diff = None if first_loss is None else abs(losses[0] - first_loss)
+    if first_diff is not None and first_diff > FIRST_LOSS_TOL:
         raise AssertionError(f"{' '.join(args)}: first loss {losses[0]} against {first_loss}")
     return {"losses": losses, "launches": launches, "first_loss_diff": first_diff,
             "step_s": timings.step_s, "median_step_s_no_refresh": statistics.median(
@@ -1035,7 +1127,7 @@ def main() -> int:
         raise AssertionError(f"adam_scale_grouped_kernel: ptxas report {adam_ptxas}")
     # B1-B3, float32 and bf16 entry points at every head width: no spills
     flash_ptxas = ptxas_report(lib.log, "flash_") if lib.log else None
-    if flash_ptxas is not None and (len(flash_ptxas) != 18 or any(
+    if flash_ptxas is not None and (len(flash_ptxas) != FLASH_INSTANTIATIONS or any(
             r["spill_stores"] != 0 for r in flash_ptxas.values())):
         raise AssertionError(f"flash kernels: ptxas report {flash_ptxas}")
     emit({"phase": "device", "nvidia_smi": smi, "kind": name,
@@ -1064,11 +1156,17 @@ def main() -> int:
     adam_err = max(adam_err, agrp_err)
     flash_rows, flash_errs, flash_t = check_flash(torch, kflash, peaks)
     bf16_rows, bf16_errs, bf16_t = check_flash_bf16(torch, kflash, peaks)
+    # head dim 128 at qwen3_0_6b's path shape, both entry points
+    h128_rows, h128_errs, h128_t = check_flash(torch, kflash, peaks, QWEN3_FLASH_PATH)
+    h128b_rows, h128b_errs, h128b_t = check_flash_bf16(torch, kflash, peaks, QWEN3_FLASH_PATH)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
         {"matmul": mm_rows, "matmul_grouped": grp_rows, "adam_scale": adam_rows,
          "adam_scale_grouped": agrp_rows,
          "flash": flash_rows, "flash_timing_per_launch": flash_t,
-         "flash_bf16": bf16_rows, "flash_bf16_timing_per_launch": bf16_t}, indent=1))
+         "flash_bf16": bf16_rows, "flash_bf16_timing_per_launch": bf16_t,
+         "flash_dh128": h128_rows, "flash_dh128_timing_per_launch": h128_t,
+         "flash_bf16_dh128": h128b_rows, "flash_bf16_dh128_timing_per_launch": h128b_t},
+        indent=1))
     emit({"phase": "kernels", "matmul_cases": len(mm_rows) + len(grp_rows),
           "matmul_max_abs_err": mm_err,
           "matmul_grouped_ms": {r["group"]: r["ms"] for r in grp_rows if "ms" in r},
@@ -1096,7 +1194,17 @@ def main() -> int:
               k: {f: t[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
               for k, t in bf16_t.items() if "rel_err_f64" in t},
           "flash_bf16_bitwise_repeat": {k: all(r[k + "_bitwise_repeat"] for r in bf16_rows)
-                                        for k in bf16_t}})
+                                        for k in bf16_t},
+          **{f"flash{tag}_dh128": {
+              "cases": len(r), "max_abs_err": e, "blocks": {k: x["blocks"] for k, x in t.items()},
+              "ms_per_launch": {k: {f: x[f] for f in ("ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "host_ms")}
+                                for k, x in t.items()},
+              "bwd_rel_err_f64": {k: {f: x[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
+                                  for k, x in t.items() if "rel_err_f64" in x},
+              "bitwise_repeat": all(row[k + "_bitwise_repeat"] for row in r for k in t)}
+             for tag, r, e, t in (("", h128_rows, h128_errs, h128_t),
+                                  ("_bf16", h128b_rows, h128b_errs, h128b_t))}})
 
     # phase 3: the sim path
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])
@@ -1190,6 +1298,42 @@ def main() -> int:
     emit({"phase": "baselines", "sample_s": sample_s,
           "phase_s": time.perf_counter() - t_phase, **baselines})
 
+    # qwen3_0_6b at full width through the launcher's trainer, float32 then
+    # bf16: B1-B3 at head dim 128 in the entry point the policy picks
+    qcfg = get_config("qwen3_0_6b")
+    qL, qM = qcfg.num_layers, int(CATALOG_ARGS[CATALOG_ARGS.index("--microbatches") + 1])
+    qK = int(CATALOG_ARGS[CATALOG_ARGS.index("--stages") + 1])
+    qgroups, qleaves = path_groups(qcfg, qK)
+    batch_list = None  # the baselines' batches
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    batch_list = list(islice(data_batches(qcfg, 8, 256, seed=0, device="cuda"), CATALOG_STEPS))
+    catalog = {"sample_s": time.perf_counter() - t_phase}
+    catalog["data_s_per_batch"] = catalog["sample_s"] / CATALOG_STEPS
+    n = CATALOG_STEPS
+    for precision, sfx in (("f32", ""), ("bf16", "_bf16")):
+        torch.cuda.empty_cache()
+        args = CATALOG_ARGS + ["--steps", str(n), "--precision", precision]
+        want = {**none, "flash_fwd" + sfx: n * 2 * qM * qL, "flash_bwd_dq" + sfx: n * qM * qL,
+                "flash_bwd_dkv" + sfx: n * qM * qL,
+                "matmul": n * sum(1 for g in qgroups if g),
+                "adam_scale": n * -(-len(qleaves) // kadam.MAX_LEAVES)}
+        run = run_baseline(train, torch, kernels, args, batch_list, want)
+        run["refresh_step_s"] = run["step_s"][0]
+        catalog[precision] = run
+    torch.cuda.empty_cache()
+    catalog["bf16"]["dtype_check"] = check_bf16_dtypes(
+        train, CATALOG_ARGS + ["--steps", "1", "--precision", "bf16"], batch_list[0])
+    catalog["first_loss_f32_minus_bf16"] = catalog["f32"]["losses"][0] - \
+        catalog["bf16"]["losses"][0]
+    catalog["phase_s"] = time.perf_counter() - t_phase
+    del batch_list
+    emit({"phase": "catalog_1f1b", **catalog})
+
+    torch.cuda.empty_cache()
+    serving = check_serve_decode(torch, qcfg)
+    emit({"phase": "serve_decode", "arch": qcfg.name, **SERVE, **serving})
+
     # phase 5: the reduced model on the card against the CPU, same seed.
     # Adam has no QR: the devices differ only in float32 summation order
     # (measured ~1e-6 apart). Basis rotation: the refresh's QR of
@@ -1222,6 +1366,29 @@ def main() -> int:
                 raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
             emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
                   "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
+    # the dense public architectures at smoke size: qwen3_0_6b on 1F1B at head
+    # dim 128 (the B1-B3 instantiation of its full config), qwen1_5_0_5b on the
+    # sim path (qkv_bias), and phi4_mini_3_8b_swa on 1F1B with a window of 16
+    # of the 32-token sequences
+    for arch, backend, change in (
+            ("qwen3_0_6b", ["--backend", "spmd", "--schedule", "1f1b"], {"head_dim": 128}),
+            ("qwen1_5_0_5b", ["--backend", "sim"], {}),
+            ("phi4_mini_3_8b_swa", ["--backend", "spmd", "--schedule", "1f1b"],
+             {"window": 16})):
+        for opt, first2_tol, all_tol in ((["--optimizer", "adam"], 1e-4, 1e-4),
+                                         (["--use-kernels"], 2e-3, 5e-2)):
+            args = SMOKE_ARGS + ["--arch", arch] + backend + opt
+            with smoke_attention(arch, **change):
+                gpu = train.main(args)["losses"]
+                cpu = train.main(args + ["--device", "cpu"])["losses"]
+            diffs = [abs(a - b) for a, b in zip(gpu, cpu)]
+            if not (len(diffs) == len(cpu) and max(diffs[:2]) < first2_tol
+                    and max(diffs) < all_tol):
+                raise AssertionError(f"{args} {change}: cuda vs cpu losses differ: "
+                                     f"{gpu} vs {cpu}")
+            emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "attention": change,
+                  "cuda": gpu, "cpu": cpu, "max_diff_first2": max(diffs[:2]),
+                  "max_diff": max(diffs)})
     # bf16: the card's cuBLAS and the CPU's products round to bf16 at other
     # places, as two implementations of a bf16 step do (the CPU tests hold the
     # port to the reference at 1e-2 on the first loss, 3e-2 on all)
@@ -1312,6 +1479,30 @@ def main() -> int:
             "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": per * t["library_ms"], "blocks_per_launch": t["blocks"],
         })
+    # B1-B3 at head dim 128: per step of qwen3_0_6b's 1F1B path, float32 and
+    # bf16 (launches of the catalog_1f1b runs)
+    for precision, sfx, t_of, e_of in (("f32", "", h128_t, h128_errs),
+                                       ("bf16", "_bf16", h128b_t, h128b_errs)):
+        for kname, src, replaces in (
+            ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+             "src/repro/kernels/flash.py:80"),
+            ("flash_bwd_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+             "src/repro/kernels/flash.py:162"),
+            ("flash_bwd_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+             "src/repro/kernels/flash.py:196"),
+        ):
+            launches = catalog[precision]["launches"][kname + sfx]
+            per = launches / CATALOG_STEPS
+            t = t_of[kname]
+            rows.append({
+                "name": kname + sfx + "_dh128", "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches, "max_abs_err": e_of[kname],
+                "ms": per * t["ms"], "plain_ms": per * t["plain_ms"],
+                "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": per * t["library_ms"], "blocks_per_launch": t["blocks"],
+            })
+            if precision == "f32":
+                bound_fp32[kname + "_dh128"] = per * t["bound_fp32_ms"]
     (OUT_DIR / "chip_smoke_summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": rows, "note": "ms, plain_ms, bound_ms and library_ms "
          "are per training step: B4 and B5 of the sim path, B1-B3 of the SPMD 1F1B path; "
@@ -1325,7 +1516,10 @@ def main() -> int:
          "B1-B3's bfloat16 entry points per step of the SPMD 1F1B path under --precision "
          "bf16 (launches: its 6-step run); their bound_ms counts the bf16 x bf16 products "
          "at the bf16 rate, the float32-by-bf16 products as two TF32 passes, and bf16 "
-         "heads with float32 L and D; library_ms is SDPA in bf16",
+         "heads with float32 L and D; library_ms is SDPA in bf16. The _dh128 rows are "
+         "B1-B3 at head dim 128 per step of qwen3_0_6b's SPMD 1F1B path (catalog_1f1b: "
+         "4 stages, 8 microbatches; launches: its 4-step runs in float32 and bf16), timed "
+         "at its path shape (16, 256, 128)",
          "bound_fp32_ms": bound_fp32,
          "spmd_fill_drain_launches": spmd["fill_drain"]["launches"],
          "spmd_bf16_launches": spmd_bf16["launches"],

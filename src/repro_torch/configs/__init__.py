@@ -6,7 +6,7 @@ from repro_torch.configs.base import (
     OptimizerConfig,
     PrecisionPolicy,
 )
-from repro_torch.configs.catalog import PAPER_IDS, get_config, reduce_for_smoke
+from repro_torch.configs.catalog import ARCH_IDS, PAPER_IDS, get_config, reduce_for_smoke
 
 __all__ = [
     "PRECISION_POLICIES",
@@ -15,6 +15,7 @@ __all__ = [
     "ModelConfig",
     "OptimizerConfig",
     "PrecisionPolicy",
+    "ARCH_IDS",
     "PAPER_IDS",
     "get_config",
     "reduce_for_smoke",

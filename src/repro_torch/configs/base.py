@@ -1,9 +1,10 @@
 """Configuration dataclasses for the model and the optimizer.
 
 Port of ``repro/configs/base.py``, cut to what the dense attention models
-(the paper's nanoGPT family) use. Defaults are the reference's; dtype
-properties return torch dtypes. Both of the reference's precision policies
-exist: ``f32`` and ``bf16`` (``bf16_compute``, the SPMD backend's).
+(the paper's nanoGPT family and the dense public architectures) use.
+Defaults are the reference's; dtype properties return torch dtypes. Both
+of the reference's precision policies exist: ``f32`` and ``bf16``
+(``bf16_compute``, the SPMD backend's).
 """
 from __future__ import annotations
 

@@ -1,31 +1,59 @@
-"""Catalog of the paper's models (port of ``repro/configs/catalog.py``).
+"""Catalog of the ported architectures (port of ``repro/configs/catalog.py``).
 
-Only the paper's dense nanoGPT models are ported so far; the assigned
-public-literature architectures follow with their model families.
+Each module exports ``CONFIG`` (the published configuration) and
+``SMOKE_CONFIG`` (the same family reduced by ``reduce_for_smoke``);
+``phi4_mini_3_8b`` also exports ``SWA_CONFIG``, the sliding-window variant
+that ``get_config`` returns for an id ending in ``_swa``. The dense public
+architectures and the paper's models are ported; every other id of the
+reference's catalog raises ``NotImplementedError`` naming what it needs.
 """
 from __future__ import annotations
 
 import importlib
+from typing import Dict, List
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 
+ARCH_IDS: List[str] = ["stablelm_1_6b", "qwen3_0_6b", "qwen1_5_0_5b", "phi4_mini_3_8b"]
+
 PAPER_IDS = ["paper_95m", "paper_1b", "paper_3b"]
 
-_ALIAS = {i.replace("_", "-"): i for i in PAPER_IDS}
+# the reference's other catalog ids, with what their port needs first
+UNPORTED: Dict[str, str] = {
+    "llava_next_34b": "the vision frontend (frontend_proj and prefix embeddings)",
+    "mixtral_8x22b": "MoE blocks (models/moe.py)",
+    "jamba_v0_1_52b": "Mamba SSM and MoE blocks (models/mamba.py, models/moe.py)",
+    "deepseek_v2_236b": "MLA attention and MoE blocks (models/attention.py::mla_*, "
+                        "models/moe.py)",
+    "xlstm_1_3b": "mLSTM/sLSTM blocks (models/xlstm.py)",
+    "musicgen_large": "the audio frontend and multi-codebook embedding and head",
+}
+
+_ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS + PAPER_IDS + list(UNPORTED)}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     mod_name = _ALIAS.get(name, name).replace("-", "_")
-    if mod_name not in PAPER_IDS:
+    variant = None
+    if mod_name.endswith("_swa"):  # the sliding-window variants
+        mod_name, variant = mod_name[: -len("_swa")], "SWA_CONFIG"
+    if mod_name in UNPORTED:
         raise NotImplementedError(
-            f"architecture {name!r} is not yet ported (have {PAPER_IDS})"
+            f"architecture {name!r} is not yet ported: it needs {UNPORTED[mod_name]}"
         )
+    if mod_name not in ARCH_IDS + PAPER_IDS:
+        raise ValueError(f"unknown architecture {name!r} (have {ARCH_IDS + PAPER_IDS})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
-    return mod.SMOKE_CONFIG if smoke else mod.CONFIG
+    if smoke:
+        return mod.SMOKE_CONFIG
+    if variant is not None and not hasattr(mod, variant):
+        raise ValueError(f"architecture {mod_name!r} has no sliding-window variant")
+    return getattr(mod, variant) if variant else mod.CONFIG
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Shrink a dense attention config to CPU-steppable size."""
+    """Shrink a dense attention config to CPU-steppable size, keeping its
+    family traits (qk_norm, qkv_bias, window, norm, activation)."""
     d_model = min(cfg.d_model, 256)
     att = cfg.attention
     n_heads = 4

@@ -58,6 +58,12 @@
 //   to bf16 once, in the merge. At the training shape B2 then moves 1.00 MB
 //   (0.30 us) against 0.15 us of products, B3 1.19 MB (0.36 us) against
 //   0.26 us: bytes still bound both.
+// - Head width 128 (flash_common.cuh): float32 blocks have 4 warps; the bf16
+//   fixed operands are stored in shared memory (FixedShared16) and read at
+//   each use; each B3 block owns NC = 64 of dh's columns of dK and dV, so
+//   B3 launches two blocks per key tile, each recomputing the step's scores
+//   over all of dh. The products, their splits and their order are those of
+//   the narrower widths.
 
 #include <type_traits>
 
@@ -72,22 +78,34 @@ using namespace rbr_tf32;
 template <int DH, typename T>
 struct BwdGeom {
   static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int WARPS = block_warps<DH, T>();
+  static constexpr int THREADS = 32 * WARPS;
   static constexpr int NF = DH / 8;  // k8 steps over dh, n8 fragments of dh
+  // bf16 fixed operands: in registers up to DH 64, in shared memory above
+  static constexpr bool FIXED_SHARED = !F32 && DH > 64;
+  // B3: blocks per key tile, each owning NC of dh's columns of dK and dV
+  static constexpr int CSPLIT = DH > 64 ? 2 : 1;
+  static constexpr int NC = DH / CSPLIT;
   // one streamed tile: STEP x DH floats, swizzled (swz); or STEP rows of LD16 bf16
   static constexpr int TILE_ELEMS = F32 ? STEP * DH : STEP * LD16<DH>;
   static constexpr int TILE_BYTES = (int)sizeof(T) * TILE_ELEMS;
-  // float32: the two fixed operands' split fragments; bf16 keeps them in registers
-  static constexpr int FIXED_BYTES = F32 ? (int)sizeof(float) * 2 * NF * 2 * 32 * 4 : 0;
-  static constexpr int LDM = DH + 8;  // merge rows: conflict-free float2 stores
+  // float32: the two fixed operands' split fragments; bf16: their rows of
+  // LD16 (FixedShared16), or nothing when they are held in registers
+  static constexpr int FIXED_BYTES =
+      F32 ? (int)sizeof(float) * 2 * NF * 2 * 32 * 4
+          : (FIXED_SHARED ? (int)sizeof(T) * 2 * ROWS * LD16<DH> : 0);
+  // merge rows (B2: DH columns, B3: NC): conflict-free float2 stores
+  static constexpr int LDM = DH + 8;
+  static constexpr int LDM_KV = NC + 8;
   static constexpr int P_BYTES = (int)sizeof(float) * ROWS * LDP;  // a P or dS tile
   // B2, per warp: two buffers of K and of V, and the dS tile
   static constexpr int DQ_WARP_BYTES = 4 * TILE_BYTES + P_BYTES;
   // B3, per warp: two buffers of Q, of dO and of the step's L and D; the P and dS tiles
   static constexpr int DKV_WARP_BYTES =
       4 * TILE_BYTES + (int)sizeof(float) * 4 * STEP + 2 * P_BYTES;
-  static_assert(TILE_BYTES % 16 == 0, "16-byte aligned tiles");
+  static_assert(TILE_BYTES % 16 == 0 && FIXED_BYTES % 16 == 0, "16-byte aligned tiles");
   static_assert((int)sizeof(float) * ROWS * LDM <= DQ_WARP_BYTES &&
-                    (int)sizeof(float) * 2 * ROWS * LDM <= DKV_WARP_BYTES,
+                    (int)sizeof(float) * 2 * ROWS * LDM_KV <= DKV_WARP_BYTES,
                 "the merge fits the warp buffers");
   static constexpr size_t DQ_BYTES = FIXED_BYTES + WARPS * DQ_WARP_BYTES;
   static constexpr size_t DKV_BYTES = FIXED_BYTES + WARPS * DKV_WARP_BYTES;
@@ -137,9 +155,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 // B2's Q and dO, B3's K and V. Float32: split A fragments in shared memory,
 // in fragment order: fragment f (operand f / NF, k8 step f % NF) keeps each
 // lane's four big values at F[2 f * 32 + lane] and its four small ones at
-// F[(2 f + 1) * 32 + lane]; warp w splits fragments w, w + WARPS, ...
-// straight from device memory. bf16: each lane's m16n8k16 A fragments of
-// both operands in registers, read straight from device memory.
+// F[(2 f + 1) * 32 + lane]; warp w of W splits fragments w, w + W, ...
+// straight from device memory. bf16 up to DH 64: each lane's m16n8k16 A
+// fragments of both operands in registers, read straight from device
+// memory. bf16 above: both operands' rows in shared memory (rows of LD16,
+// x0's then x1's), from which a lane reads its fragments at each use.
 struct Fixed32 {
   uint4* F;
 };
@@ -147,15 +167,18 @@ template <int DH>
 struct Fixed16 {
   uint32_t a[2][DH / 16][4];
 };
+struct FixedShared16 {
+  const __nv_bfloat16* X;
+};
 
 template <int DH>
 __device__ __forceinline__ void load_fixed(Fixed32& fx, float* smem, const float* __restrict__ x0,
                                            const float* __restrict__ x1, int r0, int S,
-                                           int warp, int lane) {
+                                           int warp, int nwarps, int lane) {
   constexpr int NF = DH / 8;
   const int g = lane / 4, t = lane % 4;
   fx.F = reinterpret_cast<uint4*>(smem);
-  for (int f = warp; f < 2 * NF; f += WARPS) {
+  for (int f = warp; f < 2 * NF; f += nwarps) {
     const float* x = f < NF ? x0 : x1;
     const int c = 8 * (f % NF) + t;
     auto at = [&](int r, int cc) {
@@ -171,7 +194,7 @@ template <int DH>
 __device__ __forceinline__ void load_fixed(Fixed16<DH>& fx, float*,
                                            const __nv_bfloat16* __restrict__ x0,
                                            const __nv_bfloat16* __restrict__ x1, int r0, int S,
-                                           int, int lane) {
+                                           int, int, int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int op = 0; op < 2; ++op) {
@@ -183,6 +206,34 @@ __device__ __forceinline__ void load_fixed(Fixed16<DH>& fx, float*,
         const int r = g + 8 * (e & 1), c = 16 * kk + 2 * t + 8 * (e >> 1);
         fx.a[op][kk][e] = r0 + r < S ? bf16x2_at(x + (long long)(r0 + r) * DH + c) : 0u;
       }
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void load_fixed(FixedShared16& fx, float* smem,
+                                           const __nv_bfloat16* __restrict__ x0,
+                                           const __nv_bfloat16* __restrict__ x1, int r0, int S,
+                                           int, int nwarps, int) {
+  constexpr int CPR = DH / 8;  // 16-byte chunks a row
+  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
+  for (int idx = threadIdx.x; idx < 2 * ROWS * CPR; idx += 32 * nwarps) {
+    const int op = idx / (ROWS * CPR), r = idx / CPR % ROWS, c = idx % CPR * 8;
+    const __nv_bfloat16* x = op ? x1 : x0;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(x + (long long)(r0 + r) * DH + c);
+    *reinterpret_cast<uint4*>(X + (op * ROWS + r) * LD16<DH> + c) = val;
+  }
+  fx.X = X;
+}
+
+// A lane's m16n8k16 A fragment of k16 step kk of fixed operand op (0: x0, 1: x1).
+template <int DH>
+__device__ __forceinline__ void fixed16_frag(uint32_t (&a)[4], const FixedShared16& fx, int op,
+                                             int kk, int g, int t) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {  // rows g, g + 8; columns 2t, 2t + 8
+    const int r = g + 8 * (e & 1), c = 16 * kk + 2 * t + 8 * (e >> 1);
+    a[e] = bf16x2_at(fx.X + (op * ROWS + r) * LD16<DH> + c);
   }
 }
 
@@ -233,6 +284,26 @@ __device__ __forceinline__ void score_pair(float (&a)[STEP / 8][4], float (&b)[S
     }
 }
 
+template <int DH, int UNROLL>
+__device__ __forceinline__ void score_pair(float (&a)[STEP / 8][4], float (&b)[STEP / 8][4],
+                                           const FixedShared16& fx, const __nv_bfloat16* Xa,
+                                           const __nv_bfloat16* Xb, int g, int t, int) {
+#pragma unroll (UNROLL)
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t fa[4], fb[4];
+    fixed16_frag<DH>(fa, fx, 0, kk, g, t);
+    fixed16_frag<DH>(fb, fx, 1, kk, g, t);
+#pragma unroll
+    for (int j = 0; j < STEP / 8; ++j) {
+      const int off = (8 * j + g) * LD16<DH> + 16 * kk + 2 * t;
+      const uint32_t ba[2] = {bf16x2_at(Xa + off), bf16x2_at(Xa + off + 8)};
+      const uint32_t bb[2] = {bf16x2_at(Xb + off), bf16x2_at(Xb + off + 8)};
+      mma_bf16_rn(a[j], fa, ba);
+      mma_bf16_rn(b[j], fb, bb);
+    }
+  }
+}
+
 // c += a X for the products over the step (contracting X's rows): k8 step
 // kk of the rows, n8 fragment j of dh. a is a split float32 P or dS fragment.
 template <int DH>
@@ -257,13 +328,13 @@ __device__ __forceinline__ FragA frag_p(const float* P, int kk, int g, int t) {
   return split_a(p0[0], p1[0], p0[4], p1[4]);
 }
 
-// Write this warp's ROWS x DH sums (C fragments) as rows of M, stride LDM.
-template <int DH>
-__device__ __forceinline__ void stage_sums(float* M, const float (&acc)[DH / 8][4], int g,
+// Write this warp's ROWS x NC sums (C fragments) as rows of M, stride NC + 8.
+template <int NC>
+__device__ __forceinline__ void stage_sums(float* M, const float (&acc)[NC / 8][4], int g,
                                            int t) {
-  constexpr int LDM = DH + 8;
+  constexpr int LDM = NC + 8;
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < NC / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<float2*>(M + (g + 8 * h) * LDM + 8 * j + 2 * t) =
@@ -280,14 +351,15 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
                                             *reinterpret_cast<const uint32_t*>(&hi));
 }
 
-// out row r0 + r = mul * (sum over the warps' staged rows, in warp order),
-// for the rows below S. M holds WARPS blocks of ROWS rows, stride LDM.
-template <int DH, typename T>
+// Columns [0, NC) of out row r0 + r (row stride DH) = mul * (sum over the
+// warps' staged rows, in warp order), for the rows below S. M holds WARPS
+// blocks of ROWS rows, stride NC + 8.
+template <int NC, int DH, int WARPS, typename T>
 __device__ __forceinline__ void merge_rows(T* __restrict__ out, const float* M, int r0, int S,
                                            float mul) {
-  constexpr int LDM = DH + 8;
-  for (int idx = threadIdx.x; idx < ROWS * DH / 4; idx += BLOCK_THREADS) {
-    const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
+  constexpr int LDM = NC + 8;
+  for (int idx = threadIdx.x; idx < ROWS * NC / 4; idx += 32 * WARPS) {
+    const int r = idx / (NC / 4), c = (idx % (NC / 4)) * 4;
     if (r0 + r >= S) continue;
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -304,14 +376,18 @@ __device__ __forceinline__ void merge_rows(T* __restrict__ out, const float* M, 
 }
 
 template <int DH, typename T>
-__global__ void __launch_bounds__(BLOCK_THREADS)
+__global__ void __launch_bounds__(BwdGeom<DH, T>::THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dO, const float* __restrict__ L,
                     const float* __restrict__ D, T* __restrict__ dq, int BH, int S, int causal,
                     int window, float scale) {
   using G = BwdGeom<DH, T>;
-  using Fixed = std::conditional_t<G::F32, Fixed32, Fixed16<DH>>;
-  constexpr int NF = G::NF;
+  using Fixed = std::conditional_t<G::F32, Fixed32,
+                                   std::conditional_t<G::FIXED_SHARED, FixedShared16, Fixed16<DH>>>;
+  constexpr int NF = G::NF, WARPS = G::WARPS;
+  // the dh loop of the scores: unrolled whole up to DH 64; by 2 above, where the
+  // fixed fragments of every k8 step live at once would spill
+  constexpr int UNROLL = DH > 64 ? 2 : NF;
   extern __shared__ __align__(16) float smem[];
 
   const int ntiles = (S + ROWS - 1) / ROWS;
@@ -343,7 +419,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (lo + warp < hi) load_kv(0, lo + warp);
   cp_async_commit();
   Fixed fx;  // Q's fragments, then dO's
-  load_fixed<DH>(fx, smem, q, dO, q0, S, warp, lane);
+  load_fixed<DH>(fx, smem, q, dO, q0, S, warp, WARPS, lane);
   float Lr[2], Dr[2];  // rows g and g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -374,7 +450,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    score_pair<DH, NF>(s, dp, fx, Kc, Vc, g, t, lane);
+    score_pair<DH, UNROLL>(s, dp, fx, Kc, Vc, g, t, lane);
 #pragma unroll
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
@@ -400,22 +476,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* M = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + G::FIXED_BYTES);
   stage_sums<DH>(M + warp * ROWS * G::LDM, acc, g, t);
   __syncthreads();
-  merge_rows<DH>(dq, M, q0, S, scale);
+  merge_rows<DH, DH, WARPS>(dq, M, q0, S, scale);
 }
 
 template <int DH, typename T>
-__global__ void __launch_bounds__(BLOCK_THREADS)
+__global__ void __launch_bounds__(BwdGeom<DH, T>::THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dO, const float* __restrict__ L,
                      const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int BH,
                      int S, int causal, int window, float scale) {
   using G = BwdGeom<DH, T>;
-  using Fixed = std::conditional_t<G::F32, Fixed32, Fixed16<DH>>;
-  constexpr int NF = G::NF;
+  using Fixed = std::conditional_t<G::F32, Fixed32,
+                                   std::conditional_t<G::FIXED_SHARED, FixedShared16, Fixed16<DH>>>;
+  constexpr int NC = G::NC, WARPS = G::WARPS;
   extern __shared__ __align__(16) float smem[];
 
   const int bh = blockIdx.x % BH;
-  const int k0 = (int)(blockIdx.x / BH) * ROWS;  // early key tiles first
+  const int part = (int)(blockIdx.x / BH);
+  const int k0 = part / G::CSPLIT * ROWS;  // early key tiles first
+  const int j0 = part % G::CSPLIT * (NC / 8);  // the first n8 fragment of this block's columns
   const long long head = (long long)bh * S * DH;
   q += head;
   k += head;
@@ -449,12 +528,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   if (lo + warp < hi) load_step(0, lo + warp);
   cp_async_commit();
   Fixed fx;  // K's fragments, then V's
-  load_fixed<DH>(fx, smem, k, v, k0, S, warp, lane);
+  load_fixed<DH>(fx, smem, k, v, k0, S, warp, WARPS, lane);
   __syncthreads();  // every warp's fragments are in place
 
-  float dk_acc[NF][4], dv_acc[NF][4];
+  float dk_acc[NC / 8][4], dv_acc[NC / 8][4];  // this block's columns
 #pragma unroll
-  for (int j = 0; j < NF; ++j)
+  for (int j = 0; j < NC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
@@ -495,9 +574,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int kk = 0; kk < STEP / 8; ++kk) {
       const FragA pa = frag_p(Ps, kk, g, t), sa = frag_p(dSs, kk, g, t);
 #pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        prod_rn<DH>(dv_acc[j], pa, dOc, kk, j, g, t);
-        prod_rn<DH>(dk_acc[j], sa, Qc, kk, j, g, t);
+      for (int j = 0; j < NC / 8; ++j) {
+        prod_rn<DH>(dv_acc[j], pa, dOc, kk, j0 + j, g, t);
+        prod_rn<DH>(dk_acc[j], sa, Qc, kk, j0 + j, g, t);
       }
     }
     __syncwarp();  // P, dS and this buffer are read before they are written again
@@ -506,19 +585,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with its buffers: reuse them for the merge
   float* Mk = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + G::FIXED_BYTES);
-  float* Mv = Mk + WARPS * ROWS * G::LDM;
-  stage_sums<DH>(Mk + warp * ROWS * G::LDM, dk_acc, g, t);
-  stage_sums<DH>(Mv + warp * ROWS * G::LDM, dv_acc, g, t);
+  float* Mv = Mk + WARPS * ROWS * G::LDM_KV;
+  stage_sums<NC>(Mk + warp * ROWS * G::LDM_KV, dk_acc, g, t);
+  stage_sums<NC>(Mv + warp * ROWS * G::LDM_KV, dv_acc, g, t);
   __syncthreads();
-  merge_rows<DH>(dk, Mk, k0, S, scale);
-  merge_rows<DH>(dv, Mv, k0, S, 1.f);
+  merge_rows<NC, DH, WARPS>(dk + 8 * j0, Mk, k0, S, scale);
+  merge_rows<NC, DH, WARPS>(dv + 8 * j0, Mv, k0, S, 1.f);
 }
 
 template <int DH, typename T>
 int launch_dq(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
               T* dq, int BH, int S, int causal, int window, float scale, cudaStream_t stream) {
+  using G = BwdGeom<DH, T>;
   return launch(SLOT_DQ, flash_bwd_dq_kernel<DH, T>, (long long)BH * ((S + ROWS - 1) / ROWS),
-                BwdGeom<DH, T>::DQ_BYTES, stream, q, k, v, dO, L, D, dq, BH, S, causal, window,
+                G::THREADS, G::DQ_BYTES, stream, q, k, v, dO, L, D, dq, BH, S, causal, window,
                 scale);
 }
 
@@ -526,9 +606,10 @@ template <int DH, typename T>
 int launch_dkv(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
                T* dk, T* dv, int BH, int S, int causal, int window, float scale,
                cudaStream_t stream) {
-  return launch(SLOT_DKV, flash_bwd_dkv_kernel<DH, T>, (long long)BH * ((S + ROWS - 1) / ROWS),
-                BwdGeom<DH, T>::DKV_BYTES, stream, q, k, v, dO, L, D, dk, dv, BH, S, causal,
-                window, scale);
+  using G = BwdGeom<DH, T>;
+  return launch(SLOT_DKV, flash_bwd_dkv_kernel<DH, T>,
+                (long long)BH * ((S + ROWS - 1) / ROWS) * G::CSPLIT, G::THREADS, G::DKV_BYTES,
+                stream, q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale);
 }
 
 template <typename T>
@@ -541,6 +622,8 @@ int dq_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, co
     case 16: return launch_dq<16>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
     case 32: return launch_dq<32>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
     case 64: return launch_dq<64>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
+    case 128:
+      return launch_dq<128>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -558,6 +641,8 @@ int dkv_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, c
       return launch_dkv<32>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
     case 64:
       return launch_dkv<64>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
+    case 128:
+      return launch_dkv<128>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

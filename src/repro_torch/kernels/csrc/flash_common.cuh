@@ -4,17 +4,30 @@
 //
 // Every kernel works on one head of q, k, v laid out (S, DH) row-major. A
 // block owns ROWS rows (one m16 fragment of mma.sync: query rows in B1 and
-// B2, keys in B3) and splits the range it has to walk over its WARPS warps in
-// steps of STEP rows (keys in B1 and B2, queries in B3): warp w takes steps
-// w, w + WARPS, ... All products run on the tensor cores in 3xTF32
+// B2, keys in B3) and splits the range it has to walk over its warps in
+// steps of STEP rows (keys in B1 and B2, queries in B3): warp w of W takes
+// steps w, w + W, ... All products run on the tensor cores in 3xTF32
 // (tf32_mma.cuh), which keeps float32 accuracy.
 //
-// Each kernel is a template on its input type T, float or __nv_bfloat16,
-// with one block geometry for both. q, k, v and dO are T, L and D float32;
-// every product and sum is float32 and O, dQ, dK and dV are written as T.
-// With bf16 inputs, products of two inputs run on mma.sync.m16n8k16 bf16
-// (exact products) and products of a float32 P or dS by an input in 2xTF32
-// (tf32_mma.cuh); the streamed tiles are stored as T, half the bytes.
+// Each kernel is a template on its head width DH (16, 32, 64 or 128) and its
+// input type T, float or __nv_bfloat16. q, k, v and dO are T, L and D
+// float32; every product and sum is float32 and O, dQ, dK and dV are written
+// as T. With bf16 inputs, products of two inputs run on mma.sync.m16n8k16
+// bf16 (exact products) and products of a float32 P or dS by an input in
+// 2xTF32 (tf32_mma.cuh); the streamed tiles are stored as T, half the bytes.
+//
+// Head width 128 keeps the arithmetic of the narrower widths (the same
+// products, split the same way and summed in the same order) and changes
+// where operands live, so that a block fits the card's 227 KB of shared
+// memory and 255 registers a thread without spilling:
+// - float32 blocks have 4 warps instead of 8 (block_warps): eight warps'
+//   private double buffers of 16 x 128 float32 tiles would take 286-310 KB;
+// - operands that a block holds for its whole range (B1's Q in float32, the
+//   bf16 B2's and B3's fixed operands) are read from shared memory at each
+//   use instead of being held in registers (128 registers for B1's split Q);
+// - each B3 block owns half of dh's columns of its keys' dK and dV (the
+//   scores still contract all of dh), so its two accumulators stay at 64
+//   registers, as at head width 64, and B3 launches twice the blocks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,11 +44,15 @@ enum LaunchSlot { SLOT_FWD = 0, SLOT_DQ = 1, SLOT_DKV = 2 };  // rbr_flash_block
 
 constexpr int ROWS = 16;                   // rows a block owns
 constexpr int STEP = 16;                   // rows of one warp step
-constexpr int WARPS = 8;
-constexpr int BLOCK_THREADS = 32 * WARPS;
 constexpr int LDP = STEP + 4;              // row stride of a warp's P or dS tile: 20 = 4 * odd
 constexpr float NEG_INF = -1e30f;          // the reference's sentinel for masked scores
 constexpr float EPS = 1e-30f;
+
+// Warps of a block: 8, or 4 for float32 heads wider than 64 (see the header).
+template <int DH, typename T>
+constexpr int block_warps() {
+  return DH > 64 && sizeof(T) == 4 ? 4 : 8;
+}
 
 // Elements of T in one 16-byte cp.async copy.
 template <typename T>
@@ -82,17 +99,17 @@ __device__ __forceinline__ void query_steps(int k0, int S, int causal, int windo
 }
 
 // Raise the kernel's dynamic shared-memory limit to `bytes`, launch `blocks`
-// blocks of BLOCK_THREADS on `stream`, and record the grid in
+// blocks of `threads` on `stream`, and record the grid in
 // rbr_flash_blocks[slot]. Returns a CUDA error code.
 template <typename Kernel, typename... Args>
-inline int launch(LaunchSlot slot, Kernel kernel, long long blocks, size_t bytes,
+inline int launch(LaunchSlot slot, Kernel kernel, long long blocks, int threads, size_t bytes,
                   cudaStream_t stream, Args... args) {
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)blocks);
-  kernel<<<grid, BLOCK_THREADS, bytes, stream>>>(args...);
+  kernel<<<grid, threads, bytes, stream>>>(args...);
   err = cudaGetLastError();
   if (err == cudaSuccess) rbr_flash_blocks[slot] = (int)(grid.x * grid.y * grid.z);
   return (int)err;

@@ -47,6 +47,10 @@
 //   0.79 MB a launch at the training shape (0.24 us at 3.35 TB/s); the
 //   products take 0.03 us at the bf16 rate (QK^T) plus 0.10 us in two TF32
 //   passes (PV), so the bytes still bound it.
+// - Head width 128 (flash_common.cuh): float32 blocks have 4 warps, and keep
+//   Q in shared memory, split at each use; bf16 blocks keep 8 warps and Q's
+//   fragments in registers. Either way the products, their split and their
+//   order are those of the narrower widths.
 
 #include <type_traits>
 
@@ -61,9 +65,14 @@ using namespace rbr_tf32;
 template <int DH, typename T>
 struct FwdGeom {
   static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int WARPS = block_warps<DH, T>();
+  static constexpr int THREADS = 32 * WARPS;
+  // float32 Q split once into registers takes DH registers: above 64 columns
+  // it is read from shared memory and split at each use (QShared32)
+  static constexpr bool Q_SHARED = F32 && DH > 64;
   // Q and K rows: 4 * odd floats, or LD16; conflict-free fragment reads
   static constexpr int LDK = F32 ? DH + 4 : LD16<DH>;
-  // V rows: 8 (mod 32) floats for DH 32 and 64, 24 for 16; or LD16
+  // V rows: 8 (mod 32) floats for DH 32, 64 and 128, 24 for 16; or LD16
   static constexpr int LDV = F32 ? DH + 8 : LD16<DH>;
   static constexpr int K_ELEMS = STEP * LDK;
   static constexpr int V_ELEMS = STEP * LDV;
@@ -79,7 +88,10 @@ struct FwdGeom {
 };
 
 // Q's A fragments, held in registers for the whole block: split once into
-// TF32 halves (float32 inputs), or read as bf16 pairs.
+// TF32 halves (float32 inputs), or read as bf16 pairs. Float32 heads wider
+// than 64 keep Q in shared memory instead and split each fragment at use
+// (QShared32): the same split values, 4 loads and 8 conversions more per k8
+// step.
 template <int DH>
 struct QFrag32 {
   FragA f[DH / 8];
@@ -87,6 +99,9 @@ struct QFrag32 {
 template <int DH>
 struct QFrag16 {
   uint32_t f[DH / 16][4];
+};
+struct QShared32 {
+  const float* Qs;
 };
 
 template <int DH>
@@ -98,6 +113,11 @@ __device__ __forceinline__ void load_q(QFrag32<DH>& qf, const float* Qs, int g, 
     const float* r1 = r0 + 8 * LDK;
     qf.f[kk] = split_a(r0[0], r1[0], r0[4], r1[4]);
   }
+}
+
+template <int DH>
+__device__ __forceinline__ void load_q(QShared32& qf, const float* Qs, int, int) {
+  qf.Qs = Qs;
 }
 
 template <int DH>
@@ -123,6 +143,19 @@ __device__ __forceinline__ void scores(float (&s)[4], const QFrag32<DH>& qf, con
   for (int kk = 0; kk < DH / 8; ++kk) {
     const float* kr = Kc + (8 * j + g) * LDK + 8 * kk + t;
     mma_3xtf32(s, qf.f[kk], split_b(kr[0], kr[4]));
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void scores(float (&s)[4], const QShared32& qf, const float* Kc,
+                                       int j, int g, int t) {
+  constexpr int LDK = FwdGeom<DH, float>::LDK;
+#pragma unroll 2
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const float* r0 = qf.Qs + g * LDK + 8 * kk + t;
+    const float* r1 = r0 + 8 * LDK;
+    const float* kr = Kc + (8 * j + g) * LDK + 8 * kk + t;
+    mma_3xtf32(s, split_a(r0[0], r1[0], r0[4], r1[4]), split_b(kr[0], kr[4]));
   }
 }
 
@@ -163,13 +196,15 @@ __device__ __forceinline__ void pv_step(float (&acc)[DH / 8][4], const FragA& pa
 }
 
 template <int DH, typename T>
-__global__ void __launch_bounds__(BLOCK_THREADS)
+__global__ void __launch_bounds__(FwdGeom<DH, T>::THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ L, int BH, int S, int seq_len,
                  int causal, int window, float scale) {
   using G = FwdGeom<DH, T>;
-  using QFrags = std::conditional_t<G::F32, QFrag32<DH>, QFrag16<DH>>;
+  using QFrags = std::conditional_t<G::Q_SHARED, QShared32,
+                                    std::conditional_t<G::F32, QFrag32<DH>, QFrag16<DH>>>;
   constexpr int NF = DH / 8;  // n8 fragments of an output row block
+  constexpr int WARPS = G::WARPS, THREADS = G::THREADS;
   constexpr int CH = CHUNK<T>;
   extern __shared__ __align__(16) float smem[];
 
@@ -192,7 +227,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   T* Vb = Kb + 2 * G::K_ELEMS;                          // two V buffers
   float* Ps = reinterpret_cast<float*>(Vb + 2 * G::V_ELEMS);
 
-  for (int idx = threadIdx.x; idx < ROWS * DH / CH; idx += BLOCK_THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * DH / CH; idx += THREADS) {
     const int r = idx / (DH / CH), c = (idx % (DH / CH)) * CH;
     const bool ok = q0 + r < S;
     cp_async16(Qs + r * G::LDK + c, ok ? q + (long long)(q0 + r) * DH + c : q, ok ? 16 : 0);
@@ -316,7 +351,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       As[(warp * ROWS + g + 8 * (e / 2)) * DH + 8 * j + 2 * t + e % 2] = acc[j][e];
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < ROWS * DH; idx += BLOCK_THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * DH; idx += THREADS) {
     const int r = idx / DH, c = idx % DH;
     if (q0 + r >= S) continue;
     float mx = NEG_INF;
@@ -338,8 +373,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <int DH, typename T>
 int launch_fwd(const T* q, const T* k, const T* v, T* o, float* L, int BH, int S, int seq_len,
                int causal, int window, float scale, cudaStream_t stream) {
+  using G = FwdGeom<DH, T>;
   return launch(SLOT_FWD, flash_fwd_kernel<DH, T>, (long long)BH * ((S + ROWS - 1) / ROWS),
-                FwdGeom<DH, T>::BYTES, stream, q, k, v, o, L, BH, S, seq_len, causal, window,
+                G::THREADS, G::BYTES, stream, q, k, v, o, L, BH, S, seq_len, causal, window,
                 scale);
 }
 
@@ -353,6 +389,8 @@ int fwd_entry(const T* q, const T* k, const T* v, T* o, float* L, int BH, int S,
     case 16: return launch_fwd<16>(q, k, v, o, L, BH, S, seq_len, causal, window, scale, stream);
     case 32: return launch_fwd<32>(q, k, v, o, L, BH, S, seq_len, causal, window, scale, stream);
     case 64: return launch_fwd<64>(q, k, v, o, L, BH, S, seq_len, causal, window, scale, stream);
+    case 128:
+      return launch_fwd<128>(q, k, v, o, L, BH, S, seq_len, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -41,7 +41,7 @@ Tensor = torch.Tensor
 
 NEG_INF = -1e30
 _EPS = 1e-30
-HEAD_DIMS = (16, 32, 64)  # the head widths the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the kernels' input dtypes
 
 
@@ -238,7 +238,9 @@ for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
 
 def launched_blocks() -> dict:
     """Blocks in the grid of each kernel's last launch in this process, as the
-    launch recorded them (0 before a kernel's first launch)."""
+    launch recorded them (0 before a kernel's first launch): one per 16 rows
+    of each head, and for B3 at head dim 128 two (each owns half of dh's
+    columns of dK and dV)."""
     grids = (ctypes.c_int * 3).in_dll(load_library().lib, "rbr_flash_blocks")
     return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), grids))
 

@@ -9,10 +9,13 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
         --schedule 1f1b --use-kernels --batch 8 --seq 256 --precision bf16
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \
+        --arch qwen3_0_6b --backend spmd --stages 4 --microbatches 8 \
+        --schedule 1f1b --use-kernels --batch 8 --seq 256
 
-Builds the trainer exactly as ``launch.train`` does (same flags, either
-backend, either SPMD schedule and, on the spmd backend, ``--precision
-bf16``), runs
+Builds the trainer exactly as ``launch.train`` does (same flags, any
+``--arch``, either backend, either SPMD schedule and, on the spmd backend,
+``--precision bf16``), runs
 ``--warmup`` steps (step 0 refreshes every basis), samples the batches of
 the next ``--profile-steps`` steps (timed apart), then traces those steps
 with ``torch.profiler``. Prints one JSON line: the data time per step, the

@@ -17,6 +17,13 @@ and on the spmd backend attention runs in the flash-attention kernels too.
         --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
         --schedule 1f1b --optimizer basis_rotation --use-kernels --batch 8 --seq 256
 
+``--arch`` takes the paper's models and the dense public architectures
+(``qwen3_0_6b``, ``qwen1_5_0_5b``, ``stablelm_1_6b``, ``phi4_mini_3_8b``,
+``phi4_mini_3_8b_swa``); a full config's depth must divide into
+``--stages``. ``--precision`` applies its policy over the config's own
+dtypes, so the default ``f32`` trains the catalog's bfloat16 configs in
+float32, as the reference's launcher does.
+
 On the sim backend ``--weight-prediction`` (PipeMare) and ``--no-stash``
 select the other staleness modes. ``--precision bf16`` (the
 ``bf16_compute`` policy: bfloat16 activations and products, float32

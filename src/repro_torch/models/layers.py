@@ -8,7 +8,7 @@ packages and the basis-rotation sides (U on rows, V on columns) agree.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +70,15 @@ def apply_norm(scale: Tensor, bias: Optional[Tensor], x: Tensor, eps: float = 1e
     return y.to(orig_dtype)
 
 
+def rms_norm_headwise(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """Per-head RMS norm over the trailing head_dim (qk_norm), in float32,
+    cast back to x's dtype."""
+    orig = x.dtype
+    xf = x.float()
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(orig)
+
+
 def rope_frequencies(head_dim: int, theta: float, device) -> Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)
@@ -96,11 +105,16 @@ class MLP(nn.Module):
             self.w_gate = param(dense_init((d_model, d_ff), generator), dtype, device)
         self.w_up = param(dense_init((d_model, d_ff), generator), dtype, device)
         self.w_down = param(dense_init((d_ff, d_model), generator), dtype, device)
-        self.act = act
 
     def forward(self, x: Tensor) -> Tensor:
-        if self.act == "swiglu":
-            h = F.silu(x @ self.w_gate) * (x @ self.w_up)
-        else:
-            h = F.gelu(x @ self.w_up, approximate="tanh")
-        return h @ self.w_down
+        return apply_mlp(dict(self.named_parameters()), x)
+
+
+def apply_mlp(w: Mapping[str, Tensor], x: Tensor) -> Tensor:
+    """The MLP on a ``{name: tensor}`` dict of its weights: SwiGLU when it
+    holds ``w_gate``, else GELU."""
+    if "w_gate" in w:
+        h = F.silu(x @ w["w_gate"]) * (x @ w["w_up"])
+    else:
+        h = F.gelu(x @ w["w_up"], approximate="tanh")
+    return h @ w["w_down"]

@@ -1,4 +1,4 @@
-"""Whole-model API: init, training forward and loss.
+"""Whole-model API: init, training forward and loss, and single-token decode.
 Port of ``repro/models/model.py`` for per-layer (``scan_layers=False``)
 dense attention models. ``embed`` and ``head_logits`` (the reference's
 ``_embed`` and ``_logits`` with the final norm) take the shared weights as a
@@ -8,9 +8,11 @@ their own copies of those weights.
 The module tree mirrors the reference's parameter tree, so that
 ``named_parameters`` names map onto its leaf paths (``blocks/3/mixer/w_q``,
 ``embed/embedding``, ``lm_head``, ``pos_emb``, ``final_norm/scale``).
-Parameters are float32 masters; under the ``bf16`` precision policy the
-SPMD schedules run on compute-dtype copies made by ``cast_params``, as the
-reference casts its masters at use.
+Parameters are float32 masters. Where the compute dtype differs from them
+(the catalog's bfloat16 configs, the ``bf16`` precision policy),
+``forward_train``, ``forward_decode`` and the SPMD schedules run on
+compute-dtype copies made by ``cast_params``, as the reference casts its
+masters at use.
 Weights are drawn from an explicit CPU ``torch.Generator`` and then moved to
 the device, so a seed gives the same weights on every device; they do not
 reproduce ``jax.random`` (the tests carry weights across with
@@ -18,16 +20,17 @@ reproduce ``jax.random`` (the tests carry weights across with
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layout import path_str, tree_order_key
 from repro_torch.models.layers import Norm, apply_norm, dense_init, embed_init, param
-from repro_torch.models.transformer import Block
+from repro_torch.models.transformer import Block, block_decode, init_block_cache
 
 Tensor = torch.Tensor
 
@@ -100,11 +103,13 @@ def shared_leaves(model: Transformer) -> Dict[str, Tensor]:
     return {k: p for k, p in param_leaves(model).items() if not k.startswith("blocks/")}
 
 
-def embed(shared: Mapping[str, Tensor], cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    """Token (and learnable position) embedding of (..., S) tokens."""
+def embed(shared: Mapping[str, Tensor], cfg: ModelConfig, tokens: Tensor,
+          start: int = 0) -> Tensor:
+    """Token (and learnable position) embedding of (..., S) tokens at
+    positions start .. start + S - 1."""
     x = shared["embed/embedding"][tokens].to(cfg.compute_dtype)
     if cfg.learnable_pos_emb:
-        x = x + shared["pos_emb"][: tokens.shape[-1]].to(x.dtype)
+        x = x + shared["pos_emb"][start: start + tokens.shape[-1]].to(x.dtype)
     return x
 
 
@@ -118,13 +123,50 @@ def head_logits(shared: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor) -> Te
 
 def forward_train(model: Transformer, tokens: Tensor) -> Tuple[Tensor, Tensor]:
     """Returns (logits, aux_loss). tokens: (B, S) int64."""
-    shared = shared_leaves(model)
-    x = embed(shared, model.cfg, tokens)
+    cfg = model.cfg
+    dtype = cfg.compute_dtype
+    shared = cast_params(shared_leaves(model), dtype)
+    x = embed(shared, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
-        x, a = block(x)
+        if dtype == cfg.params_dtype:
+            x, a = block(x)
+        else:  # the block on compute-dtype copies of its masters
+            x, a = functional_call(block, cast_params(dict(block.named_parameters()), dtype),
+                                   (x,))
         aux = aux + a
-    return head_logits(shared, model.cfg, x), aux
+    return head_logits(shared, cfg, x), aux
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device: torch.device | str = "cuda") -> Tuple[Dict[str, Tensor], ...]:
+    """One zeroed K/V cache per layer, in the compute dtype."""
+    return tuple(init_block_cache(cfg, cfg.pattern[l % len(cfg.pattern)], batch, seq_len,
+                                  cfg.compute_dtype, device)
+                 for l in range(cfg.num_layers))
+
+
+def forward_decode(model: Transformer, token: Tensor, cache: Tuple[Dict[str, Tensor], ...],
+                   pos: int) -> Tuple[Tensor, Tuple[Dict[str, Tensor], ...]]:
+    """token: (B, 1) int64 at position ``pos``. Returns (logits (B, 1, V),
+    cache), the caches written in place. Runs on compute-dtype copies of the
+    masters, as the reference casts them at use."""
+    cfg = model.cfg
+    params = cast_params(param_leaves(model), cfg.compute_dtype)
+    layers: List[Dict[str, Tensor]] = [{} for _ in range(cfg.num_layers)]
+    shared = {}
+    for path, w in params.items():
+        if path.startswith("blocks/"):
+            _, l, name = path.split("/", 2)
+            layers[int(l)][name] = w
+        else:
+            shared[path] = w
+    x = embed(shared, cfg, token, start=pos)
+    new_cache = []
+    for l, (w, c) in enumerate(zip(layers, cache)):
+        x, c = block_decode(w, x, c, pos, cfg, cfg.pattern[l % len(cfg.pattern)])
+        new_cache.append(c)
+    return head_logits(shared, cfg, x), tuple(new_cache)
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:

@@ -1,6 +1,7 @@
 """One decoder block: norm -> attention -> norm -> dense MLP.
-Port of ``repro/models/transformer.py::block_train`` for the attention mixer
-and the dense MLP; the recurrent mixers and MoE come with their families.
+Port of ``repro/models/transformer.py`` (``block_train``,
+``init_block_cache``, ``block_decode``) for the attention mixer and the
+dense MLP; the recurrent mixers and MoE come with their families.
 
 ``stage_apply`` runs a pipeline stage's blocks on weights sliced from
 stage-stacked ``(K, per, ...)`` tensors (the reference's ``_stage_apply_fn``
@@ -10,25 +11,22 @@ template block is called with each layer's weights by
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, Norm
+from repro_torch.models.attention import Attention, gqa_decode, init_gqa_cache
+from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, device,
                  generator: Optional[torch.Generator]):
         super().__init__()
-        if spec.mixer != "attn" or spec.mlp != "dense":
-            raise NotImplementedError(
-                f"not yet ported: {spec.mixer} mixer with {spec.mlp} MLP"
-            )
+        _check_ported(spec)
         dtype = cfg.params_dtype
         self.cfg = cfg
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
@@ -46,6 +44,34 @@ def block_train(p: Block, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tens
     x = x + p.mixer(p.norm1(x), use_kernels=cfg.use_kernels)
     x = x + p.mlp(p.norm2(x))
     return x, aux
+
+
+def _check_ported(spec: BlockSpec) -> None:
+    if spec.mixer != "attn" or spec.mlp != "dense":
+        raise NotImplementedError(f"not yet ported: {spec.mixer} mixer with {spec.mlp} MLP")
+
+
+def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    _check_ported(spec)
+    return init_gqa_cache(batch, seq_len, cfg.attention, dtype, device)
+
+
+def block_decode(w: Mapping[str, torch.Tensor], x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 pos: int, cfg: ModelConfig,
+                 spec: BlockSpec) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One block on one new token. ``w`` maps the block's leaf paths
+    (``norm1/scale``, ``mixer/w_q``, ``mlp/w_up``) to its weights."""
+    _check_ported(spec)
+    sub = {}
+    for path, t in w.items():
+        head, name = path.split("/", 1)
+        sub.setdefault(head, {})[name] = t
+    h = apply_norm(sub["norm1"]["scale"], sub["norm1"].get("bias"), x)
+    h, cache = gqa_decode(sub["mixer"], h, cache, pos, cfg.attention)
+    x = x + h
+    h = apply_norm(sub["norm2"]["scale"], sub["norm2"].get("bias"), x)
+    return x + apply_mlp(sub["mlp"], h), cache
 
 
 def template_block(cfg: ModelConfig) -> Block:

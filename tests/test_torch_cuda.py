@@ -329,6 +329,46 @@ def test_flash_attention_bf16_gradients_match_plain_on_card(cuda):
         torch.testing.assert_close(g.cpu(), w, rtol=BF16_TOL, atol=BF16_TOL)
 
 
+# head dim 128: the qwen3_0_6b path shape (16 heads after GQA repetition, S 256)
+# and windowed, ragged and uneven-range cases
+DH128_CASES = [((16, 256, 128), None), ((4, 200, 128), 100), ((2, 130, 128), None),
+               ((3, 48, 128), 16), ((1, 272, 128), None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window", DH128_CASES)
+def test_flash_kernels_at_head_dim_128_match_plain_on_card(cuda, shape, window, dtype):
+    """B1, B2 and B3 at head dim 128, both entry points, against their plain
+    versions (float32 at the reference's tolerances, bf16 at 1e-2 with L at
+    1e-5); two runs repeat bitwise; B3 launches two blocks per 16 keys."""
+    q, k, v, do = (x.to(dtype) for x in _heads(cuda, shape, seed=shape[1] + 3))
+    f32 = dtype == torch.float32
+    fwd_tol = (FWD_RTOL, FWD_ATOL) if f32 else (BF16_TOL, BF16_TOL)
+    l_tol = (FWD_RTOL, FWD_ATOL) if f32 else (BF16_L_TOL, BF16_L_TOL)
+    bwd_tol = (BWD_RTOL, BWD_ATOL) if f32 else (BF16_TOL, BF16_TOL)
+    o, L = tflash.flash_fwd(q, k, v, window=window)
+    o_p, L_p = tflash.flash_fwd_plain(q, k, v, window=window)
+    torch.testing.assert_close(o, o_p, rtol=fwd_tol[0], atol=fwd_tol[1])
+    torch.testing.assert_close(L, L_p, rtol=l_tol[0], atol=l_tol[1])
+    D = (do.float() * o.float()).sum(-1)
+    dq = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+    dk, dv = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+    blocks = shape[0] * -(-shape[1] // 16)
+    assert tflash.launched_blocks() == {"flash_fwd": blocks, "flash_bwd_dq": blocks,
+                                        "flash_bwd_dkv": 2 * blocks}
+    dk_p, dv_p = tflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
+    for got, want in ((dq, tflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window)),
+                      (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=bwd_tol[0], atol=bwd_tol[1])
+    o2, L2 = tflash.flash_fwd(q, k, v, window=window)
+    dq2 = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+    dk2, dv2 = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+    for a, b in ((o, o2), (L, L2), (dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_kernels_refuse_mixed_dtypes(cuda):
     y = torch.randn(2, 64, 64, device=cuda)

@@ -108,6 +108,43 @@ def test_flash_backward_matches_jax_grad(window, S, bq, bk, vs_kernels):
             _close(g, wk, BWD_RTOL, BWD_ATOL, f"{name} vs Pallas kernels")
 
 
+# plain B1-B3 on bf16 inputs against the reference's kernels on the same
+# bf16 inputs (tests/test_torch_precision.py)
+BF16_FWD_TOL, BF16_BWD_TOL = 3e-2, 6e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,S", [(None, 128), (32, 128), (24, 100)])
+def test_flash_at_head_dim_128_matches_pallas_kernels(window, S, dtype):
+    """Head dim 128 (qwen3_0_6b, phi4_mini_3_8b): O and dQ, dK, dV through
+    the port's autograd.Function (the plain B1-B3 on the CPU) against the
+    reference's custom-vjp Pallas kernels in interpret mode on the same
+    inputs: causal, windowed, and a length that fills no block. float32 at
+    the reference's tolerances, bf16 at the bf16 ones."""
+    rng = np.random.RandomState(S + (window or 0))
+    xs = [rng.randn(1, 2, S, 128).astype(np.float32) for _ in range(4)]
+    jx = [jnp.asarray(x).astype(dtype) for x in xs]
+    tx = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs]
+    q, k, v = (x.requires_grad_(True) for x in tx[:3])
+    out = tflash.flash_attention(q, k, v, window=window)
+    got = torch.autograd.grad(out, (q, k, v), tx[3])
+
+    def fwd(a, b, c):
+        return jops.attention(a, b, c, window=window, block_q=64, block_k=64)
+
+    want = jax.grad(lambda a, b, c: jnp.sum(fwd(a, b, c).astype(jnp.float32)
+                                            * jx[3].astype(jnp.float32)),
+                    argnums=(0, 1, 2))(*jx[:3])
+    f32 = dtype == "float32"
+    fwd_tol = (FWD_RTOL, FWD_ATOL) if f32 else (BF16_FWD_TOL, BF16_FWD_TOL)
+    bwd_tol = (BWD_RTOL, BWD_ATOL) if f32 else (BF16_BWD_TOL, BF16_BWD_TOL)
+    assert out.dtype == getattr(torch, dtype)
+    _close(out.detach().float(), np.asarray(fwd(*jx[:3]), np.float32), *fwd_tol, "O")
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == out.dtype, name
+        _close(g.float(), np.asarray(w, np.float32), *bwd_tol, name)
+
+
 def test_flash_fully_masked_rows_are_zero_with_the_sentinel():
     """tests/test_kernels.py:166 on the port: a window of 8 and keys masked
     past seq_len = 100 of 128 rows leave rows >= 107 seeing no key. Their O
@@ -157,10 +194,11 @@ def test_gqa_train_with_kernels_matches_reference(window):
         for name, p in attn.named_parameters():
             p.copy_(torch.from_numpy(np.array(params[name])))
     tx = _t(x, True)
-    out = gqa_train(attn, tx, tcfg, use_kernels=True)
+    w = dict(attn.named_parameters())
+    out = gqa_train(w, tx, tcfg, use_kernels=True)
     want = jgqa_train(params, jnp.asarray(x), jcfg, use_kernels=True)
     _close(out.detach(), want, GQA_RTOL, GQA_ATOL, "output")
-    dense = gqa_train(attn, tx, tcfg, use_kernels=False)
+    dense = gqa_train(w, tx, tcfg, use_kernels=False)
     _close(out.detach(), dense.detach(), GQA_RTOL, GQA_ATOL, "port dense path")
 
     names = [n for n, _ in attn.named_parameters()]

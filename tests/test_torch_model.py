@@ -1,6 +1,8 @@
 """The port's dense model against the JAX reference: leaf paths and order,
 weight conversion, and the loss and every gradient leaf at the smoke config
 in float32 from shared weights and the same batch."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,3 +119,6 @@ def test_unported_model_options_raise():
         Transformer(ct.replace(scan_layers=True), device="meta")
     with pytest.raises(NotImplementedError):
         Transformer(ct.replace(loss_chunk=64), device="meta")
+    mla = dataclasses.replace(ct.attention, kind="mla")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        Transformer(ct.replace(attention=mla, scan_layers=False), device="meta")
