@@ -8,15 +8,17 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, plus ragged, batched and masked shapes,
    and times kernel, plain version and library call with CUDA events. B4
-   runs per shape as a group of one and as the grouped launches of both
-   paths (each path's four groups, a mixed ragged group for every pair of
-   transpose flags, a group of one); B5 per shape as a group of one, then
+   runs per shape as a group of one and as the grouped launches of the
+   paper_95m sim and SPMD paths and of the xlstm_1_3b sim path (8192-, 4096-
+   and 2662-sided bases, the 3-D w_r; each path's four groups, timed beside
+   ``torch.matmul`` on their problems), a mixed ragged group for every pair of
+   transpose flags and a group of one; B5 per shape as a group of one, then
    as one grouped launch over each path's rotated leaves (their own buffers,
    timed cold per step beside the per-leaf sequence) and over a ragged
    group, bitwise equal to its leaves launched alone; B1, B2 and B3 must
    each repeat bitwise. ptxas must report no spill stores for B5, nor for
    any of B1-B3's 24 instantiations (3 kernels, 2 input types, head widths
-   16, 32, 64 and 128). B1-B3's
+   16, 32, 64 and 128), nor for B4's four. B1-B3's
    bfloat16 entry points run the same cases on bf16 inputs (O, dQ, dK, dV
    within 1e-2 of their plain versions, L within 1e-5, bitwise repeats) and
    are timed at the path shape beside SDPA in bf16. At head dim 128 both
@@ -73,15 +75,23 @@
    qwen3_0_6b on the card (batch 4, prompt 8, 24 tokens): in float32
    compute the decoded logits at the prompt's positions must equal
    ``forward_train``'s within 2e-4; then in its own bf16; tokens/s of both.
+   ``xlstm_sim`` trains the full-width xlstm_1_3b, cut to one superblock of
+   its pattern (8 layers: seven mLSTM blocks and one sLSTM; ``xlstm_cut``),
+   through the launcher on the sim path (8 stages, basis rotation,
+   ``--use-kernels``) for 6 steps: finite losses, per step four B4 launches
+   and one B5 launch over its 39 rotated leaves, B1-B3 none; then
+   ``profile_step`` breaks down two of its steps. ``serve_decode_xlstm``
+   serves the same cut like qwen3_0_6b, its float32 prompt logits within the
+   reference's xLSTM consistency tolerance (1e-3) of ``forward_train``'s.
 5. Runs the reduced model for a few steps on the card and on the CPU (plain
    kernel versions) from the same seed, on both backends (and both SPMD
    schedules, and the sim backend's no-stash and weight-prediction modes),
    with Adam and with basis rotation through the kernels, and compares the
    losses; then each baseline on the sim backend and the SPMD 1F1B one, the
-   dense public architectures (qwen3_0_6b on 1F1B at head dim 128,
-   qwen1_5_0_5b on the sim path, phi4_mini_3_8b_swa on 1F1B with a window of
-   16) with Adam and basis rotation, and the SPMD 1F1B path in bf16 (first
-   loss within 1e-2, all within 5e-2).
+   public architectures (qwen3_0_6b on 1F1B at head dim 128, qwen1_5_0_5b on
+   the sim path, phi4_mini_3_8b_swa on 1F1B with a window of 16, xlstm_1_3b
+   on the sim path) with Adam and basis rotation, and the SPMD 1F1B path in
+   bf16 (first loss within 1e-2, all within 5e-2).
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -144,6 +154,16 @@ CATALOG_ARGS = ["--arch", "qwen3_0_6b", "--backend", "spmd", "--schedule", "1f1b
 CATALOG_STEPS = 4
 SERVE = {"batch": 4, "prompt_len": 8, "gen_len": 24}  # full-width qwen3_0_6b decode
 DECODE_TOL = 2e-4  # decode against the training forward (tests/test_models.py:35)
+# xlstm_1_3b at full width, cut to one superblock of its pattern: 8 of its 48
+# layers, seven mLSTM blocks and the sLSTM at position 3 (the 48 with their
+# bases and Adam state do not fit one card). The sim path on 8 stages, the
+# first of its steps a refresh; then its decode, held to the reference's xLSTM
+# consistency tolerance (tests/test_models.py:83-89)
+XLSTM_LAYERS = 8
+XLSTM_ARGS = ["--arch", "xlstm_1_3b", "--backend", "sim", "--stages", "8",
+              "--optimizer", "basis_rotation", "--use-kernels", "--steps", "6",
+              "--batch", "8", "--seq", "256", "--log-every", "1"]
+XLSTM_DECODE_TOL = 1e-3
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores, device memory bandwidth, TF32 and bf16 on the tensor cores. The SXM
@@ -210,31 +230,6 @@ def time_ms(fn, reps: int = 30, warmup: int = 5):
     host_ms = 1e3 * (time.perf_counter() - t0) / reps
     torch.cuda.synchronize()
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(reps)), host_ms
-
-
-def path_groups(cfg, stages: int = 0):
-    """One step of a path's rotation products as the optimizer issues them:
-    four grouped B4 launches (U^T [G, M], [G, M] V, U S, S V^T over every
-    rotated leaf in leaf order), each a list of problems
-    (batch, M, K, N, trans_a, trans_b), and the rotated leaves' shapes in
-    leaf order, which one grouped B5 launch takes. With ``stages``, the SPMD
-    path's stacked layout: one problem per rotated leaf kind, batched over
-    all its layers."""
-    from repro_torch.core.layout import build_layout
-    from repro_torch.engine.spmd import opt_leaves, stack_stage_params
-    from repro_torch.models import Transformer, param_leaves
-
-    cfg = cfg.replace(scan_layers=False)
-    leaves = param_leaves(Transformer(cfg, device="meta", seed=None))
-    if stages:
-        leaves = opt_leaves(*stack_stage_params(leaves, cfg, stages))
-    plans = [p for p in build_layout(leaves, "bilateral") if p.rotate]
-    dims = [(math.prod(p.shape[:-2]), *p.shape[-2:]) for p in plans]
-    groups = [[(b, m, m, n, True, False) for b, m, n in dims] * 2,
-              [(b, m, n, n, False, False) for b, m, n in dims] * 2,
-              [(b, m, m, n, False, False) for b, m, n in dims],
-              [(b, m, n, n, False, True) for b, m, n in dims]]
-    return groups, [p.shape for p in plans]
 
 
 def product_counts(groups):
@@ -340,7 +335,8 @@ def check_matmul_groups(torch, kmm, paths, peaks):
     """The grouped B4 launch against its plain version: each path's four
     groups with the path's shapes and flags, a mixed-shape ragged group for
     every flag pair, and a group of one. Times each path group, one event
-    pair per launch, and its plain version. Returns (rows, max_abs_err)."""
+    pair per launch, its plain version and ``torch.matmul`` on contiguous
+    operands of each of its problems. Returns (rows, max_abs_err)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, worst = [], 0.0
     cases = [(f"{path}/{i}", problems, True)
@@ -374,6 +370,11 @@ def check_matmul_groups(torch, kmm, paths, peaks):
             row["plain_ms"], _ = time_ms(
                 lambda: kmm.matmul_grouped_plain(As, Bs, trans_a=ta, trans_b=tb),
                 reps=10, warmup=2)
+            lib = [((a.mT if ta else a).contiguous(), (b.mT if tb else b).contiguous())
+                   for a, b in zip(As, Bs)]
+            row["library_ms"], _ = time_ms(lambda: [torch.matmul(a, b) for a, b in lib],
+                                           reps=10, warmup=2)
+            del lib
             flops, nbytes = mm_work(problems)
             row["bound_ms"], row["bound_fp32_ms"], _ = bounds(flops, nbytes, peaks, TF32_PASSES)
             row["tflops"] = flops / row["ms"] / 1e9
@@ -818,11 +819,16 @@ def check_bf16_dtypes(train, args, batch=None):
     return res.to_json()
 
 
-def check_serve_decode(torch, cfg):
+def check_serve_decode(torch, cfg, tol=DECODE_TOL):
     """Full-width decode on the card in float32 compute: the logits decoded
     at the prompt's positions against ``forward_train``'s on the prompt,
-    within the reference's consistency tolerance; then the same serving run
-    in the config's own compute dtype. Reports tokens per second of both."""
+    within the reference's consistency tolerance ``tol``. Beside it, the
+    same ``forward_train`` on the CPU against the card's: the size of
+    float32 roundoff between two summation orders at this width and depth.
+    Then the same serving run in the config's own compute dtype. Reports
+    tokens per second of both."""
+    import copy
+
     from repro_torch.launch.serve_decode import serve
     from repro_torch.models import forward_train
 
@@ -840,9 +846,12 @@ def check_serve_decode(torch, cfg):
         if dtype == "float32":
             with torch.no_grad():
                 full, _ = forward_train(res["model"], res["prompt"])
+                on_cpu, _ = forward_train(copy.deepcopy(res["model"]).cpu(), res["prompt"].cpu())
             got = res["prompt_logits"]
+            row["forward_train_card_vs_cpu_max_abs_err"] = float(
+                (full.cpu() - on_cpu).abs().max())
             err = row["prefill_vs_forward_train_max_abs_err"] = float((got - full).abs().max())
-            if not torch.allclose(got, full, rtol=DECODE_TOL, atol=DECODE_TOL):
+            if not torch.allclose(got, full, rtol=tol, atol=tol):
                 raise AssertionError(f"serve_decode: decoded prompt logits differ from "
                                      f"forward_train by {err}")
         if tuple(res["generated"].shape) != (SERVE["batch"], SERVE["gen_len"]) or not bool(
@@ -854,17 +863,18 @@ def check_serve_decode(torch, cfg):
 
 
 @contextlib.contextmanager
-def smoke_attention(arch, **changes):
-    """The launcher's ``--smoke`` config of ``arch`` with its attention
-    changed: a head dim or a window that ``reduce_for_smoke`` does not give."""
+def swapped_config(arch, change, smoke_config=False):
+    """For the duration, ``get_config`` of ``arch`` (its full config, or its
+    ``--smoke`` one) passed through ``change``: what the launcher's flags
+    cannot set, as the reference's launcher has no flag for it either."""
     import repro_torch.configs as configs
 
     real = configs.get_config
 
     def get_config(name, smoke=False):
         cfg = real(name, smoke)
-        if smoke and name == arch:
-            cfg = cfg.replace(attention=dataclasses.replace(cfg.attention, **changes))
+        if smoke == smoke_config and name == arch:
+            cfg = change(cfg)
         return cfg
 
     configs.get_config = get_config
@@ -872,6 +882,19 @@ def smoke_attention(arch, **changes):
         yield
     finally:
         configs.get_config = real
+
+
+def smoke_attention(arch, **changes):
+    """The launcher's ``--smoke`` config of ``arch`` with its attention
+    changed: a head dim or a window that ``reduce_for_smoke`` does not give."""
+    return swapped_config(
+        arch, lambda c: c.replace(attention=dataclasses.replace(c.attention, **changes)),
+        smoke_config=True)
+
+
+def xlstm_cut():
+    """The launcher's full xlstm_1_3b cut to ``XLSTM_LAYERS`` layers."""
+    return swapped_config("xlstm_1_3b", lambda c: c.replace(num_layers=XLSTM_LAYERS))
 
 
 def per_step(rows, counts, key_of):
@@ -1096,7 +1119,9 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import matmul as kmm
-    from repro_torch.launch import train
+    from repro_torch.launch import profile_step, train
+    # one step's four grouped B4 launches and B5's leaves, per path
+    from repro_torch.launch.bench_matmul import path_groups
 
     # each kernel's launch count: (wrapper, attribute); B1-B3 count their
     # float32 and bfloat16 entry points apart
@@ -1125,6 +1150,11 @@ def main() -> int:
     if adam_ptxas is not None and (not adam_ptxas or any(
             r["spill_stores"] != 0 for r in adam_ptxas.values())):
         raise AssertionError(f"adam_scale_grouped_kernel: ptxas report {adam_ptxas}")
+    # B4's four instantiations (one per pair of transpose flags): no spills
+    mm_ptxas = ptxas_report(lib.log, "grouped_tf32x3_kernel") if lib.log else None
+    if mm_ptxas is not None and (len(mm_ptxas) != 4 or any(
+            r["spill_stores"] != 0 for r in mm_ptxas.values())):
+        raise AssertionError(f"grouped_tf32x3_kernel: ptxas report {mm_ptxas}")
     # B1-B3, float32 and bf16 entry points at every head width: no spills
     flash_ptxas = ptxas_report(lib.log, "flash_") if lib.log else None
     if flash_ptxas is not None and (len(flash_ptxas) != FLASH_INSTANTIATIONS or any(
@@ -1136,7 +1166,7 @@ def main() -> int:
           "f32_peak_tflops": peaks[0] / 1e12, "mem_tb_s": peaks[1] / 1e12,
           "tf32_peak_tflops": peaks[2] / 1e12,
           "build_s": lib.build_seconds, "library": lib.path.name,
-          "adam_ptxas": adam_ptxas,
+          "adam_ptxas": adam_ptxas, "matmul_ptxas": mm_ptxas,
           "flash_ptxas": None if flash_ptxas is None else {
               flash_entry(k): v for k, v in flash_ptxas.items()}})
 
@@ -1146,13 +1176,19 @@ def main() -> int:
     cfg = get_config("paper_95m")
     K, M, L = 8, 8, cfg.num_layers
     (groups, adam_leaves), (sgroups, sadam_leaves) = path_groups(cfg), path_groups(cfg, K)
+    # the xLSTM sim path's 39 rotated leaves: 8192-, 4096- and 2662-sided
+    # bases, the 3-D w_r as one problem of batch 4
+    xcfg = get_config("xlstm_1_3b").replace(num_layers=XLSTM_LAYERS)
+    xgroups, xadam_leaves = path_groups(xcfg)
     mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
     mm_rows, mm_err = check_matmul(torch, kmm, peaks)
-    grp_rows, grp_err = check_matmul_groups(torch, kmm, {"sim": groups, "spmd": sgroups}, peaks)
+    grp_rows, grp_err = check_matmul_groups(
+        torch, kmm, {"sim": groups, "spmd": sgroups, "xlstm_sim": xgroups}, peaks)
     mm_err = max(mm_err, grp_err)
     adam_rows, adam_err = check_adam(torch, kadam)
-    agrp_rows, agrp_err = check_adam_groups(torch, kadam, {"sim": adam_leaves,
-                                                           "spmd": sadam_leaves}, peaks)
+    agrp_rows, agrp_err = check_adam_groups(
+        torch, kadam, {"sim": adam_leaves, "spmd": sadam_leaves, "xlstm_sim": xadam_leaves},
+        peaks)
     adam_err = max(adam_err, agrp_err)
     flash_rows, flash_errs, flash_t = check_flash(torch, kflash, peaks)
     bf16_rows, bf16_errs, bf16_t = check_flash_bf16(torch, kflash, peaks)
@@ -1334,6 +1370,23 @@ def main() -> int:
     serving = check_serve_decode(torch, qcfg)
     emit({"phase": "serve_decode", "arch": qcfg.name, **SERVE, **serving})
 
+    # xlstm_1_3b at full width, one superblock deep, on the sim path: B4 and B5
+    # on its 39 rotated leaves, B1-B3 never (no attention); then where the
+    # step's time goes (profile_step over two steps after a refresh step)
+    n = int(XLSTM_ARGS[XLSTM_ARGS.index("--steps") + 1])
+    torch.cuda.empty_cache()
+    with xlstm_cut():
+        xsim = run_path(train, torch, kernels, XLSTM_ARGS, {
+            **none, "matmul": n * sum(1 for g in xgroups if g),
+            "adam_scale": n * -(-len(xadam_leaves) // kadam.MAX_LEAVES)})
+        emit({"phase": "xlstm_sim", "layers": XLSTM_LAYERS, **xsim})
+        torch.cuda.empty_cache()
+        profile_step.main(XLSTM_ARGS + ["--warmup", "1", "--profile-steps", "2"])
+    torch.cuda.empty_cache()
+    xserving = check_serve_decode(torch, xcfg, XLSTM_DECODE_TOL)
+    emit({"phase": "serve_decode_xlstm", "arch": xcfg.name, "layers": XLSTM_LAYERS, **SERVE,
+          **xserving})
+
     # phase 5: the reduced model on the card against the CPU, same seed.
     # Adam has no QR: the devices differ only in float32 summation order
     # (measured ~1e-6 apart). Basis rotation: the refresh's QR of
@@ -1366,15 +1419,17 @@ def main() -> int:
                 raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
             emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
                   "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
-    # the dense public architectures at smoke size: qwen3_0_6b on 1F1B at head
-    # dim 128 (the B1-B3 instantiation of its full config), qwen1_5_0_5b on the
-    # sim path (qkv_bias), and phi4_mini_3_8b_swa on 1F1B with a window of 16
-    # of the 32-token sequences
+    # the public architectures at smoke size: qwen3_0_6b on 1F1B at head dim
+    # 128 (the B1-B3 instantiation of its full config), qwen1_5_0_5b on the
+    # sim path (qkv_bias), phi4_mini_3_8b_swa on 1F1B with a window of 16 of
+    # the 32-token sequences, and xlstm_1_3b (an mLSTM and an sLSTM block) on
+    # the sim path
     for arch, backend, change in (
             ("qwen3_0_6b", ["--backend", "spmd", "--schedule", "1f1b"], {"head_dim": 128}),
             ("qwen1_5_0_5b", ["--backend", "sim"], {}),
             ("phi4_mini_3_8b_swa", ["--backend", "spmd", "--schedule", "1f1b"],
-             {"window": 16})):
+             {"window": 16}),
+            ("xlstm_1_3b", ["--backend", "sim"], {})):
         for opt, first2_tol, all_tol in ((["--optimizer", "adam"], 1e-4, 1e-4),
                                          (["--use-kernels"], 2e-3, 5e-2)):
             args = SMOKE_ARGS + ["--arch", arch] + backend + opt
@@ -1414,13 +1469,22 @@ def main() -> int:
     mm_tot = per_step(mm_rows, mm_counts, shape_key)
     smm_tot = per_step(mm_rows, smm_counts, shape_key)
     grouped = {path: {f: sum(r[f] for r in grp_rows if r["group"].startswith(path + "/"))
-                      for f in ("ms", "plain_ms")} for path in ("sim", "spmd")}
+                      for f in ("ms", "plain_ms", "library_ms")}
+               for path in ("sim", "spmd", "xlstm_sim")}
     b5_step = {r["group"]: r for r in agrp_rows}
     mm_bound, mm_bound_f32, mm_by = bounds(*mm_work([p for g in groups for p in g]), peaks,
                                            TF32_PASSES)
-    adam_bytes = sum(20.0 * math.prod(sh) for sh in adam_leaves)
-    adam_flops = sum(10.0 * math.prod(sh) for sh in adam_leaves)
-    _, adam_bound, _ = bounds(adam_flops, adam_bytes, peaks)
+    xmm_bound, xmm_bound_f32, xmm_by = bounds(*mm_work([p for g in xgroups for p in g]), peaks,
+                                              TF32_PASSES)
+
+    def adam_bound(leaves):  # (least ms, what bounds it) of B5 on the FMA pipes
+        nbytes = sum(20.0 * math.prod(sh) for sh in leaves)
+        flops = sum(10.0 * math.prod(sh) for sh in leaves)
+        return bounds(flops, nbytes, peaks)[1], (
+            "operations" if flops / peaks[0] >= nbytes / peaks[1] else "bytes")
+
+    b5_bound, b5_by = adam_bound(adam_leaves)
+
     rows = [{
         "name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:30", "launches": sim["launches"]["matmul"],
@@ -1429,20 +1493,28 @@ def main() -> int:
         "spmd_ms": grouped["spmd"]["ms"],
         "spmd_plain_ms": grouped["spmd"]["plain_ms"], "spmd_library_ms": smm_tot["library_ms"],
         "spmd_launches_1f1b": spmd["1f1b"]["launches"]["matmul"],
+        "xlstm_launches": xsim["launches"]["matmul"], "xlstm_ms": grouped["xlstm_sim"]["ms"],
+        "xlstm_plain_ms": grouped["xlstm_sim"]["plain_ms"],
+        "xlstm_library_ms": grouped["xlstm_sim"]["library_ms"], "xlstm_bound_ms": xmm_bound,
+        "xlstm_bound_by": xmm_by,
     }, {
         "name": "adam_scale", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adam_step.cu",
         "replaces": "src/repro/kernels/adam_step.py:28", "launches": sim["launches"]["adam_scale"],
         "max_abs_err": adam_err, "ms": b5_step["sim"]["ms"],
         "per_leaf_ms": b5_step["sim"]["per_leaf_ms"], "plain_ms": b5_step["sim"]["plain_ms"],
-        "bound_ms": adam_bound,
-        "bound_by": "operations" if adam_flops / peaks[0] >= adam_bytes / peaks[1] else "bytes",
+        "bound_ms": b5_bound, "bound_by": b5_by,
         "library_ms": None, "spmd_ms": b5_step["spmd"]["ms"],
         "spmd_per_leaf_ms": b5_step["spmd"]["per_leaf_ms"],
         "spmd_plain_ms": b5_step["spmd"]["plain_ms"],
         "spmd_launches_1f1b": spmd["1f1b"]["launches"]["adam_scale"],
+        "xlstm_launches": xsim["launches"]["adam_scale"], "xlstm_ms": b5_step["xlstm_sim"]["ms"],
+        "xlstm_per_leaf_ms": b5_step["xlstm_sim"]["per_leaf_ms"],
+        "xlstm_plain_ms": b5_step["xlstm_sim"]["plain_ms"],
+        "xlstm_bound_ms": adam_bound(xadam_leaves)[0],
     }]
     onef = spmd["1f1b"]
-    bound_fp32 = {"matmul": mm_bound_f32}  # computed, so kept off the kernels line
+    # computed, so kept off the kernels line
+    bound_fp32 = {"matmul": mm_bound_f32, "matmul_xlstm": xmm_bound_f32}
     for kname, src, replaces in (
         ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
          "src/repro/kernels/flash.py:80"),
@@ -1519,7 +1591,10 @@ def main() -> int:
          "heads with float32 L and D; library_ms is SDPA in bf16. The _dh128 rows are "
          "B1-B3 at head dim 128 per step of qwen3_0_6b's SPMD 1F1B path (catalog_1f1b: "
          "4 stages, 8 microbatches; launches: its 4-step runs in float32 and bf16), timed "
-         "at its path shape (16, 256, 128)",
+         "at its path shape (16, 256, 128). The xlstm_* keys of B4 and B5 are per step of "
+         "the sim path of xlstm_1_3b cut to 8 layers (xlstm_sim: its launches, its four B4 "
+         "groups and one B5 group over its 39 rotated leaves); B4's xlstm_library_ms is "
+         "torch.matmul on contiguous operands of each of the step's products",
          "bound_fp32_ms": bound_fp32,
          "spmd_fill_drain_launches": spmd["fill_drain"]["launches"],
          "spmd_bf16_launches": spmd_bf16["launches"],
@@ -1528,6 +1603,7 @@ def main() -> int:
          "resume_spmd_launches": [resume_spmd[leg]["launches"]
                                   for leg in ("first_leg", "resumed_leg")],
          "sim_modes_launches": {m: r["launches"] for m, r in modes.items()},
+         "xlstm_sim_launches": xsim["launches"],
          "baselines_launches": {path: {n: r["launches"] for n, r in runs.items()}
                                 for path, runs in baselines.items()}}, indent=1))
     emit({"bound_fp32_ms": bound_fp32})

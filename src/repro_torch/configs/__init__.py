@@ -5,6 +5,7 @@ from repro_torch.configs.base import (
     ModelConfig,
     OptimizerConfig,
     PrecisionPolicy,
+    SSMConfig,
 )
 from repro_torch.configs.catalog import ARCH_IDS, PAPER_IDS, get_config, reduce_for_smoke
 
@@ -15,6 +16,7 @@ __all__ = [
     "ModelConfig",
     "OptimizerConfig",
     "PrecisionPolicy",
+    "SSMConfig",
     "ARCH_IDS",
     "PAPER_IDS",
     "get_config",

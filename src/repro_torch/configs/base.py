@@ -1,7 +1,8 @@
 """Configuration dataclasses for the model and the optimizer.
 
 Port of ``repro/configs/base.py``, cut to what the dense attention models
-(the paper's nanoGPT family and the dense public architectures) use.
+(the paper's nanoGPT family and the dense public architectures) and the
+xLSTM family (``SSMConfig``, mLSTM and sLSTM blocks) use.
 Defaults are the reference's; dtype properties return torch dtypes. Both
 of the reference's precision policies exist: ``f32`` and ``bf16``
 (``bf16_compute``, the SPMD backend's).
@@ -38,6 +39,21 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """State-space / recurrent mixer configuration. The port runs the mLSTM
+    and sLSTM mixers (``num_heads``, ``proj_factor``); the Mamba fields are
+    kept so that configs convert field for field."""
+
+    kind: str = "mamba"  # "mamba" | "mlstm" | "slstm"
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+    num_heads: int = 4  # for m/sLSTM
+    proj_factor: float = 2.0  # mLSTM up-projection factor
+
+
+@dataclass(frozen=True)
 class BlockSpec:
     """One layer inside the repeating superblock pattern."""
 
@@ -56,6 +72,7 @@ class ModelConfig:
     vocab_size: int = 1024
     max_seq_len: int = 4096
     attention: AttentionConfig = field(default_factory=AttentionConfig)
+    ssm: Optional[SSMConfig] = None
     pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
     norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
     mlp_act: str = "swiglu"  # "swiglu" | "gelu"

@@ -4,17 +4,20 @@ Each module exports ``CONFIG`` (the published configuration) and
 ``SMOKE_CONFIG`` (the same family reduced by ``reduce_for_smoke``);
 ``phi4_mini_3_8b`` also exports ``SWA_CONFIG``, the sliding-window variant
 that ``get_config`` returns for an id ending in ``_swa``. The dense public
-architectures and the paper's models are ported; every other id of the
-reference's catalog raises ``NotImplementedError`` naming what it needs.
+architectures, the xLSTM family (``xlstm_1_3b``: mLSTM and sLSTM blocks in a
+superblock of 8, without MLPs) and the paper's models are ported; every
+other id of the reference's catalog raises ``NotImplementedError`` naming
+what it needs.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.configs.base import AttentionConfig, ModelConfig, SSMConfig
 
-ARCH_IDS: List[str] = ["stablelm_1_6b", "qwen3_0_6b", "qwen1_5_0_5b", "phi4_mini_3_8b"]
+ARCH_IDS: List[str] = ["stablelm_1_6b", "qwen3_0_6b", "qwen1_5_0_5b", "phi4_mini_3_8b",
+                       "xlstm_1_3b"]
 
 PAPER_IDS = ["paper_95m", "paper_1b", "paper_3b"]
 
@@ -25,7 +28,6 @@ UNPORTED: Dict[str, str] = {
     "jamba_v0_1_52b": "Mamba SSM and MoE blocks (models/mamba.py, models/moe.py)",
     "deepseek_v2_236b": "MLA attention and MoE blocks (models/attention.py::mla_*, "
                         "models/moe.py)",
-    "xlstm_1_3b": "mLSTM/sLSTM blocks (models/xlstm.py)",
     "musicgen_large": "the audio frontend and multi-codebook embedding and head",
 }
 
@@ -52,8 +54,9 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Shrink a dense attention config to CPU-steppable size, keeping its
-    family traits (qk_norm, qkv_bias, window, norm, activation)."""
+    """Shrink a config to CPU-steppable size, keeping its family traits
+    (qk_norm, qkv_bias, window, norm, activation, the recurrent mixer's
+    kind and projection factor)."""
     d_model = min(cfg.d_model, 256)
     att = cfg.attention
     n_heads = 4
@@ -68,6 +71,17 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         window=min(att.window, 64) if att.window else None,
         rope_theta=att.rope_theta,
     )
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = SSMConfig(
+            kind=ssm.kind,
+            d_state=8,
+            d_conv=4,
+            expand=2,
+            num_heads=4,
+            proj_factor=ssm.proj_factor,
+        )
+    # one superblock of the (possibly shortened) pattern
     pattern = cfg.pattern if len(cfg.pattern) <= 2 else cfg.pattern[:2]
     kw = dict(
         name=cfg.name + "_smoke",
@@ -77,6 +91,7 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 2048),
         max_seq_len=256,
         attention=att,
+        ssm=ssm,
         pattern=pattern,
     )
     kw.update(overrides)

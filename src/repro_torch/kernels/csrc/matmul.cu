@@ -42,6 +42,13 @@
 //   instead (a flag per operand). The ragged edge is masked in the loads
 //   (zero fill) and the stores, not padded. No atomics: each output is one
 //   block's, and the result does not depend on the group it ran in.
+// - Each 32-deep step sums in the tensor cores from zero, and is then added
+//   to the output's running sum with a float32 add, rounded to nearest. The
+//   tensor cores' own additions into their accumulator round toward zero, so
+//   summed in them over the whole of K the error grows with K: 3.8e-4 at
+//   K = 8192 (the 8192-sided bases of xlstm_1_3b) against the parity limit
+//   of 1e-4 + 2e-3 |c| (H100, chip_smoke.py phase 2). Within a step a sum
+//   takes twelve of those additions (four k8 products, three passes each).
 
 #include "tf32_mma.cuh"
 
@@ -186,6 +193,13 @@ grouped_tf32x3_kernel(const __grid_constant__ Group grp) {
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
   for (int kt = 0; kt < ktiles; ++kt) {
+    float part[MI][NI][4];  // this step's sum, in the tensor cores
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
     cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
     __syncthreads();              // ... everyone's, and tile kt - 1 is consumed
     const int next = kt + STAGES - 1;
@@ -214,8 +228,14 @@ grouped_tf32x3_kernel(const __grid_constant__ Group grp) {
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NI; ++j) mma_3xtf32(acc[i][j], a[i], bf[j]);
+        for (int j = 0; j < NI; ++j) mma_3xtf32(part[i][j], a[i], bf[j]);
     }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
   }
   cp_async_wait<0>();
 

@@ -13,9 +13,12 @@
 // term is added last.
 //
 // Two ways to sum a chain of k8 products:
-//   mma_3xtf32     accumulates in the tensor cores. The rotation matmul (B4)
-//                  and the flash forward (B1) use it; both stay within their
-//                  parity limits against float32 references.
+//   mma_3xtf32     accumulates in the tensor cores. The flash forward (B1)
+//                  uses it, within its parity limits.
+//                  The rotation matmul (B4) uses it for each 32-deep step of
+//                  K and adds the steps with float32 adds (matmul.cu): summed
+//                  in the tensor cores over K = 8192 its error exceeded the
+//                  rotation parity limit.
 //   mma_3xtf32_rn  sums each k8 product from zero and adds it to the running
 //                  sum with a float32 add. The flash backward (B2, B3) uses
 //                  it: its sums feed dP - D, which cancels, and accumulating

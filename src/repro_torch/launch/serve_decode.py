@@ -1,9 +1,12 @@
-"""Batched greedy decoding with a KV cache, through ``forward_decode``.
-Port of ``examples/serve_decode.py``.
+"""Batched greedy decoding through ``forward_decode``, with the model's
+decode caches (a KV cache per attention layer, the recurrent state of an
+mLSTM or sLSTM layer). Port of ``examples/serve_decode.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch qwen3_0_6b
     PYTHONPATH=src python -m repro_torch.launch.serve_decode \\
         --arch phi4_mini_3_8b_swa --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode \\
+        --arch xlstm_1_3b --smoke --device cpu
 
 Draws the model from ``--seed`` (random weights: nothing is downloaded) and
 a random prompt of ``--prompt-len`` tokens for each of ``--batch``

@@ -17,10 +17,13 @@ and on the spmd backend attention runs in the flash-attention kernels too.
         --arch paper_95m --backend spmd --stages 8 --microbatches 8 \\
         --schedule 1f1b --optimizer basis_rotation --use-kernels --batch 8 --seq 256
 
-``--arch`` takes the paper's models and the dense public architectures
+``--arch`` takes the paper's models, the dense public architectures
 (``qwen3_0_6b``, ``qwen1_5_0_5b``, ``stablelm_1_6b``, ``phi4_mini_3_8b``,
-``phi4_mini_3_8b_swa``); a full config's depth must divide into
-``--stages``. ``--precision`` applies its policy over the config's own
+``phi4_mini_3_8b_swa``) and ``xlstm_1_3b``; a full config's depth must
+divide into ``--stages``. A pattern of mixed block kinds (xLSTM's mLSTM and
+sLSTM blocks) runs on the sim backend only: the reference's SPMD runtime
+stacks homogeneous layers, and ``--backend spmd`` refuses it before any
+work. ``--precision`` applies its policy over the config's own
 dtypes, so the default ``f32`` trains the catalog's bfloat16 configs in
 float32, as the reference's launcher does.
 
@@ -149,11 +152,17 @@ def build(args):
     from repro_torch.data import batches
     from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine
     from repro_torch.models import Transformer, init_model, param_count, param_leaves
+    from repro_torch.models.transformer import check_homogeneous
     from repro_torch.optim.base import make_schedule
     from repro_torch.optim.factory import build_optimizer
     from repro_torch.pipeline.partition import delay_tree
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.backend == "spmd":
+        try:
+            check_homogeneous(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     # the precision policy owns every dtype knob; the spmd engine applies it
     cfg = cfg.replace(scan_layers=False)
     policy = PRECISION_POLICIES[args.precision]

@@ -1,6 +1,8 @@
 """Whole-model API: init, training forward and loss, and single-token decode.
 Port of ``repro/models/model.py`` for per-layer (``scan_layers=False``)
-dense attention models. ``embed`` and ``head_logits`` (the reference's
+models: dense attention blocks, and xLSTM's mLSTM and sLSTM blocks in a
+pattern of mixed kinds (layer l is ``cfg.pattern[l % len(cfg.pattern)]``).
+``embed`` and ``head_logits`` (the reference's
 ``_embed`` and ``_logits`` with the final norm) take the shared weights as a
 ``{path: tensor}`` dict, so that the SPMD schedules run the same code on
 their own copies of those weights.
@@ -140,7 +142,9 @@ def forward_train(model: Transformer, tokens: Tensor) -> Tuple[Tensor, Tensor]:
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: torch.device | str = "cuda") -> Tuple[Dict[str, Tensor], ...]:
-    """One zeroed K/V cache per layer, in the compute dtype."""
+    """One zeroed decode cache per layer: the K/V cache of an attention
+    block in the compute dtype, the recurrent state of an mLSTM or sLSTM
+    block (the sLSTM's h in the compute dtype, the rest float32)."""
     return tuple(init_block_cache(cfg, cfg.pattern[l % len(cfg.pattern)], batch, seq_len,
                                   cfg.compute_dtype, device)
                  for l in range(cfg.num_layers))
@@ -149,8 +153,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 def forward_decode(model: Transformer, token: Tensor, cache: Tuple[Dict[str, Tensor], ...],
                    pos: int) -> Tuple[Tensor, Tuple[Dict[str, Tensor], ...]]:
     """token: (B, 1) int64 at position ``pos``. Returns (logits (B, 1, V),
-    cache), the caches written in place. Runs on compute-dtype copies of the
-    masters, as the reference casts them at use."""
+    cache): the K/V caches written in place, the recurrent states new.
+    Runs on compute-dtype copies of the masters, as the reference casts
+    them at use."""
     cfg = model.cfg
     params = cast_params(param_leaves(model), cfg.compute_dtype)
     layers: List[Dict[str, Tensor]] = [{} for _ in range(cfg.num_layers)]

@@ -392,3 +392,71 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         tflash.flash_fwd(y.double(), y.double(), y.double())
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_fwd(y.mT, y.mT, y.mT)
+
+
+def _xlstm_mixer(kind):
+    """An mLSTM or sLSTM mixer of width 64 (4 heads) from a seed, its 1-D
+    leaves drawn at random, as a ``{name: tensor}`` dict on the CPU."""
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import xlstm as txl
+
+    cfg = SSMConfig(kind="mlstm", num_heads=4, proj_factor=2.0)
+    gen = torch.Generator().manual_seed(0)
+    cls = txl.MLSTM if kind == "mlstm" else txl.SLSTM
+    w = {k: p.detach() for k, p in cls(64, cfg, torch.float32, "cpu", gen).named_parameters()}
+    for k, p in w.items():
+        if p.ndim == 1:
+            p += 0.2 * torch.randn(p.shape, generator=gen)
+    return w, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_mixer_on_card_matches_cpu(cuda, kind):
+    """The xLSTM mixer's training form and six decode steps on the card
+    against the CPU, float32, within 1e-4."""
+    from repro_torch.models import xlstm as txl
+
+    w, cfg = _xlstm_mixer(kind)
+    wc = {k: v.to(cuda) for k, v in w.items()}
+    u = torch.randn((2, 16, 64), generator=torch.Generator().manual_seed(1))
+    fn = txl.mlstm_train if kind == "mlstm" else txl.slstm_train
+    torch.testing.assert_close(fn(wc, u.to(cuda), cfg).cpu(), fn(w, u, cfg),
+                               rtol=1e-4, atol=1e-4)
+    if kind == "mlstm":
+        caches = [txl.init_mlstm_cache(2, 64, cfg, d) for d in ("cpu", cuda)]
+        dec = txl.mlstm_decode
+    else:
+        caches = [txl.init_slstm_cache(2, 64, cfg, torch.float32, d) for d in ("cpu", cuda)]
+        dec = txl.slstm_decode
+    for t in range(6):
+        y, caches[0] = dec(w, u[:, t: t + 1], caches[0], cfg)
+        yc, caches[1] = dec(wc, u[:, t: t + 1].to(cuda), caches[1], cfg)
+        torch.testing.assert_close(yc.cpu(), y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rotation_products_on_full_width_xlstm_leaves_match_cpu(cuda):
+    """B4's grouped products on the card against the CPU's plain versions
+    on full-width sLSTM leaves with orthogonal bases, both directions:
+    ff_up and ff_down with a side of 2662 (rows not 16-byte aligned) and the
+    3-D w_r, one problem of batch 4; two launches a direction."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(2048, 2662), (2662, 2048), (4, 512, 2048)]
+
+    def basis(batch, n):
+        return torch.linalg.qr(torch.randn(batch + (n, n), generator=gen))[0]
+
+    xs = [torch.randn(s, generator=gen) for s in shapes]
+    Us = [basis(s[:-2], s[-2]) for s in shapes]
+    Vs = [basis(s[:-2], s[-1]) for s in shapes]
+    for transpose in (True, False):
+        want = ops.two_sided_rotate_grouped(xs, Us, Vs, transpose=transpose)
+        before = tmm.matmul.launches
+        got = ops.two_sided_rotate_grouped([x.to(cuda) for x in xs], [u.to(cuda) for u in Us],
+                                           [v.to(cuda) for v in Vs], transpose=transpose)
+        assert tmm.matmul.launches == before + 2
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=ROT_RTOL, atol=ROT_ATOL)
