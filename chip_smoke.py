@@ -9,13 +9,16 @@
    shapes the main paths give it, plus ragged, batched and masked shapes,
    and times kernel, plain version and library call with CUDA events. B4
    runs per shape as a group of one and as the grouped launches of the
-   paper_95m sim and SPMD paths and of the xlstm_1_3b sim path (8192-, 4096-
-   and 2662-sided bases, the 3-D w_r; each path's four groups, timed beside
+   paper_95m sim and SPMD paths, of the xlstm_1_3b sim path (8192-, 4096-
+   and 2662-sided bases, the 3-D w_r) and of the paper_1b sim path (1728-
+   and 6912-sided bases; each path's four groups, timed beside
    ``torch.matmul`` on their problems), a mixed ragged group for every pair of
    transpose flags and a group of one; B5 per shape as a group of one, then
    as one grouped launch over each path's rotated leaves (their own buffers,
    timed cold per step beside the per-leaf sequence) and over a ragged
-   group, bitwise equal to its leaves launched alone; B1, B2 and B3 must
+   group, bitwise equal to its leaves launched alone, and the same groups
+   through its in-place entry (v' written over v, as the training paths
+   call it), bitwise equal to the copying entry; B1, B2 and B3 must
    each repeat bitwise. ptxas must report no spill stores for B5, nor for
    any of B1-B3's 24 instantiations (3 kernels, 2 input types, head widths
    16, 32, 64 and 128), nor for B4's four. B1-B3's
@@ -39,7 +42,7 @@
    schedule's length is the step count, so the two curves differ after the
    first steps). Checks finite losses and the exact launch counts of all
    five kernels. ``spmd_bf16`` trains the 1F1B path under ``--precision
-   bf16`` for 6 steps: B1-B3 through their bf16 entry points only (2 M L and
+   bf16`` for 4 steps: B1-B3 through their bf16 entry points only (2 M L and
    M L launches a step), B4 and B5 as in float32; then one more step under
    the dtype check (``analysis.dtype``: bfloat16 and float32 only, bfloat16
    present, masters and optimizer state float32).
@@ -54,13 +57,13 @@
    ``resume_spmd`` does the same for the fill-drain SPMD path of phase 4
    (built for 4 steps) in the sharded format, cut at step 2. Resumed losses
    must be within 1e-6 of phases 3 and 4. ``sim_modes`` trains the sim path
-   for 6 steps in each of ``--no-stash`` and ``--weight-prediction``. Each
+   for 2 steps in each of ``--no-stash`` and ``--weight-prediction``. Each
    checks finite losses and the launch counts of the steps it ran, and
    reports the snapshot, write, load and fast-forward seconds, the
    checkpoint's bytes and the peak memory.
-   ``baselines`` trains the paper's baseline optimizers on one list of six
-   batches sampled once: each of the seven on the sim path for 6 steps, and
-   delay compensation, pipedream_lr and muon on the SPMD 1F1B path for 4.
+   ``baselines`` trains the paper's baseline optimizers on one list of three
+   batches sampled once: each of the seven on the sim path for 3 steps, and
+   delay compensation, pipedream_lr and muon on the SPMD 1F1B path for 3.
    Each run's first loss must equal phase 3's (sim) or phase 4's 1F1B one
    within 1e-6; B4 and B5 (basis rotation's) launch 0 times, B1-B3 as the
    1F1B path launches them. It reports each run's losses, step times, peak
@@ -68,8 +71,8 @@
    ``catalog_1f1b`` trains the full-width qwen3_0_6b (28 layers, head dim
    128, GQA 16/8, qk_norm, vocab 151,936) through the launcher on the SPMD
    1F1B path (4 stages, 8 microbatches, basis rotation, ``--use-kernels``)
-   for 4 steps in ``--precision f32`` and 4 in ``bf16``, from one list of
-   four batches sampled once: finite losses and per step B1 448, B2 and B3
+   for 3 steps in ``--precision f32`` and 3 in ``bf16``, from one list of
+   three batches sampled once: finite losses and per step B1 448, B2 and B3
    224 launches (in the entry point of the policy), B4 4 and B5 1; then one
    bf16 step under the dtype check. ``serve_decode`` serves the full-width
    qwen3_0_6b on the card (batch 4, prompt 8, 24 tokens): in float32
@@ -78,11 +81,24 @@
    ``xlstm_sim`` trains the full-width xlstm_1_3b, cut to one superblock of
    its pattern (8 layers: seven mLSTM blocks and one sLSTM; ``xlstm_cut``),
    through the launcher on the sim path (8 stages, basis rotation,
-   ``--use-kernels``) for 6 steps: finite losses, per step four B4 launches
+   ``--use-kernels``) for 4 steps: finite losses, per step four B4 launches
    and one B5 launch over its 39 rotated leaves, B1-B3 none; then
    ``profile_step`` breaks down two of its steps. ``serve_decode_xlstm``
    serves the same cut like qwen3_0_6b, its float32 prompt logits within the
    reference's xLSTM consistency tolerance (1e-3) of ``forward_train``'s.
+   ``paper_1b_sim`` trains the paper's 1B model (24 layers, d_model 1728,
+   27 heads of dh 64, d_ff 6912, vocab 50,304) at full width through the
+   launcher on the sim path (8 stages, basis rotation, ``--use-kernels``)
+   for 12 steps, after printing what the step must hold by kind, reckoned
+   on the meta device (``reckon_sim``; layers are cut only if that does not
+   fit): finite losses, per step four B4 launches and one B5 launch (in
+   place) over its 144 rotated leaves, B1-B3 none, and the peak beside the
+   reckoning. ``peaks`` prints the peaks of phases 3-4, ``catalog_1f1b``
+   and ``xlstm_sim`` beside theirs before the optimizer state was updated
+   in place, and fails if any grew. Every training path updates its
+   optimizer state in place on the card (the sim engine always, the SPMD
+   engine by ``donate="auto"``), so every B5 call of a path goes through
+   the in-place entry: ``run_path`` fails any that writes v' beside v.
 5. Runs the reduced model for a few steps on the card and on the CPU (plain
    kernel versions) from the same seed, on both backends (and both SPMD
    schedules, and the sim backend's no-stash and weight-prediction modes),
@@ -122,21 +138,21 @@ OUT_DIR = ROOT / "chiprun_out"
 MAIN_ARGS = ["--arch", "paper_95m", "--backend", "sim", "--stages", "8",
              "--optimizer", "basis_rotation", "--use-kernels", "--steps", "12",
              "--batch", "8", "--seq", "256", "--log-every", "1"]
-SMOKE_ARGS = ["--smoke", "--stages", "2", "--steps", "6", "--batch", "4",
+SMOKE_ARGS = ["--smoke", "--stages", "2", "--steps", "4", "--batch", "4",
               "--seq", "32", "--log-every", "0"]
 SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
              "--microbatches", "8", "--optimizer", "basis_rotation", "--use-kernels",
              "--batch", "8", "--seq", "256", "--log-every", "1"]
 SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
-BF16_STEPS = 6  # steps of the 1F1B path under --precision bf16
+BF16_STEPS = 4  # steps of the 1F1B path under --precision bf16
 RESUME_CUT = {"sim": 6, "spmd": 2}  # the step each resume check checkpoints at
-MODE_STEPS = 6  # steps of each sim staleness mode
+MODE_STEPS = 2  # steps of each sim staleness mode
 # the paper's baselines: each on the sim path, and three on the SPMD 1F1B path
 # (the stage weight queues, per-stage factors, Newton-Schulz over stacked leaves)
 BASELINES_SIM = ("adasgd", "nesterov", "nesterov_pp", "pipedream_lr", "delay_compensation",
                  "muon", "scion")
 BASELINES_SPMD = ("delay_compensation", "pipedream_lr", "muon")
-BASELINE_STEPS = {"sim": 6, "spmd": 4}
+BASELINE_STEPS = {"sim": 3, "spmd": 3}
 FIRST_LOSS_TOL = 1e-6  # a first loss against phase 3's or 4's: same weights and batch, no update
 # card against CPU at smoke size: the elementwise baselines differ by float32
 # summation order, as Adam does; Newton-Schulz's quintic steps amplify that in
@@ -151,7 +167,7 @@ RESUME_TOL = 1e-6  # resumed losses against the uninterrupted run's, same card a
 CATALOG_ARGS = ["--arch", "qwen3_0_6b", "--backend", "spmd", "--schedule", "1f1b",
                 "--stages", "4", "--microbatches", "8", "--optimizer", "basis_rotation",
                 "--use-kernels", "--batch", "8", "--seq", "256", "--log-every", "1"]
-CATALOG_STEPS = 4
+CATALOG_STEPS = 3
 SERVE = {"batch": 4, "prompt_len": 8, "gen_len": 24}  # full-width qwen3_0_6b decode
 DECODE_TOL = 2e-4  # decode against the training forward (tests/test_models.py:35)
 # xlstm_1_3b at full width, cut to one superblock of its pattern: 8 of its 48
@@ -161,9 +177,21 @@ DECODE_TOL = 2e-4  # decode against the training forward (tests/test_models.py:3
 # consistency tolerance (tests/test_models.py:83-89)
 XLSTM_LAYERS = 8
 XLSTM_ARGS = ["--arch", "xlstm_1_3b", "--backend", "sim", "--stages", "8",
-              "--optimizer", "basis_rotation", "--use-kernels", "--steps", "6",
+              "--optimizer", "basis_rotation", "--use-kernels", "--steps", "4",
               "--batch", "8", "--seq", "256", "--log-every", "1"]
 XLSTM_DECODE_TOL = 1e-3
+# paper_1b (the abstract's 1B model) at full width on the sim path: 8 stages,
+# basis rotation (second-moment source, bilateral, refresh every 10 steps),
+# 12 steps so that the refresh at step 10 is timed apart from the first step.
+# The layers are cut only if the reckoning (``reckon_sim``) does not fit the card
+PAPER_1B_ARGS = ["--arch", "paper_1b", "--backend", "sim", "--stages", "8",
+                 "--optimizer", "basis_rotation", "--use-kernels", "--steps", "12",
+                 "--batch", "8", "--seq", "256", "--log-every", "1"]
+# peak device memory (GB) of the earlier paths before the optimizer state was
+# updated in place (chip_smoke.py on one H100 80GB HBM3 at 700 W, PERF.md §5):
+# the state is now updated in its own tensors, so none may grow past these
+EARLIER_PEAKS_GB = {"main_path": 7.898, "spmd_1f1b": 9.11, "catalog_1f1b": 57.23,
+                    "xlstm_sim": 60.08}
 
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores, device memory bandwidth, TF32 and bf16 on the tensor cores. The SXM
@@ -174,6 +202,7 @@ PEAKS = {
     "SXM": (67.0e12, 3.35e12, 495e12, 989e12),
 }
 TF32_PASSES = 3  # the 3xTF32 split: three tensor-core products per float32 product
+LONG_GROUP_FLOPS = 2e12  # a B4 group timed over 3 launches, not 10 (xlstm_1_3b's, paper_1b's)
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 2 GHz: longer than the host takes to enqueue a timing run
 # ~0.2 s at 2 GHz: longer than the host takes to enqueue one step's B5 work leaf by leaf
@@ -199,7 +228,14 @@ F64_ERR_FACTOR = 4
 FLASH_INSTANTIATIONS = 24  # 3 kernels x 2 input types x head dims 16, 32, 64, 128
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -365,17 +401,19 @@ def check_matmul_groups(torch, kmm, paths, peaks):
                "max_abs_err": err}
         del outs, wants
         if timed:
+            flops, nbytes = mm_work(problems)
+            # a group of more than LONG_GROUP_FLOPS takes 50 ms or more a
+            # launch, whose spread is well below a percent: fewer repeats
+            reps, warmup = (3, 1) if flops > LONG_GROUP_FLOPS else (10, 2)
             row["ms"], row["host_ms"] = time_ms(
-                lambda: kmm.matmul_grouped(As, Bs, trans_a=ta, trans_b=tb), reps=10, warmup=2)
+                lambda: kmm.matmul_grouped(As, Bs, trans_a=ta, trans_b=tb), reps, warmup)
             row["plain_ms"], _ = time_ms(
-                lambda: kmm.matmul_grouped_plain(As, Bs, trans_a=ta, trans_b=tb),
-                reps=10, warmup=2)
+                lambda: kmm.matmul_grouped_plain(As, Bs, trans_a=ta, trans_b=tb), reps, warmup)
             lib = [((a.mT if ta else a).contiguous(), (b.mT if tb else b).contiguous())
                    for a, b in zip(As, Bs)]
             row["library_ms"], _ = time_ms(lambda: [torch.matmul(a, b) for a, b in lib],
-                                           reps=10, warmup=2)
+                                           reps, warmup)
             del lib
-            flops, nbytes = mm_work(problems)
             row["bound_ms"], row["bound_fp32_ms"], _ = bounds(flops, nbytes, peaks, TF32_PASSES)
             row["tflops"] = flops / row["ms"] / 1e9
         rows.append(row)
@@ -477,11 +515,16 @@ def check_adam_groups(torch, kadam, paths, peaks):
     97 x 33 leaf, empty and batched leaves beside aligned ones). Each leaf
     has buffers of its own, so a step's 1.13 GB cannot sit in L2. Each group
     must take one launch, stay within the Adam tolerances of the plain
-    version, and be bitwise equal to its leaves launched alone. Times each
-    path's step cold (``time_leaves_ms``): the grouped launch, the per-leaf
-    sequence of groups of one and the plain version (in runs of at most
-    ``PLAIN_LEAVES_PER_RUN`` leaves).
-    Returns (rows, max_abs_err)."""
+    version, and be bitwise equal to its leaves launched alone. The
+    in-place entry (v' written over v: the kernel's ``v_out`` is ``v``),
+    which the training paths call, runs each group on copies of v: one
+    launch, within the same tolerances of the plain version, bitwise equal
+    to the copying entry, v' in v's own tensors. Times each path's step
+    cold (``time_leaves_ms``): the grouped launch through both entries, the
+    per-leaf sequence of groups of one and the plain version (in runs of at
+    most ``PLAIN_LEAVES_PER_RUN`` leaves; writing v' over v changes where
+    its result lands, not its work, so it is timed once).
+    Returns (rows, max_abs_err over both entries)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows, worst = [], 0.0
     ragged = [(384, 1536), (384, 384), (97, 33), (0, 16), (8, 4, 40, 24), (5,), (0,)]
@@ -494,28 +537,40 @@ def check_adam_groups(torch, kadam, paths, peaks):
         before = kadam.adam_scale.launches
         steps, v_news = kadam.adam_scale_grouped(gs, ms, vs, *ADAM_SCALARS)
         launches = kadam.adam_scale.launches - before
-        err, close, one = 0.0, True, True
-        for g, m, v, s, vn in zip(gs, ms, vs, steps, v_news):
+        v_in = [v.clone() for v in vs]
+        before = kadam.adam_scale.launches
+        steps_in, v_out = kadam.adam_scale_grouped(gs, ms, v_in, *ADAM_SCALARS, inplace=True)
+        launches_in = kadam.adam_scale.launches - before
+        err, err_in, close, one = 0.0, 0.0, True, True
+        aliased = all(a is b for a, b in zip(v_out, v_in))
+        for g, m, v, s, vn, s_in, vn_in in zip(gs, ms, vs, steps, v_news, steps_in, v_in):
             s_one, vn_one = kadam.adam_scale(g, m, v, *ADAM_SCALARS)
             s_p, vn_p = kadam.adam_scale_plain(g, m, v, *ADAM_SCALARS)
             if g.numel():
                 err = max(err, (s - s_p).abs().max().item(), (vn - vn_p).abs().max().item())
-            close = close and (torch.allclose(s, s_p, rtol=ADAM_RTOL, atol=ADAM_ATOL)
-                               and torch.allclose(vn, vn_p, rtol=ADAM_RTOL, atol=ADAM_ATOL))
+                err_in = max(err_in, (s_in - s_p).abs().max().item(),
+                             (vn_in - vn_p).abs().max().item())
+            close = close and all(torch.allclose(x, w, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+                                  for x, w in ((s, s_p), (vn, vn_p), (s_in, s_p), (vn_in, vn_p)))
             one = one and torch.equal(s, s_one) and torch.equal(vn, vn_one)
-        del steps, v_news
-        worst = max(worst, err)
-        if not (launches == 1 and close and one):
-            raise AssertionError(f"adam_scale_grouped {name}: {launches} launches, max abs err "
-                                 f"{err}, bitwise to groups of one {one}")
+            aliased = aliased and torch.equal(s_in, s) and torch.equal(vn_in, vn)
+        del steps, v_news, steps_in, v_out
+        worst = max(worst, err, err_in)
+        if not (launches == 1 and launches_in == 1 and close and one and aliased):
+            raise AssertionError(f"adam_scale_grouped {name}: {launches} + {launches_in} "
+                                 f"launches, max abs err {err} (in place {err_in}), bitwise to "
+                                 f"groups of one {one}, in place bitwise and in v {aliased}")
         elements = sum(g.numel() for g in gs)
         row = {"group": name, "leaves": len(shapes), "elements": elements, "max_abs_err": err,
-               "bitwise_groups_of_one": one}
+               "inplace_max_abs_err": err_in, "bitwise_groups_of_one": one,
+               "inplace_bitwise": aliased}
         if name != "ragged":
             n = len(gs)
             for key, per_run, fn in (
                     ("ms", n, lambda lo, hi: kadam.adam_scale_grouped(
                         gs[lo:hi], ms[lo:hi], vs[lo:hi], *ADAM_SCALARS)),
+                    ("inplace_ms", n, lambda lo, hi: kadam.adam_scale_grouped(
+                        gs[lo:hi], ms[lo:hi], v_in[lo:hi], *ADAM_SCALARS, inplace=True)),
                     ("per_leaf_ms", n, lambda lo, hi: [
                         kadam.adam_scale(g, m, v, *ADAM_SCALARS)
                         for g, m, v in zip(gs[lo:hi], ms[lo:hi], vs[lo:hi])]),
@@ -523,11 +578,12 @@ def check_adam_groups(torch, kadam, paths, peaks):
                         kadam.adam_scale_plain(g, m, v, *ADAM_SCALARS)
                         for g, m, v in zip(gs[lo:hi], ms[lo:hi], vs[lo:hi])])):
                 row[key], row["host_" + key], row["leaves_per_run_" + key] = time_leaves_ms(
-                    fn, n, per_run, split=key != "ms")
+                    fn, n, per_run, split=key not in ("ms", "inplace_ms"))
             row["bound_ms"] = 1e3 * 20.0 * elements / peaks[1]
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["inplace_bound_share"] = row["bound_ms"] / row["inplace_ms"]
         rows.append(row)
-        del gs, ms, vs
+        del gs, ms, vs, v_in
         torch.cuda.empty_cache()
     return rows, worst
 
@@ -918,14 +974,40 @@ def read_counts(kernels):
     return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
 
 
+@contextlib.contextmanager
+def b5_in_place(calls):
+    """Within: every call of B5's grouped entry must write each v' over its v
+    (the returned v'_i are the v_i: the optimizer state keeps its storage);
+    ``calls`` counts them."""
+    from repro_torch.kernels import adam_step as kadam
+
+    inner = kadam.adam_scale_grouped
+
+    def check(gs, ms, vs, *args, **kw):
+        steps, v_news = inner(gs, ms, vs, *args, **kw)
+        if not all(vn is v for vn, v in zip(v_news, vs)):
+            raise AssertionError("B5 on a training path wrote v' beside v, not over it")
+        calls.append(len(vs))
+        return steps, v_news
+
+    kadam.adam_scale_grouped = check
+    try:
+        yield
+    finally:
+        kadam.adam_scale_grouped = inner
+
+
 def run_path(train, torch, kernels, args, want):
     """Drive one path through the launcher with every launch count zeroed
-    just before and read just after; check finite losses and the counts."""
+    just before and read just after; check finite losses, the counts and
+    that every B5 call wrote v' over v."""
     steps = int(args[args.index("--steps") + 1])
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
+    b5_calls = []
     t0 = time.perf_counter()
-    result = train.main(args)
+    with b5_in_place(b5_calls):
+        result = train.main(args)
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
     losses = result["losses"]
@@ -938,7 +1020,7 @@ def run_path(train, torch, kernels, args, want):
     refresh = [t for t in range(steps) if t % 10 == 0]
     plain_steps = [s for t, s in enumerate(step_s) if t not in refresh] or step_s
     return {"args": " ".join(args), "losses": losses, "launches": launches,
-            "step_s": step_s, "data_s": data_s,
+            "b5_in_place_calls": len(b5_calls), "step_s": step_s, "data_s": data_s,
             "median_step_s": statistics.median(step_s),
             "median_step_s_no_refresh": statistics.median(plain_steps),
             "refresh_step_s": [step_s[t] for t in refresh],
@@ -955,6 +1037,41 @@ def tensor_bytes(tree) -> int:
     from repro_torch.analysis import state_leaves
 
     return sum(x.numel() * x.element_size() for x in state_leaves(tree).values())
+
+
+def reckon_sim(cfg, stages):
+    """What a sim step of ``cfg`` on ``stages`` stages (basis rotation with
+    the launcher's defaults, the kernels' grouped step) must hold, in bytes
+    by kind, from the optimizer that the launcher builds, initialised over
+    the model's meta-device parameters (nothing is allocated): float32
+    masters and their gradients, Adam's m and v, the bases U, V, the grams
+    L, R and the delay rings; and, beside them, the grouped rotation's
+    transients at their peak (U^T [G, M] and [G, M] V both alive: four
+    floats per rotated element). Activations and the updates are not
+    counted."""
+    from repro_torch.analysis import state_leaves
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core.layout import build_layout
+    from repro_torch.models import Transformer, param_leaves
+    from repro_torch.optim.factory import build_optimizer
+
+    cfg = cfg.replace(scan_layers=False)
+    params = param_leaves(Transformer(cfg, device="meta", seed=None))
+    opt = build_optimizer(OptimizerConfig(name="basis_rotation"), params, cfg,
+                          num_stages=stages, use_kernels=True)
+    kind = {"m": "adam", "v": "adam", "U": "bases", "V": "bases", "L": "grams", "R": "grams"}
+    out = Counter()
+    for path, x in state_leaves(opt.init(params)).items():
+        parts = path.split("/")
+        out[kind[parts[-1]] if parts[0] == "inner" else "delay_rings"] += (
+            x.numel() * x.element_size())
+    nparams = sum(p.numel() for p in params.values())
+    out["masters"] = out["gradients"] = 4 * nparams
+    rotated = sum(math.prod(pl.shape) for pl in build_layout(params, "bilateral") if pl.rotate)
+    held = sum(out.values())
+    return {"layers": cfg.num_layers, "params": nparams, "rotated_params": rotated,
+            "bytes": dict(out), "held_bytes": held, "rotation_transient_bytes": 16 * rotated,
+            "reckoned_peak_bytes": held + 16 * rotated}
 
 
 def run_to_checkpoint(train, torch, kernels, args, cut, ckpt_dir, want):
@@ -1180,21 +1297,34 @@ def main() -> int:
     # bases, the 3-D w_r as one problem of batch 4
     xcfg = get_config("xlstm_1_3b").replace(num_layers=XLSTM_LAYERS)
     xgroups, xadam_leaves = path_groups(xcfg)
+    # paper_1b's sim path: 144 rotated leaves, 1728- and 6912-sided bases
+    pcfg = get_config("paper_1b")
+    pgroups, padam_leaves = path_groups(pcfg)
     mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
-    mm_rows, mm_err = check_matmul(torch, kmm, peaks)
-    grp_rows, grp_err = check_matmul_groups(
-        torch, kmm, {"sim": groups, "spmd": sgroups, "xlstm_sim": xgroups}, peaks)
+    check_s = {}  # host seconds of each of phase 2's checks
+
+    def timed(key, check, *args):
+        t0 = time.perf_counter()
+        out = check(*args)
+        check_s[key] = time.perf_counter() - t0
+        return out
+
+    mm_rows, mm_err = timed("matmul", check_matmul, torch, kmm, peaks)
+    grp_rows, grp_err = timed("matmul_grouped", check_matmul_groups, torch, kmm, {
+        "sim": groups, "spmd": sgroups, "xlstm_sim": xgroups, "paper_1b_sim": pgroups}, peaks)
     mm_err = max(mm_err, grp_err)
-    adam_rows, adam_err = check_adam(torch, kadam)
-    agrp_rows, agrp_err = check_adam_groups(
-        torch, kadam, {"sim": adam_leaves, "spmd": sadam_leaves, "xlstm_sim": xadam_leaves},
-        peaks)
+    adam_rows, adam_err = timed("adam", check_adam, torch, kadam)
+    agrp_rows, agrp_err = timed("adam_grouped", check_adam_groups, torch, kadam, {
+        "sim": adam_leaves, "spmd": sadam_leaves, "xlstm_sim": xadam_leaves,
+        "paper_1b_sim": padam_leaves}, peaks)
     adam_err = max(adam_err, agrp_err)
-    flash_rows, flash_errs, flash_t = check_flash(torch, kflash, peaks)
-    bf16_rows, bf16_errs, bf16_t = check_flash_bf16(torch, kflash, peaks)
+    flash_rows, flash_errs, flash_t = timed("flash", check_flash, torch, kflash, peaks)
+    bf16_rows, bf16_errs, bf16_t = timed("flash_bf16", check_flash_bf16, torch, kflash, peaks)
     # head dim 128 at qwen3_0_6b's path shape, both entry points
-    h128_rows, h128_errs, h128_t = check_flash(torch, kflash, peaks, QWEN3_FLASH_PATH)
-    h128b_rows, h128b_errs, h128b_t = check_flash_bf16(torch, kflash, peaks, QWEN3_FLASH_PATH)
+    h128_rows, h128_errs, h128_t = timed("flash_dh128", check_flash, torch, kflash, peaks,
+                                         QWEN3_FLASH_PATH)
+    h128b_rows, h128b_errs, h128b_t = timed("flash_bf16_dh128", check_flash_bf16, torch,
+                                            kflash, peaks, QWEN3_FLASH_PATH)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
         {"matmul": mm_rows, "matmul_grouped": grp_rows, "adam_scale": adam_rows,
          "adam_scale_grouped": agrp_rows,
@@ -1203,14 +1333,15 @@ def main() -> int:
          "flash_dh128": h128_rows, "flash_dh128_timing_per_launch": h128_t,
          "flash_bf16_dh128": h128b_rows, "flash_bf16_dh128_timing_per_launch": h128b_t},
         indent=1))
-    emit({"phase": "kernels", "matmul_cases": len(mm_rows) + len(grp_rows),
+    emit({"phase": "kernels", "check_s": check_s, "matmul_cases": len(mm_rows) + len(grp_rows),
           "matmul_max_abs_err": mm_err,
           "matmul_grouped_ms": {r["group"]: r["ms"] for r in grp_rows if "ms" in r},
           "adam_cases": len(adam_rows), "adam_max_abs_err": adam_err,
           "adam_max_rel_err": max(r["max_rel_err"] for r in adam_rows),
           "adam_bitwise_equal": all(r["bitwise_equal"] for r in adam_rows),
           "adam_grouped": {r["group"]: {k: r[k] for k in (
-              "leaves", "ms", "per_leaf_ms", "plain_ms", "bound_ms", "bound_share", "host_ms",
+              "leaves", "ms", "inplace_ms", "per_leaf_ms", "plain_ms",
+              "bound_ms", "bound_share", "inplace_bound_share", "host_ms", "host_inplace_ms",
               "host_per_leaf_ms", "leaves_per_run_per_leaf_ms", "leaves_per_run_plain_ms")
               if k in r} for r in agrp_rows},
           "flash_cases": len(flash_rows), "flash_max_abs_err": flash_errs,
@@ -1387,6 +1518,45 @@ def main() -> int:
     emit({"phase": "serve_decode_xlstm", "arch": xcfg.name, "layers": XLSTM_LAYERS, **SERVE,
           **xserving})
 
+    # paper_1b, the abstract's 1B model, at full width on the sim path. The
+    # reckoning comes first: the layers are cut (never the widths, and in
+    # whole layers per stage) only if the state the step holds and the
+    # rotation's transients would take more than 90% of the card, leaving
+    # the rest to activations, updates and the allocator
+    total = torch.cuda.get_device_properties(0).total_memory
+    layers, K1b = pcfg.num_layers, int(PAPER_1B_ARGS[PAPER_1B_ARGS.index("--stages") + 1])
+    reckon = reckon_sim(pcfg, K1b)
+    while reckon["reckoned_peak_bytes"] > 0.9 * total and layers > K1b:
+        layers -= K1b
+        reckon = reckon_sim(pcfg.replace(num_layers=layers), K1b)
+    emit({"phase": "paper_1b_reckoning", "card_bytes": total, "layers": layers,
+          "layers_full": pcfg.num_layers, **reckon})
+    n = int(PAPER_1B_ARGS[PAPER_1B_ARGS.index("--steps") + 1])
+    torch.cuda.empty_cache()
+    with (swapped_config("paper_1b", lambda c: c.replace(num_layers=layers))
+          if layers != pcfg.num_layers else contextlib.nullcontext()):
+        p1b = run_path(train, torch, kernels, PAPER_1B_ARGS, {
+            **none, "matmul": n * sum(1 for g in pgroups if g),
+            "adam_scale": n * -(-len(padam_leaves) // kadam.MAX_LEAVES)})
+    p1b["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    p1b["reserved_headroom_gb"] = (total - torch.cuda.max_memory_reserved()) / 1e9
+    p1b["gate_gb"] = 0.9 * total / 1e9
+    p1b["reckoned_peak_gb"] = reckon["reckoned_peak_bytes"] / 1e9
+    p1b["reckoned_gb"] = {k: v / 1e9 for k, v in reckon["bytes"].items()}
+    p1b["launches_per_step"] = {k: v / n for k, v in p1b["launches"].items()}
+    emit({"phase": "paper_1b_sim", "layers": layers, **p1b})
+
+    # the earlier paths' peaks against theirs before the state was updated in place
+    peaks_now = {"main_path": sim["peak_mem_gb"], "spmd_1f1b": spmd["1f1b"]["peak_mem_gb"],
+                 "catalog_1f1b": max(catalog[p]["peak_mem_gb"] for p in ("f32", "bf16")),
+                 "xlstm_sim": xsim["peak_mem_gb"]}
+    emit({"phase": "peaks", **{k: {"peak_gb": v, "before_gb": EARLIER_PEAKS_GB[k],
+                                   "fell_gb": EARLIER_PEAKS_GB[k] - v}
+                               for k, v in peaks_now.items()}})
+    grown = {k: v for k, v in peaks_now.items() if v > EARLIER_PEAKS_GB[k]}
+    if grown:
+        raise AssertionError(f"peaks above their earlier values {EARLIER_PEAKS_GB}: {grown}")
+
     # phase 5: the reduced model on the card against the CPU, same seed.
     # Adam has no QR: the devices differ only in float32 summation order
     # (measured ~1e-6 apart). Basis rotation: the refresh's QR of
@@ -1470,11 +1640,13 @@ def main() -> int:
     smm_tot = per_step(mm_rows, smm_counts, shape_key)
     grouped = {path: {f: sum(r[f] for r in grp_rows if r["group"].startswith(path + "/"))
                       for f in ("ms", "plain_ms", "library_ms")}
-               for path in ("sim", "spmd", "xlstm_sim")}
+               for path in ("sim", "spmd", "xlstm_sim", "paper_1b_sim")}
     b5_step = {r["group"]: r for r in agrp_rows}
     mm_bound, mm_bound_f32, mm_by = bounds(*mm_work([p for g in groups for p in g]), peaks,
                                            TF32_PASSES)
     xmm_bound, xmm_bound_f32, xmm_by = bounds(*mm_work([p for g in xgroups for p in g]), peaks,
+                                              TF32_PASSES)
+    pmm_bound, pmm_bound_f32, pmm_by = bounds(*mm_work([p for g in pgroups for p in g]), peaks,
                                               TF32_PASSES)
 
     def adam_bound(leaves):  # (least ms, what bounds it) of B5 on the FMA pipes
@@ -1496,7 +1668,11 @@ def main() -> int:
         "xlstm_launches": xsim["launches"]["matmul"], "xlstm_ms": grouped["xlstm_sim"]["ms"],
         "xlstm_plain_ms": grouped["xlstm_sim"]["plain_ms"],
         "xlstm_library_ms": grouped["xlstm_sim"]["library_ms"], "xlstm_bound_ms": xmm_bound,
-        "xlstm_bound_by": xmm_by,
+        "xlstm_bound_by": xmm_by, "paper_1b_launches": p1b["launches"]["matmul"],
+        "paper_1b_ms": grouped["paper_1b_sim"]["ms"],
+        "paper_1b_plain_ms": grouped["paper_1b_sim"]["plain_ms"],
+        "paper_1b_library_ms": grouped["paper_1b_sim"]["library_ms"],
+        "paper_1b_bound_ms": pmm_bound, "paper_1b_bound_by": pmm_by,
     }, {
         "name": "adam_scale", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adam_step.cu",
         "replaces": "src/repro/kernels/adam_step.py:28", "launches": sim["launches"]["adam_scale"],
@@ -1511,10 +1687,15 @@ def main() -> int:
         "xlstm_per_leaf_ms": b5_step["xlstm_sim"]["per_leaf_ms"],
         "xlstm_plain_ms": b5_step["xlstm_sim"]["plain_ms"],
         "xlstm_bound_ms": adam_bound(xadam_leaves)[0],
+        "paper_1b_launches": p1b["launches"]["adam_scale"], "paper_1b_ms": b5_step["paper_1b_sim"]["ms"],
+        "paper_1b_per_leaf_ms": b5_step["paper_1b_sim"]["per_leaf_ms"],
+        "paper_1b_plain_ms": b5_step["paper_1b_sim"]["plain_ms"],
+        "paper_1b_bound_ms": adam_bound(padam_leaves)[0],
     }]
     onef = spmd["1f1b"]
     # computed, so kept off the kernels line
-    bound_fp32 = {"matmul": mm_bound_f32, "matmul_xlstm": xmm_bound_f32}
+    bound_fp32 = {"matmul": mm_bound_f32, "matmul_xlstm": xmm_bound_f32,
+                  "matmul_paper_1b": pmm_bound_f32}
     for kname, src, replaces in (
         ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
          "src/repro/kernels/flash.py:80"),
@@ -1586,15 +1767,20 @@ def main() -> int:
          "is the grid that B1-B3's launches recorded at the path shape. The library time of B2 and of B3 is the "
          "time of SDPA's whole backward (dQ, dK and dV in one call). The _bf16 rows are "
          "B1-B3's bfloat16 entry points per step of the SPMD 1F1B path under --precision "
-         "bf16 (launches: its 6-step run); their bound_ms counts the bf16 x bf16 products "
+         "bf16 (launches: its 4-step run); their bound_ms counts the bf16 x bf16 products "
          "at the bf16 rate, the float32-by-bf16 products as two TF32 passes, and bf16 "
          "heads with float32 L and D; library_ms is SDPA in bf16. The _dh128 rows are "
          "B1-B3 at head dim 128 per step of qwen3_0_6b's SPMD 1F1B path (catalog_1f1b: "
-         "4 stages, 8 microbatches; launches: its 4-step runs in float32 and bf16), timed "
+         "4 stages, 8 microbatches; launches: its 3-step runs in float32 and bf16), timed "
          "at its path shape (16, 256, 128). The xlstm_* keys of B4 and B5 are per step of "
          "the sim path of xlstm_1_3b cut to 8 layers (xlstm_sim: its launches, its four B4 "
          "groups and one B5 group over its 39 rotated leaves); B4's xlstm_library_ms is "
-         "torch.matmul on contiguous operands of each of the step's products",
+         "torch.matmul on contiguous operands of each of the step's products. The "
+         "paper_1b_* keys of B4 and B5 are per step of paper_1b's sim path (paper_1b_sim: "
+         "its launches, its four B4 groups and one B5 group over its 144 rotated leaves). "
+         "Every training path calls B5's in-place entry (v' written over v); adam_scale's "
+         "max_abs_err covers both entries, and the in-place entry's time is "
+         "adam_grouped's inplace_ms on phase 2's line",
          "bound_fp32_ms": bound_fp32,
          "spmd_fill_drain_launches": spmd["fill_drain"]["launches"],
          "spmd_bf16_launches": spmd_bf16["launches"],
@@ -1604,6 +1790,7 @@ def main() -> int:
                                   for leg in ("first_leg", "resumed_leg")],
          "sim_modes_launches": {m: r["launches"] for m, r in modes.items()},
          "xlstm_sim_launches": xsim["launches"],
+         "paper_1b_sim_launches": p1b["launches"],
          "baselines_launches": {path: {n: r["launches"] for n, r in runs.items()}
                                 for path, runs in baselines.items()}}, indent=1))
     emit({"bound_fp32_ms": bound_fp32})

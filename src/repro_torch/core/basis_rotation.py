@@ -22,6 +22,11 @@ steps, as under the reference's ``lax.cond``. With tuple periods only the
 stages due at this step are refreshed, batched over their layers, and the
 other stages keep their U/V and L/R: the reference's per-stage masked
 select, without computing the refresh it throws away.
+
+``update(..., inplace=True)`` writes m, v and a refresh's U, V, L, R over
+the old tensors (the new values computed first, then copied or written by
+the same expressions), so the state keeps its storage and no second copy
+of it is held.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch
 from repro_torch.core.layout import LeafPlan, build_layout
 from repro_torch.core.rotation import batched_eye, refresh_basis, rotate, unrotate
 from repro_torch.core.stage_aware import NEVER
-from repro_torch.optim.base import Optimizer, Schedule, bias_correction
+from repro_torch.optim.base import Optimizer, Schedule, bias_correction, ema
 
 
 def _init_leaf(p: torch.Tensor, plan: LeafPlan, source: str) -> Dict[str, torch.Tensor]:
@@ -62,10 +67,14 @@ def _due(f: int, step: int) -> bool:
     return 0 < f < NEVER and step % f == 0
 
 
-def _refresh_ops(g, m, ops, freq: FreqSpec, step: int, source: str, beta2: float):
-    """(U, V, L, R) after this step's refresh, if any (reference ``_refresh_ops``)."""
+def _refresh_ops(g, m, ops, freq: FreqSpec, step: int, source: str, beta2: float,
+                 inplace: bool = False):
+    """(U, V, L, R) after this step's refresh, if any (reference ``_refresh_ops``).
+    With ``inplace`` the refreshed values are copied into the old tensors,
+    which are returned."""
     if not isinstance(freq, tuple):
-        return refresh_basis(g, m, *ops, source, beta2) if _due(freq, step) else ops
+        return (_store(ops, refresh_basis(g, m, *ops, source, beta2), None, inplace)
+                if _due(freq, step) else ops)
     if g.shape[0] != len(freq):
         raise ValueError(f"per-stage freqs {freq} need a leading stage axis of "
                          f"{len(freq)}, got leaf shape {tuple(g.shape)}")
@@ -73,30 +82,46 @@ def _refresh_ops(g, m, ops, freq: FreqSpec, step: int, source: str, beta2: float
     if not due:
         return ops
     if len(due) == len(freq):
-        return refresh_basis(g, m, *ops, source, beta2)
+        return _store(ops, refresh_basis(g, m, *ops, source, beta2), None, inplace)
     idx = torch.tensor(due, device=g.device)
     sub = [None if o is None else o[idx] for o in ops]
-    new = refresh_basis(g[idx], m[idx], *sub, source, beta2)
+    return _store(ops, refresh_basis(g[idx], m[idx], *sub, source, beta2), idx, inplace)
+
+
+def _store(old_ops, new_ops, idx, inplace: bool):
+    """The refreshed (U, V, L, R): ``new_ops`` (whole leaves, ``idx`` None)
+    or their rows ``idx`` of the stage axis, written into the old tensors
+    when ``inplace`` and otherwise into fresh ones (a copy of each old
+    tensor when only some stages were refreshed)."""
     out = []
-    for old, n in zip(ops, new):
-        if old is not None:
-            old = old.clone()
-            old[idx] = n
-        out.append(old)
+    for old, new in zip(old_ops, new_ops):
+        if old is None:
+            out.append(None)
+        elif idx is None and not inplace:
+            out.append(new)
+        else:
+            dst = old if inplace else old.clone()
+            if idx is None:
+                dst.copy_(new)
+            else:
+                dst[idx] = new
+            out.append(dst)
     return tuple(out)
 
 
-def _kernel_steps(kops, rotated, updates, lr, beta2, eps, bc1, bc2) -> None:
+def _kernel_steps(kops, rotated, updates, lr, beta2, eps, bc1, bc2, inplace) -> None:
     """The rotated leaves' steps through the kernels, all leaves at once:
     one grouped launch each for U^T [G, M], [G, M] V, U S and S V^T, and one
-    grouped fused Adam scale between them. Fills ``updates`` and each
-    leaf's new ``v``. On the CPU every product is the same ``torch.matmul``
-    and every Adam scale the same plain expression as a leaf-by-leaf
-    rotation, so the two agree bitwise."""
+    grouped fused Adam scale between them, which with ``inplace`` writes
+    each new ``v`` over the old one. Fills ``updates`` and each leaf's new
+    ``v``. On the CPU every product is the same ``torch.matmul`` and every
+    Adam scale the same plain expression as a leaf-by-leaf rotation, so the
+    two agree bitwise."""
     _, gs, ms, Us, Vs, vs, nsts = zip(*rotated)
     n = len(rotated)
     rot = kops.two_sided_rotate_grouped(gs + ms, Us + Us, Vs + Vs, transpose=True)
-    steps, v_news = kops.adam_scale_grouped(rot[:n], rot[n:], vs, beta2, eps, bc1, bc2)
+    steps, v_news = kops.adam_scale_grouped(rot[:n], rot[n:], vs, beta2, eps, bc1, bc2,
+                                            inplace=inplace)
     for nst, v in zip(nsts, v_news):
         nst["v"] = v
     del rot  # the rotated gradients and momenta are dead before the back-rotation
@@ -129,7 +154,7 @@ def basis_rotation_adam(
         return {"leaves": [_init_leaf(p, pl, source)
                            for p, pl in zip(params.values(), layout)]}
 
-    def update(grads, state, params, step: int, aux=None):
+    def update(grads, state, params, step: int, aux=None, inplace=False):
         layout = build_layout(params, geometry, min_dim)
         if isinstance(freq, int):
             freqs: List[FreqSpec] = [freq] * len(layout)
@@ -144,13 +169,15 @@ def basis_rotation_adam(
         new_leaves, updates, rotated = [], {}, []
         for (k, g), st, plan, f in zip(grads.items(), state["leaves"], layout, freqs):
             g = g.float()
-            m = beta1 * st["m"] + (1 - beta1) * g
-            nst = dict(st)
+            m = ema(st["m"], g, beta1, inplace)
+            # in place, each leaf's dict is the state's own and every value
+            # below is written back into the tensor it replaces
+            nst = st if inplace else dict(st)
             nst["m"] = m
             if plan.rotate:
                 U, V, L, R = _refresh_ops(
                     g, m, (st.get("U"), st.get("V"), st.get("L"), st.get("R")),
-                    f, step, source, beta2)
+                    f, step, source, beta2, inplace)
                 for name, val in (("U", U), ("V", V), ("L", L), ("R", R)):
                     if val is not None:
                         nst[name] = val
@@ -162,23 +189,23 @@ def basis_rotation_adam(
                 else:
                     g_rot = rotate(g, U, V)
                     m_rot = rotate(m, U, V)
-                    v = beta2 * st["v"] + (1 - beta2) * torch.square(g_rot)
+                    v = ema(st["v"], torch.square(g_rot), beta2, inplace)
                     step_rot = (m_rot / bc1) / (torch.sqrt(v / bc2) + eps)
                     nst["v"] = v
                     updates[k] = -lr * unrotate(step_rot, U, V)
             else:
-                v = beta2 * st["v"] + (1 - beta2) * torch.square(g)
+                v = ema(st["v"], torch.square(g), beta2, inplace)
                 updates[k] = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
                 nst["v"] = v
             new_leaves.append(nst)
         if rotated:
-            _kernel_steps(kops, rotated, updates, lr, beta2, eps, bc1, bc2)
+            _kernel_steps(kops, rotated, updates, lr, beta2, eps, bc1, bc2, inplace)
 
         if weight_decay:
             # decoupled weight decay on matrices only (norms/biases exempt)
             for k, p in params.items():
                 if p.ndim >= 2:
                     updates[k] = updates[k] - lr * weight_decay * p.detach().float()
-        return updates, {"leaves": new_leaves}
+        return updates, state if inplace else {"leaves": new_leaves}
 
     return Optimizer(init, update)

@@ -12,7 +12,9 @@ device synchronisation per step. A checkpoint's host snapshot is timed in
 ``ckpt_s`` and its file write in ``write_s``, neither inside ``step_s``.
 
 Checkpoints are snapshotted to the host on the loop thread
-(``engine.checkpoint_job``) and written, like the metrics files, on one
+(``engine.checkpoint_job``: synchronous numpy copies, complete before the
+next step, which rewrites the parameters and optimizer state in their own
+tensors, is dispatched) and written, like the metrics files, on one
 serial background writer thread. ``async_io=False`` runs every write inline:
 the files are identical either way, the writer is drained before
 ``run_loop`` returns, and a writer exception re-raises on the loop thread.

@@ -6,7 +6,13 @@ and owns the no-stash window of stale parameter snapshots.
 
 The model's parameters are the engine's: every step and every restore
 changes them in place, so the step built once keeps reading the live
-tensors.
+tensors. So does the optimizer state, with no switch: each step writes it
+into its own tensors (``Optimizer.update(..., inplace=True)``), which is
+the port of the reference's donated step. The reference's sim step does
+not donate, so that a caller's initial parameters survive; here
+``init_state`` and ``load_state`` never hand out a tensor the caller owns
+(the state is built fresh by ``optimizer.init``, the parameters are the
+engine's model), which keeps the same guarantee.
 """
 from __future__ import annotations
 

@@ -107,6 +107,17 @@ class SpmdEngine(PipelineEngine):
     masters, the gradients and the optimizer state stay float32.
     ``device`` is where the state lives and the step runs; ``seed`` draws
     the initial model when ``init_state`` is given none.
+
+    ``donate`` is the reference's donated step (``donate_argnums=(0, 1,
+    2)``): with it the step rewrites the stacked and shared parameters and
+    the optimizer state, delay rings included, in their own tensors, so the
+    state passed in must not be read again (the loop always threads the
+    returned one forward, and checkpoints copy to the host before the next
+    step). ``donate=False`` keeps the copying step: the ``EngineState``
+    passed in is left untouched, parameters included, at the cost of a
+    second copy of the parameters and optimizer state. ``"auto"`` donates
+    on a CUDA device and copies on the CPU, where the reference's
+    ``"auto"`` does not donate either.
     """
 
     name = "spmd"
@@ -115,7 +126,8 @@ class SpmdEngine(PipelineEngine):
                  num_microbatches: int = 0, schedule: str = "fill_drain",
                  async_grads: bool = True, use_kernels: bool = False,
                  grad_clip: float = 1.0, device: Union[str, torch.device] = "cuda",
-                 seed: int = 0, precision: Union[str, PrecisionPolicy, None] = None):
+                 seed: int = 0, precision: Union[str, PrecisionPolicy, None] = None,
+                 donate: Union[bool, str] = "auto"):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown pipeline schedule {schedule!r}; one of {SCHEDULES}")
         if cfg.scan_layers:
@@ -133,6 +145,7 @@ class SpmdEngine(PipelineEngine):
         self.num_stages = K = num_stages
         self.num_microbatches = M = num_microbatches or num_stages
         self.device = torch.device(device)
+        self.donate = self.device.type == "cuda" if donate == "auto" else bool(donate)
         self.grad_clip = grad_clip
         self.seed = seed
         self.grad_fn = make_schedule_grad(cfg, K, M, schedule)
@@ -186,11 +199,17 @@ class SpmdEngine(PipelineEngine):
         loss, (gs, gsh) = self.grad_fn(stacked, shared, self._shape_batch(batch))
         grads = opt_leaves(gs, gsh)
         if self.grad_clip:
+            # the step's own gradients: scaled where they lie
             grads = clip_by_global_norm(grads, self.grad_clip)
         params = opt_leaves(stacked, shared)
         with torch.no_grad():
-            updates, opt_state = self.opt.update(grads, state.opt_state, params, t)
-            apply_updates(params, updates)  # in place: the stacked and shared tensors
+            updates, opt_state = self.opt.update(grads, state.opt_state, params, t,
+                                                 inplace=self.donate)
+            if not self.donate:
+                stacked = {k: v.clone() for k, v in stacked.items()}
+                shared = {k: v.clone() for k, v in shared.items()}
+                params = opt_leaves(stacked, shared)
+            apply_updates(params, updates)  # in place: the step's stacked and shared tensors
         return EngineState((stacked, shared), opt_state), loss, {"ce": loss}
 
     def canonical_params(self, state: EngineState) -> Params:

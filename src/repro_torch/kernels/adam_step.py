@@ -6,17 +6,20 @@ what bounds it and how it is built. One launch updates a whole group of
 leaves of any shapes; ``adam_scale`` is a group of one. CPU tensors take
 ``adam_scale_plain``, CUDA tensors launch the kernel or raise.
 ``adam_scale.launches`` counts launches of the kernel, one per group of up
-to ``MAX_LEAVES`` leaves that holds any element.
+to ``MAX_LEAVES`` leaves that holds any element, through either entry.
 
 Computes, in float32:
     v'   = b2 * v + (1 - b2) * g^2
     step = (m / bc1) / (sqrt(v' / bc2) + eps)
 and returns (step, v'). As in the reference kernel, the scalars are float32
-and (1 - b2) is formed from float32 b2.
+and (1 - b2) is formed from float32 b2. ``adam_scale_grouped(...,
+inplace=True)`` writes each v' over its v (the kernel's ``v_out`` is ``v``):
+the optimizer's in-place update, which keeps no second copy of the second
+moments; ``adam_scale_plain(..., out=v)`` is its plain version.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +46,14 @@ def _scalars(beta2, eps, bc1, bc2):
 
 
 def adam_scale_plain(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
-                     bc1: float, bc2: float) -> Tuple[Tensor, Tensor]:
-    """The kernel's plain PyTorch version, in the kernel's operation order."""
+                     bc1: float, bc2: float, out: Optional[Tensor] = None
+                     ) -> Tuple[Tensor, Tensor]:
+    """The kernel's plain PyTorch version, in the kernel's operation order;
+    v' goes into ``out`` when one is given (``v`` itself for the in-place
+    update)."""
     b2, omb2, eps, bc1, bc2 = _scalars(beta2, eps, bc1, bc2)
     g, m, v = g.float(), m.float(), v.float()
-    v_new = b2 * v + omb2 * g * g
+    v_new = torch.add(b2 * v, omb2 * g * g, out=out)
     step = (m / bc1) / (torch.sqrt(v_new / bc2) + eps)
     return step, v_new
 
@@ -102,26 +108,31 @@ def _check(i: int, g: Tensor, m: Tensor, v: Tensor, device: torch.device) -> Non
 
 
 def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[Tensor],
-                       beta2: float, eps: float, bc1: float, bc2: float
-                       ) -> Tuple[List[Tensor], List[Tensor]]:
+                       beta2: float, eps: float, bc1: float, bc2: float,
+                       inplace: bool = False) -> Tuple[List[Tensor], List[Tensor]]:
     """([step_i], [v'_i]) for lists of float32 g_i, m_i, v_i (one shape per
     leaf, contiguous; shapes differ from leaf to leaf); scalars are host
-    floats. Every output has storage of its own, allocated step, v' leaf by
-    leaf as launches of one leaf each allocated them: each v'_i outlives the
-    step as optimizer state."""
+    floats. Every step_i has storage of its own, allocated leaf by leaf as
+    launches of one leaf each allocated them. Each v'_i outlives the step
+    as optimizer state: in storage of its own too, or with ``inplace`` in
+    v_i's (the returned v'_i are then the v_i themselves)."""
     if not (len(gs) == len(ms) == len(vs)):
         raise ValueError(f"adam_scale_grouped: {len(gs)} g, {len(ms)} m, {len(vs)} v")
     if not gs:
         return [], []
     if all(x.device.type == "cpu" for x in (*gs, *ms, *vs)):
-        pairs = [adam_scale_plain(g, m, v, beta2, eps, bc1, bc2) for g, m, v in zip(gs, ms, vs)]
+        pairs = [adam_scale_plain(g, m, v, beta2, eps, bc1, bc2, out=v if inplace else None)
+                 for g, m, v in zip(gs, ms, vs)]
         return [s for s, _ in pairs], [vn for _, vn in pairs]
     device = gs[0].device
     if not gs[0].is_cuda:
         raise ValueError(f"adam_scale_grouped: tensors on {device}, not on a CUDA device")
     for i, (g, m, v) in enumerate(zip(gs, ms, vs)):
         _check(i, g, m, v, device)
-    outs = [(torch.empty_like(g), torch.empty_like(g)) for g in gs]
+    # in place, each element of v is read and then written by one thread of
+    # the kernel and by no other (csrc/adam_step.cu), so v' may go over v
+    outs = [(torch.empty_like(g), v if inplace else torch.empty_like(g))
+            for g, v in zip(gs, vs)]
     steps, v_news = [s for s, _ in outs], [vn for _, vn in outs]
     ptrs = [(g.data_ptr(), m.data_ptr(), v.data_ptr(), s.data_ptr(), vn.data_ptr())
             for g, m, v, (s, vn) in zip(gs, ms, vs, outs)]

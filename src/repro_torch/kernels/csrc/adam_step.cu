@@ -42,6 +42,14 @@
 //   in float32, element by element, whatever group a leaf runs in.
 // - One block per chunk. A persistent grid (as many blocks as fit on the
 //   card, each walking the chunks) measured 4-5% slower at a step's leaves.
+// - v_out may be v itself: the optimizer's in-place update writes v' over
+//   v, with no second copy of the second moments. That is safe because
+//   each element of v is read and then written by the same thread and by
+//   no other: block x owns chunk x alone, thread t of it owns the elements
+//   (or float4s) t, t + THREADS, ..., each of those threads loads v[i]
+//   before it stores v_out[i] at the same i (vec_chunk loads all UNROLL
+//   float4s before any store), and nothing reads v again after the store.
+//   The step output must not alias any input.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,7 +152,8 @@ adam_scale_grouped_kernel(const __grid_constant__ Group grp) {
 }  // namespace
 
 // (step_i, v_out_i) from (g_i, m_i, v_i) for `count` <= MAX_LEAVES leaves in
-// one launch. ptrs: int64 (count, 5) g, m, v, step, v_out addresses; n:
+// one launch. ptrs: int64 (count, 5) g, m, v, step, v_out addresses (v_out
+// may equal v; see the header); n:
 // int64 (count) elements; vec: int32 (count) 16-byte-load flags;
 // chunk_start: int32 (count + 1) prefix sum of each leaf's chunks of `chunk`
 // elements. All four tables are host memory, read before the launch.

@@ -56,12 +56,15 @@ def two_sided_rotate(x: Tensor, U: Optional[Tensor] = None, V: Optional[Tensor] 
 
 
 def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[Tensor],
-                       beta2: float, eps: float, bc1: float,
-                       bc2: float) -> Tuple[List[Tensor], List[Tensor]]:
+                       beta2: float, eps: float, bc1: float, bc2: float,
+                       inplace: bool = False) -> Tuple[List[Tensor], List[Tensor]]:
     """Fused ([step_dir_i], [v_new_i]) over a list of leaves of any shapes,
-    in one launch."""
+    in one launch; with ``inplace`` each v_new_i is written over v_i, which
+    must then be contiguous float32 already."""
+    if inplace and not all(v.dtype == torch.float32 and v.is_contiguous() for v in vs):
+        raise ValueError("adam_scale_grouped: in place needs contiguous float32 v")
     gs, ms, vs = ([x.float().contiguous() for x in xs] for xs in (gs, ms, vs))
-    return adam_step.adam_scale_grouped(gs, ms, vs, beta2, eps, bc1, bc2)
+    return adam_step.adam_scale_grouped(gs, ms, vs, beta2, eps, bc1, bc2, inplace)
 
 
 def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,

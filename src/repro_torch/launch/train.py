@@ -39,7 +39,9 @@ the data stream past the batches already consumed.
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for but absent. The reference's flags are accepted; those whose
-feature is not ported yet exit with a message that says so.
+feature is not ported yet exit with a message that says so. On the sim
+backend ``--microbatches`` and ``--process-id`` are ignored, as the
+reference ignores them there.
 """
 from __future__ import annotations
 
@@ -95,23 +97,23 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    unported = {
-        "--data-async / --data-delay": args.data_async or args.data_delay is not None,
-        "--coordinator / --num-processes / --process-id":
-            args.coordinator is not None or args.num_processes > 1 or args.process_id != 0,
-    }
+    if args.data_async or args.data_delay is not None:
+        raise SystemExit("--data-async / --data-delay is not yet ported to repro_torch")
     if args.backend == "spmd":
-        unported["--pods / --data-par (the spmd data axis)"] = args.pods != 1 or args.data_par > 1
-    for flag, used in unported.items():
-        if used:
-            raise SystemExit(f"{flag} is not yet ported to repro_torch")
-    if args.backend == "spmd":
+        if args.coordinator is not None or args.num_processes > 1 or args.process_id != 0:
+            raise SystemExit(
+                "--coordinator / --num-processes / --process-id is not yet ported to repro_torch")
+        if args.pods != 1 or args.data_par > 1:
+            raise SystemExit("--pods / --data-par (the spmd data axis) is not yet ported "
+                             "to repro_torch")
         if args.weight_prediction or args.no_stash:
             raise SystemExit(
                 "--weight-prediction / --no-stash are sim-backend modes; the spmd "
                 "backend imposes weight-stashing staleness physically"
             )
         return
+    # the sim backend refuses what the reference's does (repro/launch/train.py
+    # main) and, like it, ignores --microbatches and --process-id
     if args.precision != "f32":
         raise SystemExit(
             "--precision bf16 is an spmd-backend policy; the sim backend "
@@ -120,12 +122,17 @@ def _refuse_unported(args) -> None:
     if args.schedule != "fill_drain":
         raise SystemExit(
             "--schedule picks the SPMD tick schedule; the sim backend imposes "
-            "delays directly and has no schedule"
+            "delays directly and has no schedule (use --backend spmd)"
         )
-    if args.pods != 1 or args.data_par > 1 or args.microbatches:
+    if args.pods != 1 or args.data_par > 1:
         raise SystemExit(
-            "--pods / --data-par / --microbatches describe the spmd topology; "
-            "the sim backend is a single-program simulation"
+            "--pods / --data-par describe the spmd device topology; the sim "
+            "backend is a single-program simulation (use --backend spmd)"
+        )
+    if args.num_processes > 1 or args.coordinator:
+        raise SystemExit(
+            "--coordinator / --num-processes are spmd-backend options; the "
+            "sim backend is a single-program simulation (use --backend spmd)"
         )
 
 

@@ -12,19 +12,26 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.optim.base import Optimizer, Schedule, bias_correction
+from repro_torch.optim.base import Optimizer, Schedule, bias_correction, ema
 
 
 def _zeros(params):
     return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
 
 
-def _moments(grads, state, beta1: float, beta2: float):
-    """Adam's first and second moments after this step's gradients."""
-    m = {k: beta1 * state["m"][k] + (1 - beta1) * g.float() for k, g in grads.items()}
-    v = {k: beta2 * state["v"][k] + (1 - beta2) * torch.square(g.float())
+def _moments(grads, state, beta1: float, beta2: float, inplace: bool):
+    """Adam's first and second moments after this step's gradients; with
+    ``inplace`` written over the state's own tensors."""
+    m = {k: ema(state["m"][k], g.float(), beta1, inplace) for k, g in grads.items()}
+    v = {k: ema(state["v"][k], torch.square(g.float()), beta2, inplace)
          for k, g in grads.items()}
     return m, v
+
+
+def _new_state(state, inplace: bool, **new):
+    """The state after an update: ``state`` itself when updated in place
+    (its tensors already hold the new values), else a new dict."""
+    return state if inplace else new
 
 
 def adam(
@@ -37,17 +44,17 @@ def adam(
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         lr = schedule(step)
         bc1, bc2 = bias_correction(beta1, step), bias_correction(beta2, step)
-        m, v = _moments(grads, state, beta1, beta2)
+        m, v = _moments(grads, state, beta1, beta2, inplace)
         updates = {}
         for k, p in params.items():
             u = -lr * (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + eps)
             if weight_decay:
                 u = u - lr * weight_decay * p.detach().float()
             updates[k] = u
-        return updates, {"m": m, "v": v}
+        return updates, _new_state(state, inplace, m=m, v=v)
 
     return Optimizer(init, update)
 
@@ -65,17 +72,17 @@ def adasgd(
         p0 = next(iter(params.values()))
         return {"m": _zeros(params), "v": torch.zeros((), dtype=torch.float32, device=p0.device)}
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         lr = schedule(step)
         bc1, bc2 = bias_correction(beta1, step), bias_correction(beta2, step)
         n_total = sum(g.numel() for g in grads.values())
         # summed leaf by leaf in leaf order, as the reference sums
         sq_mean = sum(torch.sum(torch.square(g.float())) for g in grads.values()) / n_total
-        v = beta2 * state["v"] + (1 - beta2) * sq_mean
+        v = ema(state["v"], sq_mean, beta2, inplace)
         denom = torch.sqrt(v / bc2) + eps
-        m = {k: beta1 * state["m"][k] + (1 - beta1) * g.float() for k, g in grads.items()}
+        m = {k: ema(state["m"][k], g.float(), beta1, inplace) for k, g in grads.items()}
         updates = {k: -lr * (mm / bc1) / denom for k, mm in m.items()}
-        return updates, {"m": m, "v": v}
+        return updates, _new_state(state, inplace, m=m, v=v)
 
     return Optimizer(init, update)
 
@@ -92,12 +99,12 @@ def nesterov_adam(
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         lr = schedule(step)
         bc1, bc2 = bias_correction(beta1, step), bias_correction(beta2, step)
-        m, v = _moments(grads, state, beta1, beta2)
+        m, v = _moments(grads, state, beta1, beta2, inplace)
         updates = {k: -lr * ((beta1 * m[k] + (1 - beta1) * g.float()) / bc1)
                    / (torch.sqrt(v[k] / bc2) + eps) for k, g in grads.items()}
-        return updates, {"m": m, "v": v}
+        return updates, _new_state(state, inplace, m=m, v=v)
 
     return Optimizer(init, update)

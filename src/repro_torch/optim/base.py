@@ -3,11 +3,22 @@
 An optimizer is a pair of functions over ordered ``{path: tensor}`` dicts
 (see ``repro_torch.core.layout``):
   * ``init(params) -> state``
-  * ``update(grads, state, params, step, aux=None) -> (updates, new_state)``
+  * ``update(grads, state, params, step, aux=None, inplace=False)
+    -> (updates, new_state)``
 where ``updates`` are additive deltas and ``step`` is a host int. ``aux``
 carries what a wrapper hands the optimizer it wraps: the delay FIFO's stale
 weight snapshot, ``{"stale_params": {path: tensor}}``, which delay
 compensation reads. Every optimizer takes the keyword; the others ignore it.
+
+``inplace`` is the port of the reference's donated step
+(``repro/engine/spmd.py``, ``donate_argnums``). By default ``update`` is
+functional, the reference's shape: ``state`` and its tensors are left as
+they were and ``new_state`` is built anew. With ``inplace=True`` it may
+write the new state into the tensors of ``state`` and then returns that
+same ``state`` object; the caller must not read the old values afterwards.
+Both forms compute every value with the same expressions, so they agree
+bitwise; the in-place form holds at most one leaf's transient beside the
+state instead of a second copy of it.
 
 Schedules and bias corrections are computed on the host in float32, as the
 reference computes them on the device in float32, and reach the tensor math
@@ -46,9 +57,20 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+    """Scale ``grads`` so their global norm is at most ``max_norm``, in
+    their own tensors (the caller's step owns them: no copy of the
+    gradients is made); returns the same dict."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: g * scale for k, g in grads.items()}
+    for g in grads.values():
+        g.mul_(scale)
+    return grads
+
+
+def ema(old: torch.Tensor, new: torch.Tensor, beta: float, inplace: bool) -> torch.Tensor:
+    """``beta * old + (1 - beta) * new``, written over ``old`` when
+    ``inplace`` (the same operations, so the same bits either way)."""
+    return torch.add(beta * old, (1 - beta) * new, out=old if inplace else None)
 
 
 def constant_schedule(lr: float) -> Schedule:

@@ -21,7 +21,7 @@ from typing import Callable, List, Sequence, Union
 
 import torch
 
-from repro_torch.optim.adam import _moments, _zeros, adam
+from repro_torch.optim.adam import _moments, _new_state, _zeros, adam
 from repro_torch.optim.base import Optimizer, Schedule, bias_correction
 
 Factor = Union[float, torch.Tensor]
@@ -63,9 +63,12 @@ def pipedream_lr(
     inner = adam(schedule, beta1, beta2, eps)
     scales = _per_leaf(delays, lambda t: (1.0 + t) ** (-power))
 
-    def update(grads, state, params, step, aux=None):
-        updates, state = inner.update(grads, state, params, step)
-        return {k: u * _placed(scales, i, u) for i, (k, u) in enumerate(updates.items())}, state
+    def update(grads, state, params, step, aux=None, inplace=False):
+        updates, state = inner.update(grads, state, params, step, inplace=inplace)
+        # the inner updates are this step's own tensors: discounted where they lie
+        for i, u in enumerate(updates.values()):
+            u.mul_(_placed(scales, i, u))
+        return updates, state
 
     return Optimizer(inner.init, update)
 
@@ -92,16 +95,16 @@ def nesterov_pp(
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         lr = schedule(step)
         bc1, bc2 = bias_correction(beta1, step), bias_correction(beta2, step)
-        m, v = _moments(grads, state, beta1, beta2)
+        m, v = _moments(grads, state, beta1, beta2, inplace)
         updates = {}
         for i, (k, g) in enumerate(grads.items()):
             lk = _placed(look, i, g)
             updates[k] = (-lr * ((lk * m[k] + (1.0 - lk) * g.float()) / bc1)
                           / (torch.sqrt(v[k] / bc2) + eps))
-        return updates, {"m": m, "v": v}
+        return updates, _new_state(state, inplace, m=m, v=v)
 
     return Optimizer(init, update)
 
@@ -123,11 +126,11 @@ def delay_compensation(
     used as it is."""
     inner = adam(schedule, beta1, beta2, eps)
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         if aux is not None and "stale_params" in aux:
             stale = aux["stale_params"]
             grads = {k: g + lam * g * g * (params[k].float() - stale[k].float())
                      for k, g in grads.items()}
-        return inner.update(grads, state, params, step)
+        return inner.update(grads, state, params, step, inplace=inplace)
 
     return Optimizer(inner.init, update)

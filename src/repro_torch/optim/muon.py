@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.layout import build_layout
-from repro_torch.optim.adam import _zeros
-from repro_torch.optim.base import Optimizer, Schedule, bias_correction
+from repro_torch.optim.adam import _new_state, _zeros
+from repro_torch.optim.base import Optimizer, Schedule, bias_correction, ema
 
 f32 = np.float32
 
@@ -57,14 +57,14 @@ def muon(
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         lr = schedule(step)
         layout = build_layout(params, "bilateral", min_dim)
         bc1, bc2 = bias_correction(momentum, step), bias_correction(beta2, step)
         new_m, new_v, updates = {}, {}, {}
         for (k, g), plan in zip(grads.items(), layout):
             g = g.float()
-            m = momentum * state["m"][k] + (1 - momentum) * g
+            m = ema(state["m"][k], g, momentum, inplace)
             v = state["v"][k]
             if plan.rotate:  # matrix parameter: orthogonalised momentum
                 o = newton_schulz_orthogonalize(m, ns_steps)
@@ -72,9 +72,9 @@ def muon(
                 scale = f32(np.sqrt(f32(max(g.shape[-2], g.shape[-1])))) * f32(0.2)
                 updates[k] = float(f32(-lr) * scale) * o
             else:
-                v = beta2 * v + (1 - beta2) * torch.square(g)
+                v = ema(v, torch.square(g), beta2, inplace)
                 updates[k] = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
             new_m[k], new_v[k] = m, v
-        return updates, {"m": new_m, "v": new_v}
+        return updates, _new_state(state, inplace, m=new_m, v=new_v)
 
     return Optimizer(init, update)

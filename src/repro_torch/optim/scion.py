@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.layout import build_layout
-from repro_torch.optim.adam import _zeros
-from repro_torch.optim.base import Optimizer, Schedule
+from repro_torch.optim.adam import _new_state, _zeros
+from repro_torch.optim.base import Optimizer, Schedule, ema
 from repro_torch.optim.muon import newton_schulz_orthogonalize
 
 f32 = np.float32
@@ -33,13 +33,13 @@ def scion(
     def init(params):
         return {"m": _zeros(params)}
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         lr = schedule(step)
         layout = build_layout(params, "bilateral", min_dim)
         new_m, updates = {}, {}
         for (k, g), plan in zip(grads.items(), layout):
             g = g.float()
-            m = momentum * state["m"][k] + (1 - momentum) * g
+            m = ema(state["m"][k], g, momentum, inplace)
             if plan.rotate:  # spectral-ball LMO
                 o = newton_schulz_orthogonalize(m, ns_steps)
                 scale = f32(np.sqrt(g.shape[-2] / max(g.shape[-1], 1)))
@@ -47,6 +47,6 @@ def scion(
             else:  # sign LMO (l1 -> linf)
                 updates[k] = float(f32(-lr) * f32(sign_scale)) * torch.sign(m)
             new_m[k] = m
-        return updates, {"m": new_m}
+        return updates, _new_state(state, inplace, m=new_m)
 
     return Optimizer(init, update)

@@ -10,7 +10,8 @@ steps the queue yields zeros, the pipeline warm-up.
 
 The reference builds a new queue every step by concatenation. Here each
 queue is a ring buffer of tau slots with one head counter shared by all
-leaves (every leaf pushes once per step), updated in place: at paper_95m
+leaves (every leaf pushes once per step), written in place when the update
+is (``inplace``, the donated step) and in a copy otherwise: at paper_95m
 with 8 stages the queues hold about 1.3 GB of float32.
 
 ``store_params=True`` also queues weight snapshots, so that delay
@@ -37,33 +38,41 @@ def _warm_ring(p: torch.Tensor, depth: int):
     return p.detach().float().unsqueeze(0).repeat((depth,) + (1,) * p.ndim)
 
 
-def _push(queues, fresh, head: int) -> None:
-    """Each ring's oldest slot takes its leaf's fresh value."""
+def _push(queues, fresh, head: int, inplace: bool):
+    """Each ring's oldest slot takes its leaf's fresh value: in the ring
+    itself with ``inplace``, else in a copy of it (the rings handed in stay
+    as they were). Returns the rings."""
+    if not inplace:
+        queues = [None if q is None else q.clone() for q in queues]
     with torch.no_grad():
         for x, q in zip(fresh.values(), queues):
             if q is not None:
                 q[head % q.shape[0]].copy_(x)
+    return queues
 
 
 def _wrapped_update(inner: Optimizer, pop, store_params: bool):
     """The wrappers' update: pop each leaf's delayed gradient (and stale
     weights) with ``pop(leaves, queues, head)``, run ``inner``, then push the
     fresh values into the slots just popped. ``inner`` is handed ``aux``
-    only when there is any: an optimizer that reads no aux need not take it."""
+    only when there is any: an optimizer that reads no aux need not take
+    it. With ``inplace`` the inner state and the rings are updated in their
+    own tensors and the same state dict is returned; without it the rings
+    are copied, so the state handed in is left as it was."""
 
-    def update(grads, state, params, step, aux=None):
+    def update(grads, state, params, step, aux=None, inplace=False):
         head = state["head"]
         if store_params:
             aux = {**(aux or {}), "stale_params": pop(params, state["param_q"], head)}
         delayed = pop(grads, state["grad_q"], head)
-        if aux:
-            updates, inner_state = inner.update(delayed, state["inner"], params, step, aux=aux)
-        else:
-            updates, inner_state = inner.update(delayed, state["inner"], params, step)
-        new_state = {**state, "inner": inner_state, "head": head + 1}
+        kw = {"aux": aux} if aux else {}
+        updates, inner_state = inner.update(delayed, state["inner"], params, step,
+                                            inplace=inplace, **kw)
+        new_state = state if inplace else dict(state)
+        new_state.update(inner=inner_state, head=head + 1)
         for name, fresh in (("grad_q", grads), ("param_q", params)):
             if name in state:
-                _push(state[name], fresh, head)
+                new_state[name] = _push(state[name], fresh, head, inplace)
         return updates, new_state
 
     return update

@@ -14,7 +14,7 @@ Modes:
     (``_TwoVersionBlock``).
 
 Parameters travel as the model's ``{path: parameter}`` dict, which the
-steps update in place.
+steps update in place, as they do the optimizer state.
 """
 from __future__ import annotations
 
@@ -186,8 +186,15 @@ def make_sim_train_step(
     metrics)``. ``fwd_hist`` is the stale forward weights of no-stash mode
     (``stale_forward_params``), else unused.
 
-    Updates the model's parameters in place; ``loss`` and ``metrics`` stay
-    on the device, so the caller decides when to read them."""
+    Updates the model's parameters, the step's gradients (clipping) and the
+    optimizer state (``update(..., inplace=True)``, delay rings included)
+    in place, and returns the same ``opt_state``: the caller must not keep
+    the old state, and ``SimEngine`` never hands out one it does not own.
+    The reference's sim step does not donate its buffers
+    (``repro/pipeline/simulate.py``), so that callers may reuse their
+    initial parameters; here the engine keeps that guarantee by owning
+    what it changes. ``loss`` and ``metrics`` stay on the device, so the
+    caller decides when to read them."""
     params = param_leaves(model)
     loss2w = make_two_version_loss(model) if no_stash else None
     predict = weight_prediction and delays_tree is not None and schedule is not None
@@ -213,7 +220,7 @@ def make_sim_train_step(
         if grad_clip:
             grads = clip_by_global_norm(grads, grad_clip)
         with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, params, step)
+            updates, opt_state = optimizer.update(grads, opt_state, params, step, inplace=True)
             apply_updates(params, updates)
         return opt_state, loss.detach(), {k: v.detach() for k, v in metrics.items()}
 

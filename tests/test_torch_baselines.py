@@ -261,7 +261,7 @@ def test_newton_schulz_matches_the_reference_and_orthogonalises():
 def _stale_probe():
     """An optimizer whose update is the stale weights it was handed."""
     return (Optimizer(init=lambda p: {},
-                      update=lambda g, s, p, t, aux=None: (
+                      update=lambda g, s, p, t, aux=None, inplace=False: (
                           {k: v.clone() for k, v in aux["stale_params"].items()}, s)),
             JOptimizer(init=lambda p: {},
                        update=lambda g, s, p, t, aux=None: (aux["stale_params"], s)))

@@ -141,6 +141,25 @@ def test_adam_grouped_kernel_matches_plain_and_groups_of_one_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_adam_grouped_in_place_entry_writes_v_prime_over_v_on_card(cuda):
+    """The in-place entry (the kernel's v_out is v) on the same ragged group:
+    one launch, v' in each v's own storage, step and v' bitwise equal to
+    the copying entry's."""
+    shapes = [(384, 1536), (384, 384), (97, 33), (0, 16), (8, 4, 40, 24), (5,), (0,)]
+    gs, ms, vs = _adam_group(cuda, shapes, 5)
+    scal = (0.999, 1e-8, 0.5, 0.25)
+    want_steps, want_vs = tadam.adam_scale_grouped(gs, ms, vs, *scal)
+    mine = [v.clone() for v in vs]
+    ptrs = [v.data_ptr() for v in mine]
+    before = tadam.adam_scale.launches
+    steps, v_news = tadam.adam_scale_grouped(gs, ms, mine, *scal, inplace=True)
+    assert tadam.adam_scale.launches == before + 1
+    assert all(a is b for a, b in zip(v_news, mine)) and [v.data_ptr() for v in mine] == ptrs
+    for s, w, v, wv in zip(steps, want_steps, mine, want_vs):
+        assert torch.equal(s, w) and torch.equal(v, wv)
+
+
+@pytest.mark.cuda
 def test_adam_grouped_kernel_splits_past_max_leaves_on_card(cuda):
     """A group of 2 * MAX_LEAVES + 3 leaves takes three launches; a group
     whose leaves are all empty takes none."""

@@ -15,9 +15,10 @@ from repro.data.synthetic import batches as jbatches
 from repro.engine import LoopConfig as JLoopConfig
 from repro.engine import SimEngine as JSimEngine
 from repro.engine import run_loop as jrun_loop
+from repro.launch import train as jtrain
 from repro.models.model import init_model as jinit_model
 from repro.optim.factory import build_optimizer as jbuild_optimizer
-from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.checkpoint.convert import copy_params_from_numpy, params_from_numpy
 from repro_torch.configs import OptimizerConfig
 from repro_torch.configs import get_config as tget_config
 from repro_torch.data import batches
@@ -134,6 +135,7 @@ def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):
                                    ["--backend", "sim", "--precision", "bf16"],
                                    ["--data-async"],
                                    ["--num-processes", "2"], ["--schedule", "1f1b"],
+                                   ["--coordinator", "localhost:1234"],
                                    ["--backend", "spmd", "--weight-prediction"],
                                    ["--backend", "spmd", "--no-stash"]])
 def test_train_main_refuses_unported_flags(flags):
@@ -158,6 +160,119 @@ def test_train_main_runs_ported_flags(tmp_path, flags):
         assert len(res["ckpt_s"]) == len(res["write_s"]) == 2  # at step 2 and at the end
         more = train.main(args[:4] + ["5"] + args[5:])
         assert more["start_step"] == 3 and len(more["losses"]) == 2
+
+
+def test_sim_backend_ignores_microbatches_and_process_id_as_the_reference_does(tmp_path):
+    """The reference's sim backend ignores --microbatches and --process-id
+    (repro/launch/train.py main refuses only --pods / --data-par and the
+    multi-process flags there), and so does the port's: the same losses as
+    without them, and, from the reference launcher's weights, its loss on
+    this command line within the first-loss tolerance of two
+    implementations of the step (2e-3, tests/test_engine.py:437-438)."""
+    args = ["--smoke", "--stages", "2", "--steps", "1", "--batch", "2", "--seq", "16"]
+    out = str(tmp_path / "ref.json")
+    jtrain.main(args + ["--microbatches", "4", "--out", out])
+    import json
+
+    with open(out) as f:
+        want = json.load(f)["losses"]
+    port = args + ["--log-every", "0", "--device", "cpu"]
+    plain = train.main(port)["losses"]
+    for extra in (["--microbatches", "4"], ["--process-id", "1"]):
+        assert train.main(port + extra)["losses"] == plain, extra
+    cj = jget_config("paper_95m", smoke=True).replace(scan_layers=False)
+    tree = jax.tree.map(np.asarray, jinit_model(jax.random.PRNGKey(0), cj))
+    engine, data, loop_cfg = train.build(train.parse_args(port + ["--microbatches", "4"]))
+    copy_params_from_numpy(param_leaves(engine.model), tree)
+    _, got, _ = run_loop(engine, data, loop_cfg)
+    assert len(got) == len(want) == 1 and abs(got[0] - want[0]) < 2e-3, (got, want)
+
+
+def _paper_1b_reference_losses(params, cj, B, S, steps, K):
+    """The reference sim engine's losses on paper_1b's smoke config from
+    ``params``: basis rotation, unilateral, on the seed-0 stream."""
+    ocfg = JOptimizerConfig(total_steps=steps, rotation_geometry="unilateral")
+    jeng = JSimEngine(cj, jbuild_optimizer(ocfg, params, cj, num_stages=K), grad_clip=1.0)
+    _, losses = jrun_loop(jeng, jbatches(cj, B, S, seed=0), JLoopConfig(steps=steps),
+                          state=jeng.init_state(params=params))
+    return [float(x) for x in losses]
+
+
+def _paper_1b_port_run(params, B, S, steps, K):
+    """The port's sim engine on the same config, weights and stream (the
+    kernels' plain versions, the state updated in place): (losses, the
+    first leaf's m before the run, the engine state after it)."""
+    ct = tget_config("paper_1b", smoke=True).replace(scan_layers=False)
+    model = params_from_numpy(jax.tree.map(np.asarray, params), ct, "cpu")
+    topt = build_optimizer(OptimizerConfig(total_steps=steps, rotation_geometry="unilateral"),
+                           param_leaves(model), ct, num_stages=K, use_kernels=True)
+    teng = SimEngine(model, topt, grad_clip=1.0)
+    state = teng.init_state()
+    m0 = state.opt_state["inner"]["leaves"][0]["m"]
+    _, losses, _ = run_loop(teng, batches(ct, B, S, seed=0, device="cpu"),
+                            LoopConfig(steps=steps), state=state)
+    return losses, m0, state
+
+
+def test_paper_1b_sim_trainer_tracks_reference_with_state_updated_in_place():
+    """paper_1b's smoke config (the abstract's model cut to 2 layers of
+    d_model 256) on both sim engines from the reference's weights and the
+    same stream, 2 stages, basis rotation refreshing at steps 0 and 10 over
+    12 steps. Unilateral geometry, as the continuation tests use: bilateral
+    refreshes of rank-deficient grams move the reference's own curve by up
+    to 0.15 under a 1e-7 perturbation. For the same reason a step holds
+    512 tokens (8 x 64), more than d_model: with 128 the unilateral grams
+    of d_model 256 are rank-deficient too, and the reference's own second
+    loss moves by as much as the port's under a 1e-7 perturbation (the
+    next test). The paper's own runs hold 2048 tokens a step against
+    d_model 1728. The port's engine updates its state in place and runs
+    the kernels' plain versions. Tolerances are those of
+    test_sim_trainer_tracks_reference_loss_curve (tests/test_engine.py:437-438):
+    2e-3 on the first two losses, 5e-2 on all."""
+    steps, K, B, S = 12, 2, 8, 64
+    cj = jget_config("paper_1b", smoke=True).replace(scan_layers=False)
+    params = jinit_model(jax.random.PRNGKey(0), cj)
+    want = _paper_1b_reference_losses(params, cj, B, S, steps, K)
+    got, m0, state = _paper_1b_port_run(params, B, S, steps, K)
+
+    assert state.opt_state["inner"]["leaves"][0]["m"] is m0 and m0.abs().sum() > 0
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    assert len(got) == steps and all(np.isfinite(got))
+    assert max(diffs[:2]) < 2e-3, (got, want)
+    assert max(diffs) < 5e-2, (got, want)
+    assert got[-1] < got[0]
+
+
+@pytest.mark.parametrize("B,S,rank_deficient", [(4, 32, True), (8, 64, False)])
+def test_paper_1b_at_128_tokens_moves_the_reference_itself_as_far_as_the_port(B, S,
+                                                                             rank_deficient):
+    """Why the test above holds 8 x 64 tokens: at 4 x 32 the unilateral
+    grams of d_model 256 are rank-deficient, and the basis past their rank,
+    set by roundoff, gets Adam's full first step. There the reference's own
+    first two losses move by more than 1e-3 when its weights move by 1e-7
+    (seeded normal noise); at 8 x 64 by less than 1e-4. At both sizes the
+    port's distance from the reference on them is within twice that: the
+    same order as the reference against itself, so roundoff, not a fault
+    of the port's in-place step. Prints the distances (``pytest -s``)."""
+    steps, K = 12, 2
+    cj = jget_config("paper_1b", smoke=True).replace(scan_layers=False)
+    params = jinit_model(jax.random.PRNGKey(0), cj)
+    rng = np.random.RandomState(1)
+    nudged = jax.tree.map(lambda x: x + 1e-7 * rng.randn(*x.shape).astype(np.float32), params)
+    want = _paper_1b_reference_losses(params, cj, B, S, steps, K)
+    itself = _paper_1b_reference_losses(nudged, cj, B, S, steps, K)
+    got, _, _ = _paper_1b_port_run(params, B, S, steps, K)
+
+    def dist(a, b):
+        return [abs(x - y) for x, y in zip(a, b)]
+
+    moved, gap = max(dist(itself, want)[:2]), max(dist(got, want)[:2])
+    print(f"paper_1b smoke {B} x {S}: reference moved by 1e-7 weights: first two "
+          f"{moved:.3g}, all {max(dist(itself, want)):.3g}; port against reference: "
+          f"first two {gap:.3g}, all {max(dist(got, want)):.3g}")
+    assert (moved > 1e-3) if rank_deficient else (moved < 1e-4), (itself, want)
+    assert gap < 2 * moved, (got, want, itself)
+    assert max(dist(got, want)) < 5e-2, (got, want)
 
 
 def test_train_main_keeps_the_stage_divisibility_check():

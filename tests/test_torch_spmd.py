@@ -135,7 +135,8 @@ def test_stage_delayed_optimizer_gives_exact_pipedream_delays():
     n = 3
     # the FIFOs reuse a popped slot once the inner update returns: copy out
     identity = Optimizer(init=lambda p: {},
-                         update=lambda g, s, p, t: ({k: v.clone() for k, v in g.items()}, s))
+                         update=lambda g, s, p, t, inplace=False: (
+                             {k: v.clone() for k, v in g.items()}, s))
     jidentity = JOptimizer(init=lambda p: {}, update=lambda g, s, p, t, aux=None: (g, s))
     params = {"0/w": torch.zeros(K, n), "1/embed": torch.zeros(n), "1/lm_head": torch.zeros(n)}
     specs = ["stage", K - 1, 0]
