@@ -27,7 +27,10 @@
    are timed at the path shape beside SDPA in bf16. At head dim 128 both
    entry points run qwen3_0_6b's path shape (16, 256, 128) and a windowed
    ragged case (4, 200, 128), window 100, under the same gates, and are
-   timed at the path shape beside SDPA.
+   timed at the path shape beside SDPA. The bf16 B2 and B3 (wgmma,
+   flash_bwd_bf16.cu) print, at both path shapes, their time beside SDPA's
+   bf16 backward, ptxas's registers and spills and their error against
+   float64, each beside the old kernels' (``flash_bf16_bwd``).
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
@@ -225,6 +228,16 @@ BF16_TOL, BF16_L_TOL = 1e-2, 1e-5
 # B2 and B3 at the path shape: relative error against a float64 backward at most this
 # many times the plain version's. One TF32 pass instead of three is ~1e3 times off.
 F64_ERR_FACTOR = 4
+# the bf16 B2 and B3 before their redesign for wgmma (16-row blocks on mma.sync,
+# P and dS in float32), at each path shape: us per launch (PERF.md section 6) and
+# relative error against float64 (launch/bench_flash.py on that tree), one NVIDIA
+# H100 80GB HBM3 at 700 W; phase 2 prints the new kernels' own beside them
+OLD_BF16_BWD = {
+    (6, 256, 64): {"flash_bwd_dq": {"us": 9.79, "rel_err_f64": 1.6498e-3},
+                   "flash_bwd_dkv": {"us": 11.26, "rel_err_f64": 1.6839e-3}},
+    (16, 256, 128): {"flash_bwd_dq": {"us": 17.86, "rel_err_f64": 1.6571e-3},
+                     "flash_bwd_dkv": {"us": 32.24, "rel_err_f64": 1.6594e-3}},
+}
 FLASH_INSTANTIATIONS = 24  # 3 kernels x 2 input types x head dims 16, 32, 64, 128
 
 
@@ -340,9 +353,17 @@ def ptxas_report(log: str, kernel: str):
 
 
 def flash_entry(mangled: str) -> str:
-    """``flash_fwd_kernel<64, bf16>`` for a flash kernel's mangled name."""
-    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E(\w+?)EEv", mangled)
-    return f"{m.group(1)}<{m.group(2)}, {'bf16' if 'bfloat16' in m.group(3) else 'f32'}>"
+    """``flash_fwd_kernel<64, bf16>`` for a flash kernel's mangled name (the
+    bf16 backward's kernels, ``flash_bwd_dq_bf16_kernel<64, bf16>``, take
+    bf16 pointers and DH alone as template argument)."""
+    m = re.search(r"(flash_\w+?_kernel)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}, {'bf16' if 'bfloat16' in mangled else 'f32'}>"
+
+
+def bf16_source(src: str) -> str:
+    """The source of a flash kernel's bf16 entry point: the backward's has a
+    file of its own."""
+    return src.replace("flash_bwd.cu", "flash_bwd_bf16.cu")
 
 
 def bounds(flops, nbytes, peaks, passes=1):
@@ -812,7 +833,10 @@ def check_flash_bf16(torch, kflash, peaks, path=FLASH_PATH):
     timing["flash_fwd"]["library_ms"] = sdpa_fwd
     timing["flash_bwd_dq"]["library_ms"] = timing["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
     for name, (f_in, f_p, nbytes) in flash_work(BH, S, dh, elem=2).items():
-        t_ops = f_in / peaks[3] + 2 * f_p / peaks[2]  # bf16 rate; 2xTF32 at the TF32 rate
+        # B1: products of two inputs at the bf16 rate, P V in 2xTF32 at the TF32
+        # rate; B2 and B3 (wgmma) multiply bf16 P and dS: every product bf16
+        t_ops = (f_in / peaks[3] + 2 * f_p / peaks[2] if name == "flash_fwd"
+                 else (f_in + f_p) / peaks[3])
         t_bytes = nbytes / peaks[1]
         timing[name].update(bound_ms=1e3 * max(t_ops, t_bytes),
                             bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -1325,6 +1349,26 @@ def main() -> int:
                                          QWEN3_FLASH_PATH)
     h128b_rows, h128b_errs, h128b_t = timed("flash_bf16_dh128", check_flash_bf16, torch,
                                             kflash, peaks, QWEN3_FLASH_PATH)
+    # the bf16 B2 and B3 (wgmma) at both path shapes: their time beside SDPA's
+    # bf16 backward, ptxas's registers and spills, and their error against
+    # float64, each beside the old kernels'
+    bf16_bwd = {}
+    for path, t in ((FLASH_PATH, bf16_t), (QWEN3_FLASH_PATH, h128b_t)):
+        bf16_bwd[str(path)] = {name: {
+            "us": 1e3 * t[name]["ms"], "sdpa_bwd_us": 1e3 * t[name]["library_ms"],
+            "blocks": t[name]["blocks"], "bound_us": 1e3 * t[name]["bound_ms"],
+            "rel_err_f64": t[name]["rel_err_f64"],
+            "plain_rel_err_f64": t[name]["plain_rel_err_f64"],
+            "ptxas": None if flash_ptxas is None else {
+                flash_entry(k): v for k, v in flash_ptxas.items()
+                if f"{name}_bf16_kernelILi{path[2]}E" in k},
+            "old": OLD_BF16_BWD[path][name]} for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+        bf16_bwd[str(path)]["b2_plus_b3_us"] = sum(
+            bf16_bwd[str(path)][name]["us"] for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+        # the host ns to encode one launch's four TMA tensor maps
+        x = torch.empty(path, dtype=torch.bfloat16, device="cuda")
+        bf16_bwd[str(path)]["tensor_maps_ns"] = lib.lib.rbr_flash_bwd_bf16_maps_ns(
+            x.data_ptr(), *path, 1000)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
         {"matmul": mm_rows, "matmul_grouped": grp_rows, "adam_scale": adam_rows,
          "adam_scale_grouped": agrp_rows,
@@ -1362,6 +1406,7 @@ def main() -> int:
               for k, t in bf16_t.items() if "rel_err_f64" in t},
           "flash_bf16_bitwise_repeat": {k: all(r[k + "_bitwise_repeat"] for r in bf16_rows)
                                         for k in bf16_t},
+          "flash_bf16_bwd": bf16_bwd,
           **{f"flash{tag}_dh128": {
               "cases": len(r), "max_abs_err": e, "blocks": {k: x["blocks"] for k, x in t.items()},
               "ms_per_launch": {k: {f: x[f] for f in ("ms", "plain_ms", "library_ms",
@@ -1726,7 +1771,8 @@ def main() -> int:
         per = launches / BF16_STEPS
         t = bf16_t[kname]
         rows.append({
-            "name": kname + "_bf16", "route": "cuda", "source": src, "replaces": replaces,
+            "name": kname + "_bf16", "route": "cuda", "source": bf16_source(src),
+            "replaces": replaces,
             "launches": launches, "max_abs_err": bf16_errs[kname],
             "ms": per * t["ms"], "plain_ms": per * t["plain_ms"],
             "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
@@ -1748,8 +1794,9 @@ def main() -> int:
             per = launches / CATALOG_STEPS
             t = t_of[kname]
             rows.append({
-                "name": kname + sfx + "_dh128", "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches, "max_abs_err": e_of[kname],
+                "name": kname + sfx + "_dh128", "route": "cuda",
+                "source": bf16_source(src) if sfx else src, "replaces": replaces,
+                "launches": launches, "max_abs_err": e_of[kname],
                 "ms": per * t["ms"], "plain_ms": per * t["plain_ms"],
                 "bound_ms": per * t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": per * t["library_ms"], "blocks_per_launch": t["blocks"],
@@ -1768,7 +1815,8 @@ def main() -> int:
          "time of SDPA's whole backward (dQ, dK and dV in one call). The _bf16 rows are "
          "B1-B3's bfloat16 entry points per step of the SPMD 1F1B path under --precision "
          "bf16 (launches: its 4-step run); their bound_ms counts the bf16 x bf16 products "
-         "at the bf16 rate, the float32-by-bf16 products as two TF32 passes, and bf16 "
+         "at the bf16 rate (B1's float32-by-bf16 P V as two TF32 passes; B2 and B3 multiply "
+         "bf16 P and dS, all at the bf16 rate), and bf16 "
          "heads with float32 L and D; library_ms is SDPA in bf16. The _dh128 rows are "
          "B1-B3 at head dim 128 per step of qwen3_0_6b's SPMD 1F1B path (catalog_1f1b: "
          "4 stages, 8 microbatches; launches: its 3-step runs in float32 and bf16), timed "

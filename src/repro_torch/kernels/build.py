@@ -37,6 +37,8 @@ _SIGNATURES = {
     # stream
     "rbr_adam_scale_grouped_f32": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
 }
+# host ns to encode one bf16 backward launch's four TMA tensor maps: x, BH, S, dh, reps
+_SIGNATURES["rbr_flash_bwd_bf16_maps_ns"] = (_P, _I, _I, _I, _I)
 # the flash kernels, each with a float32 and a bfloat16 entry point of one signature
 for _dt in ("f32", "bf16"):
     _SIGNATURES.update({

@@ -1,5 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): dQ (B2) and dK, dV (B3),
-// recomputing the attention weights from the saved logsumexp L.
+// Flash-attention backward for Hopper (sm_90a) on float32 inputs: dQ (B2)
+// and dK, dV (B3), recomputing the attention weights from the saved
+// logsumexp L. The bfloat16 entry points have kernels of their own, on wgmma
+// (flash_bwd_bf16.cu).
 //
 // Replaces: repro/kernels/flash.py::_flash_bwd_dq_kernel (B2) and
 // ::_flash_bwd_dkv_kernel (B3), both launched by `_flash_backward`. With
@@ -47,23 +49,10 @@
 // - Masked entries are selected to 0 before exp, never multiplied by a mask
 //   (fully-masked rows carry L = -1e30); the ragged end of S is masked in the
 //   kernel.
-// - bf16 inputs (the reference's casts at flash.py:174-177, :193 and
-//   :228-229): the same geometry on tiles of half the bytes, stored with
-//   rows padded by 16 bytes (LD16) instead of swizzled. The block's fixed
-//   operands stay in registers as bf16 pairs (no split to hold). The
-//   scores and dP = dO V^T (dP^T = V dO^T in B3) multiply two inputs on
-//   mma.sync.m16n8k16 bf16, exact products; dS K, P^T dO and dS^T Q
-//   multiply the float32 P or dS by an input in 2xTF32, so P and dS keep
-//   their float32 accuracy. Every sum is float32; dQ, dK and dV are rounded
-//   to bf16 once, in the merge. At the training shape B2 then moves 1.00 MB
-//   (0.30 us) against 0.15 us of products, B3 1.19 MB (0.36 us) against
-//   0.26 us: bytes still bound both.
-// - Head width 128 (flash_common.cuh): float32 blocks have 4 warps; the bf16
-//   fixed operands are stored in shared memory (FixedShared16) and read at
-//   each use; each B3 block owns NC = 64 of dh's columns of dK and dV, so
-//   B3 launches two blocks per key tile, each recomputing the step's scores
-//   over all of dh. The products, their splits and their order are those of
-//   the narrower widths.
+// - Head width 128 (flash_common.cuh): blocks have 4 warps; each B3 block
+//   owns NC = 64 of dh's columns of dK and dV, so B3 launches two blocks per
+//   key tile, each recomputing the step's scores over all of dh. The
+//   products, their splits and their order are those of the narrower widths.
 
 #include <type_traits>
 
@@ -77,23 +66,18 @@ using namespace rbr_tf32;
 
 template <int DH, typename T>
 struct BwdGeom {
-  static constexpr bool F32 = sizeof(T) == 4;
+  static_assert(std::is_same<T, float>::value, "bf16 inputs take flash_bwd_bf16.cu's kernels");
   static constexpr int WARPS = block_warps<DH, T>();
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int NF = DH / 8;  // k8 steps over dh, n8 fragments of dh
-  // bf16 fixed operands: in registers up to DH 64, in shared memory above
-  static constexpr bool FIXED_SHARED = !F32 && DH > 64;
   // B3: blocks per key tile, each owning NC of dh's columns of dK and dV
   static constexpr int CSPLIT = DH > 64 ? 2 : 1;
   static constexpr int NC = DH / CSPLIT;
-  // one streamed tile: STEP x DH floats, swizzled (swz); or STEP rows of LD16 bf16
-  static constexpr int TILE_ELEMS = F32 ? STEP * DH : STEP * LD16<DH>;
+  // one streamed tile: STEP x DH floats, swizzled (swz)
+  static constexpr int TILE_ELEMS = STEP * DH;
   static constexpr int TILE_BYTES = (int)sizeof(T) * TILE_ELEMS;
-  // float32: the two fixed operands' split fragments; bf16: their rows of
-  // LD16 (FixedShared16), or nothing when they are held in registers
-  static constexpr int FIXED_BYTES =
-      F32 ? (int)sizeof(float) * 2 * NF * 2 * 32 * 4
-          : (FIXED_SHARED ? (int)sizeof(T) * 2 * ROWS * LD16<DH> : 0);
+  // the two fixed operands' split fragments
+  static constexpr int FIXED_BYTES = (int)sizeof(float) * 2 * NF * 2 * 32 * 4;
   // merge rows (B2: DH columns, B3: NC): conflict-free float2 stores
   static constexpr int LDM = DH + 8;
   static constexpr int LDM_KV = NC + 8;
@@ -123,8 +107,7 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // This lane's share of the cp.async copies of rows [r0, r0 + STEP) of x
-// (S, DH) into the tile at dst (float32: swizzled; bf16: rows of LD16);
-// rows >= S are zero-filled.
+// (S, DH) into the swizzled tile at dst; rows >= S are zero-filled.
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ x, int r0, int S,
                                           int lane) {
@@ -138,37 +121,14 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ x,
-                                          int r0, int S, int lane) {
-  static_assert(STEP * DH / 8 % 32 == 0, "whole 16-byte copies per lane");
-#pragma unroll
-  for (int i = 0; i < STEP * DH / 8 / 32; ++i) {
-    const int idx = lane + 32 * i;
-    const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * LD16<DH> + c, ok ? x + (long long)(r0 + r) * DH + c : x, ok ? 16 : 0);
-  }
-}
-
 // The block's two fixed operands x0, x1 (rows [r0, r0 + ROWS), 0 past S):
-// B2's Q and dO, B3's K and V. Float32: split A fragments in shared memory,
-// in fragment order: fragment f (operand f / NF, k8 step f % NF) keeps each
+// B2's Q and dO, B3's K and V, as split A fragments in shared memory, in
+// fragment order: fragment f (operand f / NF, k8 step f % NF) keeps each
 // lane's four big values at F[2 f * 32 + lane] and its four small ones at
 // F[(2 f + 1) * 32 + lane]; warp w of W splits fragments w, w + W, ...
-// straight from device memory. bf16 up to DH 64: each lane's m16n8k16 A
-// fragments of both operands in registers, read straight from device
-// memory. bf16 above: both operands' rows in shared memory (rows of LD16,
-// x0's then x1's), from which a lane reads its fragments at each use.
+// straight from device memory.
 struct Fixed32 {
   uint4* F;
-};
-template <int DH>
-struct Fixed16 {
-  uint32_t a[2][DH / 16][4];
-};
-struct FixedShared16 {
-  const __nv_bfloat16* X;
 };
 
 template <int DH>
@@ -187,53 +147,6 @@ __device__ __forceinline__ void load_fixed(Fixed32& fx, float* smem, const float
     const FragA a = split_a(at(g, c), at(g + 8, c), at(g, c + 4), at(g + 8, c + 4));
     fx.F[2 * f * 32 + lane] = make_uint4(a.big[0], a.big[1], a.big[2], a.big[3]);
     fx.F[(2 * f + 1) * 32 + lane] = make_uint4(a.small[0], a.small[1], a.small[2], a.small[3]);
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void load_fixed(Fixed16<DH>& fx, float*,
-                                           const __nv_bfloat16* __restrict__ x0,
-                                           const __nv_bfloat16* __restrict__ x1, int r0, int S,
-                                           int, int, int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int op = 0; op < 2; ++op) {
-    const __nv_bfloat16* x = op ? x1 : x0;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // rows g, g + 8; columns 2t, 2t + 8
-        const int r = g + 8 * (e & 1), c = 16 * kk + 2 * t + 8 * (e >> 1);
-        fx.a[op][kk][e] = r0 + r < S ? bf16x2_at(x + (long long)(r0 + r) * DH + c) : 0u;
-      }
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void load_fixed(FixedShared16& fx, float* smem,
-                                           const __nv_bfloat16* __restrict__ x0,
-                                           const __nv_bfloat16* __restrict__ x1, int r0, int S,
-                                           int, int nwarps, int) {
-  constexpr int CPR = DH / 8;  // 16-byte chunks a row
-  __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem);
-  for (int idx = threadIdx.x; idx < 2 * ROWS * CPR; idx += 32 * nwarps) {
-    const int op = idx / (ROWS * CPR), r = idx / CPR % ROWS, c = idx % CPR * 8;
-    const __nv_bfloat16* x = op ? x1 : x0;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(x + (long long)(r0 + r) * DH + c);
-    *reinterpret_cast<uint4*>(X + (op * ROWS + r) * LD16<DH> + c) = val;
-  }
-  fx.X = X;
-}
-
-// A lane's m16n8k16 A fragment of k16 step kk of fixed operand op (0: x0, 1: x1).
-template <int DH>
-__device__ __forceinline__ void fixed16_frag(uint32_t (&a)[4], const FixedShared16& fx, int op,
-                                             int kk, int g, int t) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {  // rows g, g + 8; columns 2t, 2t + 8
-    const int r = g + 8 * (e & 1), c = 16 * kk + 2 * t + 8 * (e >> 1);
-    a[e] = bf16x2_at(fx.X + (op * ROWS + r) * LD16<DH> + c);
   }
 }
 
@@ -268,42 +181,6 @@ __device__ __forceinline__ void score_pair(float (&a)[STEP / 8][4], float (&b)[S
   }
 }
 
-template <int DH, int UNROLL>
-__device__ __forceinline__ void score_pair(float (&a)[STEP / 8][4], float (&b)[STEP / 8][4],
-                                           const Fixed16<DH>& fx, const __nv_bfloat16* Xa,
-                                           const __nv_bfloat16* Xb, int g, int t, int) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < STEP / 8; ++j) {
-      const int off = (8 * j + g) * LD16<DH> + 16 * kk + 2 * t;
-      const uint32_t ba[2] = {bf16x2_at(Xa + off), bf16x2_at(Xa + off + 8)};
-      const uint32_t bb[2] = {bf16x2_at(Xb + off), bf16x2_at(Xb + off + 8)};
-      mma_bf16_rn(a[j], fx.a[0][kk], ba);
-      mma_bf16_rn(b[j], fx.a[1][kk], bb);
-    }
-}
-
-template <int DH, int UNROLL>
-__device__ __forceinline__ void score_pair(float (&a)[STEP / 8][4], float (&b)[STEP / 8][4],
-                                           const FixedShared16& fx, const __nv_bfloat16* Xa,
-                                           const __nv_bfloat16* Xb, int g, int t, int) {
-#pragma unroll (UNROLL)
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t fa[4], fb[4];
-    fixed16_frag<DH>(fa, fx, 0, kk, g, t);
-    fixed16_frag<DH>(fb, fx, 1, kk, g, t);
-#pragma unroll
-    for (int j = 0; j < STEP / 8; ++j) {
-      const int off = (8 * j + g) * LD16<DH> + 16 * kk + 2 * t;
-      const uint32_t ba[2] = {bf16x2_at(Xa + off), bf16x2_at(Xa + off + 8)};
-      const uint32_t bb[2] = {bf16x2_at(Xb + off), bf16x2_at(Xb + off + 8)};
-      mma_bf16_rn(a[j], fa, ba);
-      mma_bf16_rn(b[j], fb, bb);
-    }
-  }
-}
-
 // c += a X for the products over the step (contracting X's rows): k8 step
 // kk of the rows, n8 fragment j of dh. a is a split float32 P or dS fragment.
 template <int DH>
@@ -311,14 +188,6 @@ __device__ __forceinline__ void prod_rn(float (&c)[4], const FragA& a, const flo
                                         int j, int g, int t) {
   mma_3xtf32_rn(c, a,
                 split_b(X[swz<DH>(8 * kk + t, 8 * j + g)], X[swz<DH>(8 * kk + t + 4, 8 * j + g)]));
-}
-
-template <int DH>
-__device__ __forceinline__ void prod_rn(float (&c)[4], const FragA& a, const __nv_bfloat16* X,
-                                        int kk, int j, int g, int t) {
-  const __nv_bfloat16* x = X + (8 * kk + t) * LD16<DH> + 8 * j + g;
-  const uint32_t b[2] = {tf32_of(x[0]), tf32_of(x[4 * LD16<DH>])};
-  mma_2xtf32_rn(c, a, b);
 }
 
 // A fragment of a warp's P or dS tile (ROWS x STEP, row stride LDP): k8 step kk.
@@ -343,12 +212,6 @@ __device__ __forceinline__ void stage_sums(float* M, const float (&acc)[NC / 8][
 
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
-  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                                            *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // Columns [0, NC) of out row r0 + r (row stride DH) = mul * (sum over the
@@ -382,8 +245,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ D, T* __restrict__ dq, int BH, int S, int causal,
                     int window, float scale) {
   using G = BwdGeom<DH, T>;
-  using Fixed = std::conditional_t<G::F32, Fixed32,
-                                   std::conditional_t<G::FIXED_SHARED, FixedShared16, Fixed16<DH>>>;
+  using Fixed = Fixed32;
   constexpr int NF = G::NF, WARPS = G::WARPS;
   // the dh loop of the scores: unrolled whole up to DH 64; by 2 above, where the
   // fixed fragments of every k8 step live at once would spill
@@ -486,8 +348,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int BH,
                      int S, int causal, int window, float scale) {
   using G = BwdGeom<DH, T>;
-  using Fixed = std::conditional_t<G::F32, Fixed32,
-                                   std::conditional_t<G::FIXED_SHARED, FixedShared16, Fixed16<DH>>>;
+  using Fixed = Fixed32;
   constexpr int NC = G::NC, WARPS = G::WARPS;
   extern __shared__ __align__(16) float smem[];
 
@@ -650,8 +511,8 @@ int dkv_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, c
 }  // namespace
 }  // namespace rbr_flash
 
-// q, k, v, dO, dq: (BH, S, dh) float32 (or bfloat16: _bf16) contiguous and
-// 16-byte aligned; L, D: (BH, S) float32. window < 0 means no window.
+// q, k, v, dO, dq: (BH, S, dh) float32 contiguous and 16-byte aligned; L, D:
+// (BH, S) float32. window < 0 means no window.
 // Returns a CUDA error code.
 extern "C" int rbr_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
                                     const float* dO, const float* L, const float* D, float* dq,
@@ -661,30 +522,11 @@ extern "C" int rbr_flash_bwd_dq_f32(const float* q, const float* k, const float*
                              stream);
 }
 
-extern "C" int rbr_flash_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                     const __nv_bfloat16* v, const __nv_bfloat16* dO,
-                                     const float* L, const float* D, __nv_bfloat16* dq, int BH,
-                                     int S, int dh, int causal, int window, float scale,
-                                     int device, cudaStream_t stream) {
-  return rbr_flash::dq_entry(q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device,
-                             stream);
-}
-
 // As above, writing dk and dv: (BH, S, dh).
 extern "C" int rbr_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
                                      const float* dO, const float* L, const float* D, float* dk,
                                      float* dv, int BH, int S, int dh, int causal, int window,
                                      float scale, int device, cudaStream_t stream) {
-  return rbr_flash::dkv_entry(q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale,
-                              device, stream);
-}
-
-extern "C" int rbr_flash_bwd_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                      const __nv_bfloat16* v, const __nv_bfloat16* dO,
-                                      const float* L, const float* D, __nv_bfloat16* dk,
-                                      __nv_bfloat16* dv, int BH, int S, int dh, int causal,
-                                      int window, float scale, int device,
-                                      cudaStream_t stream) {
   return rbr_flash::dkv_entry(q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale,
                               device, stream);
 }

@@ -1,20 +1,24 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu: B1,
-// flash_bwd.cu: B2 and B3): block geometry, the causal / sliding-window mask,
-// the ranges of steps a block walks, and the launch.
+// flash_bwd.cu: B2 and B3 on float32 inputs, flash_bwd_bf16.cu: B2 and B3
+// on bf16 inputs): the causal / sliding-window mask, the launch and, for B1
+// and the float32 B2 and B3, their block geometry and the ranges of steps a
+// block walks.
 //
-// Every kernel works on one head of q, k, v laid out (S, DH) row-major. A
-// block owns ROWS rows (one m16 fragment of mma.sync: query rows in B1 and
-// B2, keys in B3) and splits the range it has to walk over its warps in
-// steps of STEP rows (keys in B1 and B2, queries in B3): warp w of W takes
-// steps w, w + W, ... All products run on the tensor cores in 3xTF32
-// (tf32_mma.cuh), which keeps float32 accuracy.
+// B1 and the float32 B2 and B3 work on one head of q, k, v laid out (S, DH)
+// row-major. A block owns ROWS rows (one m16 fragment of mma.sync: query
+// rows in B1 and B2, keys in B3) and splits the range it has to walk over
+// its warps in steps of STEP rows (keys in B1 and B2, queries in B3): warp w
+// of W takes steps w, w + W, ... All products run on the tensor cores in
+// 3xTF32 (tf32_mma.cuh), which keeps float32 accuracy.
 //
-// Each kernel is a template on its head width DH (16, 32, 64 or 128) and its
-// input type T, float or __nv_bfloat16. q, k, v and dO are T, L and D
-// float32; every product and sum is float32 and O, dQ, dK and dV are written
-// as T. With bf16 inputs, products of two inputs run on mma.sync.m16n8k16
-// bf16 (exact products) and products of a float32 P or dS by an input in
-// 2xTF32 (tf32_mma.cuh); the streamed tiles are stored as T, half the bytes.
+// Each of those kernels is a template on its head width DH (16, 32, 64 or
+// 128) and its input type T: float or __nv_bfloat16 for B1, float for B2
+// and B3. q, k, v and dO are T, L and D float32; every product and sum is
+// float32 and O, dQ, dK and dV are written as T. With bf16 inputs, B1's
+// products of two inputs run on mma.sync.m16n8k16 bf16 (exact products) and
+// P V in 2xTF32 (tf32_mma.cuh); its streamed tiles are stored as T, half
+// the bytes. The bf16 B2 and B3 have a geometry of their own: 64-row tiles
+// on wgmma (flash_bwd_bf16.cu).
 //
 // Head width 128 keeps the arithmetic of the narrower widths (the same
 // products, split the same way and summed in the same order) and changes
@@ -22,12 +26,11 @@
 // memory and 255 registers a thread without spilling:
 // - float32 blocks have 4 warps instead of 8 (block_warps): eight warps'
 //   private double buffers of 16 x 128 float32 tiles would take 286-310 KB;
-// - operands that a block holds for its whole range (B1's Q in float32, the
-//   bf16 B2's and B3's fixed operands) are read from shared memory at each
-//   use instead of being held in registers (128 registers for B1's split Q);
-// - each B3 block owns half of dh's columns of its keys' dK and dV (the
-//   scores still contract all of dh), so its two accumulators stay at 64
-//   registers, as at head width 64, and B3 launches twice the blocks.
+// - B1's Q in float32 is read from shared memory at each use instead of
+//   being held in registers (128 registers for its split);
+// - each float32 B3 block owns half of dh's columns of its keys' dK and dV
+//   (the scores still contract all of dh), so its two accumulators stay at
+//   64 registers, as at head width 64, and B3 launches twice the blocks.
 #pragma once
 
 #include <cuda_bf16.h>

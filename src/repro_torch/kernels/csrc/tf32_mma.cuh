@@ -1,6 +1,7 @@
 // Float32-accurate products on Hopper's tensor cores, shared by the rotation
-// matmul (matmul.cu, B4), the flash forward (flash_fwd.cu, B1) and the flash
-// backward (flash_bwd.cu, B2 and B3).
+// matmul (matmul.cu, B4), the flash forward (flash_fwd.cu, B1) and the
+// float32 flash backward (flash_bwd.cu, B2 and B3); and the cp.async copies
+// that every kernel's loads use.
 //
 // The 3xTF32 split: a float32 x is written as big + small, where
 // big = rna_tf32(x) keeps the top 11 significant bits and
@@ -34,7 +35,7 @@
 //   B (8 x 8, k by n):      b0 (t, g)  b1 (t + 4, g)
 //   C (16 x 8):             c0 (g, 2t) c1 (g, 2t + 1) c2 (g + 8, 2t) c3 (g + 8, 2t + 1)
 //
-// bfloat16 inputs (the flash kernels' bf16 entry points). A bf16 value is a
+// bfloat16 inputs (the flash forward's bf16 entry point). A bf16 value is a
 // float32 whose low 16 bits are zero, so it is exactly a TF32 value: its
 // split has small = 0. Two products follow.
 //   mma_bf16       a bf16 x bf16 product on mma.sync.m16n8k16 with a float32
@@ -43,8 +44,7 @@
 //   mma_2xtf32     a float32 A by a bf16 B: small_a * b + big_a * b, the
 //                  3xTF32 split without its big_a * small_b pass, which is 0.
 //                  A keeps its 22 significant bits, as in 3xTF32.
-// Each has an _rn form that sums the product from zero and adds it to c with
-// a float32 add, as mma_3xtf32_rn does.
+// (The bf16 flash backward runs on wgmma instead: wgmma_bf16.cuh.)
 // mma.sync.m16n8k16 bf16 fragments, two values a register, the lower column
 // (A) or row (B) in the low half:
 //   A (16 x 16, row-major): a0 (g, 2t..2t+1)  a1 (g + 8, 2t..)  a2 (g, 2t+8..)  a3 (g + 8, 2t+8..)
@@ -139,14 +139,6 @@ __device__ __forceinline__ void mma_2xtf32(float (&c)[4], const FragA& a, const 
   mma_tf32(c, a.big, b);
 }
 
-__device__ __forceinline__ void mma_2xtf32_rn(float (&c)[4], const FragA& a,
-                                              const uint32_t (&b)[2]) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_2xtf32(d, a, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += d[e];
-}
-
 // c += a * b, a 16 x 16 by 16 x 8 product of bf16 fragments.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -155,14 +147,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16_rn(float (&c)[4], const uint32_t (&a)[4],
-                                            const uint32_t (&b)[2]) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16(d, a, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += d[e];
 }
 
 // cp.async copies into shared memory; src_bytes < size zero-fills the rest

@@ -6,18 +6,20 @@ plain PyTorch version and its launch counter:
 * ``flash_fwd`` (B1, ``csrc/flash_fwd.cu``; replaces ``_flash_fwd_kernel``):
   O and the row logsumexp L = m + log l. A row that sees no key gives O = 0
   and L = ``NEG_INF``.
-* ``flash_bwd_dq`` (B2, ``csrc/flash_bwd.cu``; replaces
-  ``_flash_bwd_dq_kernel``): dQ = scale * dS K with p = exp(s*scale - L),
-  dS = p * (dO V^T - D).
-* ``flash_bwd_dkv`` (B3, ``csrc/flash_bwd.cu``; replaces
+* ``flash_bwd_dq`` (B2, ``csrc/flash_bwd.cu``, on bf16 inputs
+  ``csrc/flash_bwd_bf16.cu``; replaces ``_flash_bwd_dq_kernel``):
+  dQ = scale * dS K with p = exp(s*scale - L), dS = p * (dO V^T - D).
+* ``flash_bwd_dkv`` (B3, the same two files; replaces
   ``_flash_bwd_dkv_kernel``): dV = p^T dO, dK = scale * dS^T Q.
 
 Each kernel has a float32 and a bfloat16 entry point (``_f32``, ``_bf16``),
 as the reference's kernels take either: q, k, v and dO in one of the two
-dtypes, L and D in float32, every product and sum in float32, and O, dQ, dK
-and dV written in the input dtype. Each wrapper takes the plain version for
-CPU tensors and launches its kernel for CUDA tensors, or raises; it counts
-its launches by input dtype (``launches`` for float32, ``launches_bf16``).
+dtypes, L and D in float32, every sum in float32, and O, dQ, dK and dV
+written in the input dtype. On bf16 inputs the backward rounds P and dS to
+bf16 before their products, so that B2 and B3 multiply only bf16 operands.
+Each wrapper takes the plain version for CPU tensors and launches its
+kernel for CUDA tensors, or raises; it counts its launches by input dtype
+(``launches`` for float32, ``launches_bf16``).
 The kernels' headers say what bounds them on the card. ``FlashAttention``
 joins them into one ``torch.autograd.Function`` that saves only q, k, v, O
 and L, the residuals the 1F1B stash budget assumes; D = rowsum(dO * O),
@@ -64,8 +66,9 @@ def visible_mask(S: int, seq_len: int, causal: bool, window: Optional[int],
 
 # ---------------------------------------------------------------------------
 # plain versions, in the kernels' operation order: bfloat16 inputs are
-# upcast, everything is computed in float32 (or wider), and the head-shaped
-# outputs are cast back to the input dtype
+# upcast, everything is computed in float32 (or wider), the backward's P and
+# dS are rounded to bf16 before their products, and the head-shaped outputs
+# are cast back to the input dtype
 # ---------------------------------------------------------------------------
 
 
@@ -93,6 +96,10 @@ def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 
 def _p_ds(q, k, v, do, L, D, causal, window):
+    """P and dS of the backward, float32 (or wider). On bfloat16 inputs both
+    are rounded to bf16 once, dS from the float32 P, as the kernels round
+    them before their products (the bf16 x bf16 wgmma of B2 and B3)."""
+    bf16 = q.dtype == torch.bfloat16
     q, k, v, do = _up(q, k, v, do)
     S, dh = q.shape[-2], q.shape[-1]
     mask = visible_mask(S, S, causal, window, q.device)
@@ -101,6 +108,8 @@ def _p_ds(q, k, v, do, L, D, causal, window):
     # exp out of p
     p = torch.where(mask, torch.exp(s - L[..., None]), torch.zeros_like(s))
     ds = p * (torch.matmul(do, v.mT) - D[..., None])
+    if bf16:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
     return p, ds
 
 
@@ -238,9 +247,10 @@ for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
 
 def launched_blocks() -> dict:
     """Blocks in the grid of each kernel's last launch in this process, as the
-    launch recorded them (0 before a kernel's first launch): one per 16 rows
-    of each head, and for B3 at head dim 128 two (each owns half of dh's
-    columns of dK and dV)."""
+    launch recorded them (0 before a kernel's first launch): B1 and the
+    float32 B2 and B3 one per 16 rows of each head (the float32 B3 at head
+    dim 128 two, each owning half of dh's columns of dK and dV); the bf16 B2
+    and B3 one per 64 rows."""
     grids = (ctypes.c_int * 3).in_dll(load_library().lib, "rbr_flash_blocks")
     return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), grids))
 

@@ -41,8 +41,9 @@ GROUPS = (  # first match wins; names are the kernels' symbol names
     ("port: matmul.cu", ("grouped_tf32x3_kernel<",)),
     ("port: adam_step.cu", ("adam_scale_grouped_kernel",)),
     ("port: flash_fwd.cu (B1)", ("flash_fwd_kernel",)),
-    ("port: flash_bwd.cu dq (B2)", ("flash_bwd_dq_kernel",)),
-    ("port: flash_bwd.cu dkv (B3)", ("flash_bwd_dkv_kernel",)),
+    # B2 and B3: flash_bwd.cu on float32 inputs, flash_bwd_bf16.cu on bf16
+    ("port: flash_bwd dq (B2)", ("flash_bwd_dq_kernel", "flash_bwd_dq_bf16_kernel")),
+    ("port: flash_bwd dkv (B3)", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_bf16_kernel")),
     ("qr", ("geqrf", "orgqr", "larf", "householder", "geqr2", "potrf", "trsm")),
     # cuBLAS's products: its bf16 ones run as nvjet kernels
     ("library gemm", ("gemm", "xmma", "cutlass", "sm90", "dot_kernel", "nvjet")),

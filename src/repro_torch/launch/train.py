@@ -96,6 +96,11 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+# optimizers whose state the sim backend's --weight-prediction cannot read,
+# as in the reference (see _refuse_unported)
+WEIGHT_PREDICTION_REFUSED = ("adasgd",)
+
+
 def _refuse_unported(args) -> None:
     if args.data_async or args.data_delay is not None:
         raise SystemExit("--data-async / --data-delay is not yet ported to repro_torch")
@@ -133,6 +138,18 @@ def _refuse_unported(args) -> None:
         raise SystemExit(
             "--coordinator / --num-processes are spmd-backend options; the "
             "sim backend is a single-program simulation (use --backend spmd)"
+        )
+    # --weight-prediction reads Adam-style moments: the reference's
+    # predict_weights (repro/pipeline/simulate.py:49-79) fails on this command
+    # line for adasgd, whose second moment is one scalar (jax.tree.map over
+    # params and v: "ValueError: Expected dict"). Of the baselines, only
+    # adasgd: nesterov, nesterov_pp, pipedream_lr, delay_compensation, muon
+    # and scion run there in both packages (--smoke --stages 2 --steps 2)
+    if args.weight_prediction and args.optimizer in WEIGHT_PREDICTION_REFUSED:
+        raise SystemExit(
+            f"--weight-prediction with --optimizer {args.optimizer} is not supported: "
+            "the reference's predict_weights (repro/pipeline/simulate.py:49-79) "
+            "fails on it (its second moment is a scalar, not a tree of leaves)"
         )
 
 

@@ -286,16 +286,27 @@ def _launch_counts():
         tflash.flash_fwd, tflash.flash_bwd_dq, tflash.flash_bwd_dkv))
 
 
+# the bf16 B2 and B3 at the edges of their 64-row tiles: one tile, one row
+# past it, a row short of two, a row past two, ranges of 3 and 5 tiles, a
+# window of 8 inside one tile and a ragged windowed length, at dh 64 and 128
+BF16_TILE_CASES = [((2, S, dh), w) for dh in (64, 128)
+                   for S, w in ((64, None), (65, None), (127, None), (129, None), (192, 8),
+                                (320, None), (256, 8), (200, 100))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((6, 256, 64), 32),
                                           ((4, 200, 32), 100), ((2, 100, 16), 16),
                                           ((3, 130, 64), None), ((1, 64, 32), 1),
-                                          ((6, 48, 64), None), ((2, 272, 32), None)])
+                                          ((6, 48, 64), None), ((2, 272, 32), None)]
+                         + BF16_TILE_CASES)
 def test_flash_bf16_kernels_match_plain_on_card(cuda, shape, window):
     """B1, B2 and B3's bfloat16 entry points against their plain versions on
-    the same bf16 inputs, over the float32 kernels' cases: O, dQ, dK and dV
-    come back in bf16 within 1e-2, L in float32 within 1e-5, and each launch
-    counts as a bf16 launch."""
+    the same bf16 inputs, over the float32 kernels' cases and the edges of
+    the bf16 B2's and B3's 64-row tiles: O, dQ, dK and dV come back in bf16
+    within 1e-2, L in float32 within 1e-5, and each launch counts as a bf16
+    launch. B1 launches a block per 16 rows of a head, B2 and B3 (wgmma,
+    flash_bwd_bf16.cu) one per 64."""
     q, k, v, do = (x.to(torch.bfloat16) for x in _heads(cuda, shape, seed=shape[1] + 1))
     before = _launch_counts()
     o, L = tflash.flash_fwd(q, k, v, window=window)
@@ -312,14 +323,21 @@ def test_flash_bf16_kernels_match_plain_on_card(cuda, shape, window):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got, want, rtol=BF16_TOL, atol=BF16_TOL)
     assert _launch_counts() == tuple((n32, n16 + 1) for n32, n16 in before)
-    blocks = shape[0] * -(-shape[1] // 16)
-    assert tflash.launched_blocks() == dict.fromkeys(
-        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), blocks)
+    assert tflash.launched_blocks() == _bf16_blocks(shape)
+
+
+def _bf16_blocks(shape):
+    """The grids of the bf16 entry points: B1 a block per 16 rows of each
+    head, B2 and B3 one per 64."""
+    BH, S = shape[:2]
+    return {"flash_fwd": BH * -(-S // 16), "flash_bwd_dq": BH * -(-S // 64),
+            "flash_bwd_dkv": BH * -(-S // 64)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((2, 200, 32), 100),
-                                          ((2, 100, 16), 16)])
+                                          ((2, 100, 16), 16), ((2, 320, 128), None),
+                                          ((2, 129, 64), 8)])
 def test_flash_bf16_kernels_are_bitwise_repeatable_on_card(cuda, shape, window):
     q, k, v, do = (x.to(torch.bfloat16) for x in _heads(cuda, shape, seed=6))
     o1, L1 = tflash.flash_fwd(q, k, v, window=window)
@@ -360,7 +378,8 @@ DH128_CASES = [((16, 256, 128), None), ((4, 200, 128), 100), ((2, 130, 128), Non
 def test_flash_kernels_at_head_dim_128_match_plain_on_card(cuda, shape, window, dtype):
     """B1, B2 and B3 at head dim 128, both entry points, against their plain
     versions (float32 at the reference's tolerances, bf16 at 1e-2 with L at
-    1e-5); two runs repeat bitwise; B3 launches two blocks per 16 keys."""
+    1e-5); two runs repeat bitwise; the float32 B3 launches two blocks per
+    16 keys, the bf16 B2 and B3 one per 64 rows."""
     q, k, v, do = (x.to(dtype) for x in _heads(cuda, shape, seed=shape[1] + 3))
     f32 = dtype == torch.float32
     fwd_tol = (FWD_RTOL, FWD_ATOL) if f32 else (BF16_TOL, BF16_TOL)
@@ -374,8 +393,9 @@ def test_flash_kernels_at_head_dim_128_match_plain_on_card(cuda, shape, window, 
     dq = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
     dk, dv = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
     blocks = shape[0] * -(-shape[1] // 16)
-    assert tflash.launched_blocks() == {"flash_fwd": blocks, "flash_bwd_dq": blocks,
-                                        "flash_bwd_dkv": 2 * blocks}
+    assert tflash.launched_blocks() == (
+        {"flash_fwd": blocks, "flash_bwd_dq": blocks, "flash_bwd_dkv": 2 * blocks} if f32
+        else _bf16_blocks(shape))
     dk_p, dv_p = tflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
     for got, want in ((dq, tflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window)),
                       (dk, dk_p), (dv, dv_p)):

@@ -145,6 +145,44 @@ def test_flash_at_head_dim_128_matches_pallas_kernels(window, S, dtype):
         _close(g.float(), np.asarray(w, np.float32), *bwd_tol, name)
 
 
+# the card's gate for the bf16 entry points against their plain versions
+# (tests/test_torch_cuda.py): |err| <= 1e-2 + 1e-2 |want|
+BF16_TOL = 1e-2
+# tests/test_torch_cuda.py's bf16 cases and DH128_CASES; (16, 256, 128) is
+# qwen3_0_6b's path shape
+BF16_CARD_CASES = [((6, 256, 64), None), ((6, 256, 64), 32), ((4, 200, 32), 100),
+                   ((2, 100, 16), 16), ((3, 130, 64), None), ((1, 64, 32), 1),
+                   ((6, 48, 64), None), ((2, 272, 32), None), ((16, 256, 128), None),
+                   ((4, 200, 128), 100), ((2, 130, 128), None), ((3, 48, 128), 16),
+                   ((1, 272, 128), None)]
+
+
+@pytest.mark.parametrize("shape,window", BF16_CARD_CASES)
+def test_flash_bf16_backward_rounding_of_p_and_ds_stays_within_the_card_gate(shape, window):
+    """On bf16 inputs the plain B2 and B3 round P and dS to bf16 before their
+    products, as the kernels do (bf16 x bf16 wgmma). That moves dQ, dK and
+    dV by less than the card's gate against the same backward with P and dS
+    kept in float32."""
+    rng = np.random.RandomState(shape[1] + (window or 0))
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    o, L = tflash.flash_fwd(q, k, v, window=window)
+    D = (do.float() * o.float()).sum(-1)
+    got = (tflash.flash_bwd_dq(q, k, v, do, L, D, window=window),
+           *tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    S, dh = shape[1:]
+    scale = tflash._scale(dh)
+    mask = tflash.visible_mask(S, S, True, window, "cpu")
+    p = torch.where(mask, torch.exp(qf @ kf.mT * scale - L[..., None]), torch.zeros(()))
+    ds = p * (dof @ vf.mT - D[..., None])
+    want = ((ds @ kf) * scale, (ds.mT @ qf) * scale, p.mT @ dof)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), w.bfloat16().float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL, msg=name)
+
+
 def test_flash_fully_masked_rows_are_zero_with_the_sentinel():
     """tests/test_kernels.py:166 on the port: a window of 8 and keys masked
     past seq_len = 100 of 128 rows leave rows >= 107 seeing no key. Their O

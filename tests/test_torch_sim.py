@@ -143,6 +143,25 @@ def test_train_main_refuses_unported_flags(flags):
         train.main(["--smoke", "--device", "cpu"] + flags)
 
 
+def test_weight_prediction_with_adasgd_is_refused_as_the_reference_fails_on_it():
+    """The sim backend's --weight-prediction extrapolates with Adam-style
+    moments; adasgd keeps one scalar second moment, on which the reference's
+    predict_weights raises. The port's launcher refuses that command line by
+    name instead of failing inside the step."""
+    from repro.pipeline.simulate import predict_weights as jpredict_weights
+
+    with pytest.raises(SystemExit, match="--weight-prediction with --optimizer adasgd"):
+        train.main(["--smoke", "--stages", "2", "--steps", "2", "--weight-prediction",
+                    "--optimizer", "adasgd", "--device", "cpu"])
+    cj = jget_config("paper_95m", smoke=True).replace(scan_layers=False)
+    params = jinit_model(jax.random.PRNGKey(0), cj)
+    jopt = jbuild_optimizer(JOptimizerConfig(name="adasgd", total_steps=2), params, cj,
+                            num_stages=2)
+    delays = jax.tree.map(lambda _: 1, params)
+    with pytest.raises(ValueError, match="Expected dict"):
+        jpredict_weights(params, jopt.init(params), delays, 1e-3)
+
+
 @pytest.mark.parametrize("flags", [["--weight-prediction"], ["--no-stash"], ["--ckpt-dir"],
                                    ["--backend", "spmd", "--precision", "bf16"]])
 def test_train_main_runs_ported_flags(tmp_path, flags):
