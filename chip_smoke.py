@@ -27,10 +27,12 @@
    are timed at the path shape beside SDPA in bf16. At head dim 128 both
    entry points run qwen3_0_6b's path shape (16, 256, 128) and a windowed
    ragged case (4, 200, 128), window 100, under the same gates, and are
-   timed at the path shape beside SDPA. The bf16 B2 and B3 (wgmma,
-   flash_bwd_bf16.cu) print, at both path shapes, their time beside SDPA's
-   bf16 backward, ptxas's registers and spills and their error against
-   float64, each beside the old kernels' (``flash_bf16_bwd``).
+   timed at the path shape beside SDPA. The bf16 B1 (wgmma,
+   flash_fwd_bf16.cu) and B2 and B3 (flash_bwd_bf16.cu) print, at both path
+   shapes, their time beside SDPA's bf16 forward or backward, ptxas's
+   registers and spills, their error against float64 (held within
+   F64_ERR_FACTOR of the plain versions') and their tensor maps' host ns,
+   each beside the old kernels' (``flash_bf16_fwd``, ``flash_bf16_bwd``).
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
@@ -225,8 +227,9 @@ QWEN3_FLASH_PATH = (16, 256, 128)
 # B1-B3 on bf16 inputs against their plain versions on the same inputs: O, dQ,
 # dK and dV are each rounded to bf16 once (2^-8 relative); L is float32
 BF16_TOL, BF16_L_TOL = 1e-2, 1e-5
-# B2 and B3 at the path shape: relative error against a float64 backward at most this
-# many times the plain version's. One TF32 pass instead of three is ~1e3 times off.
+# B1-B3 at the path shape: relative error against a float64 forward or backward at
+# most this many times the plain version's. One TF32 pass instead of three is ~1e3
+# times off.
 F64_ERR_FACTOR = 4
 # the bf16 B2 and B3 before their redesign for wgmma (16-row blocks on mma.sync,
 # P and dS in float32), at each path shape: us per launch (PERF.md section 6) and
@@ -238,7 +241,13 @@ OLD_BF16_BWD = {
     (16, 256, 128): {"flash_bwd_dq": {"us": 17.86, "rel_err_f64": 1.6571e-3},
                      "flash_bwd_dkv": {"us": 32.24, "rel_err_f64": 1.6594e-3}},
 }
-FLASH_INSTANTIATIONS = 24  # 3 kernels x 2 input types x head dims 16, 32, 64, 128
+# B1 before its redesign for wgmma (16-row blocks on mma.sync, P V in 2xTF32) on
+# bf16 inputs, at each path shape: us per launch (PERF.md section 6), one NVIDIA
+# H100 80GB HBM3 at 700 W; phase 2 prints the new kernel's own beside them
+OLD_BF16_FWD = {(6, 256, 64): {"us": 10.37}, (16, 256, 128): {"us": 21.02}}
+# B1, B2 and B3 x float32 and bf16 entry points (each its own kernel) x head dims
+# 16, 32, 64, 128
+FLASH_INSTANTIATIONS = 24
 
 
 T_START = time.perf_counter()
@@ -353,17 +362,19 @@ def ptxas_report(log: str, kernel: str):
 
 
 def flash_entry(mangled: str) -> str:
-    """``flash_fwd_kernel<64, bf16>`` for a flash kernel's mangled name (the
-    bf16 backward's kernels, ``flash_bwd_dq_bf16_kernel<64, bf16>``, take
-    bf16 pointers and DH alone as template argument)."""
+    """``flash_fwd_kernel<64, f32>`` for a flash kernel's mangled name: its
+    head width and its input type (the bf16 kernels,
+    ``flash_fwd_bf16_kernel<64, bf16>`` and ``flash_bwd_dq_bf16_kernel<64,
+    bf16>``, take bf16 pointers)."""
     m = re.search(r"(flash_\w+?_kernel)ILi(\d+)E", mangled)
     return f"{m.group(1)}<{m.group(2)}, {'bf16' if 'bfloat16' in mangled else 'f32'}>"
 
 
 def bf16_source(src: str) -> str:
-    """The source of a flash kernel's bf16 entry point: the backward's has a
-    file of its own."""
-    return src.replace("flash_bwd.cu", "flash_bwd_bf16.cu")
+    """The source of a flash kernel's bf16 entry point: each has a file of
+    its own."""
+    return src.replace("flash_bwd.cu", "flash_bwd_bf16.cu").replace(
+        "flash_fwd.cu", "flash_fwd_bf16.cu")
 
 
 def bounds(flops, nbytes, peaks, passes=1):
@@ -739,9 +750,10 @@ def check_flash_bf16(torch, kflash, peaks, path=FLASH_PATH):
     """B1-B3's bfloat16 entry points against their plain versions on the
     same bf16 inputs: the float32 check's cases (``flash_cases(path)``),
     each kernel run twice and required to repeat bitwise. At the path shape:
-    B2 and B3 against a float64 backward (within F64_ERR_FACTOR of the plain
-    versions' error), and the times of all three, their plain versions and
-    SDPA's bf16 forward and backward. Returns (rows, errs, timing)."""
+    B1 against a float64 forward (O) and B2 and B3 against a float64
+    backward, each within F64_ERR_FACTOR of its plain version's error, and
+    the times of all three, their plain versions and SDPA's bf16 forward and
+    backward. Returns (rows, errs, timing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -799,11 +811,14 @@ def check_flash_bf16(torch, kflash, peaks, path=FLASH_PATH):
     D = (do.float() * o.float()).sum(-1)
     timing = {}
     x64 = [x.double() for x in (q, k, v, do, L, D)]
-    want = {"flash_bwd_dq": (kflash.flash_bwd_dq_plain(*x64),),
+    # B1: the error of O; B2 and B3: of dQ, and of dK or dV (the larger)
+    want = {"flash_fwd": (kflash.flash_fwd_plain(*x64[:3])[0],),
+            "flash_bwd_dq": (kflash.flash_bwd_dq_plain(*x64),),
             "flash_bwd_dkv": kflash.flash_bwd_dkv_plain(*x64)}
     for name, w in want.items():
         def rel(fn):
-            got = fn(q, k, v, do, L, D)
+            got = fn(q, k, v) if name == "flash_fwd" else fn(q, k, v, do, L, D)
+            got = got[:1] if name == "flash_fwd" else got
             got = got if isinstance(got, tuple) else (got,)
             return max(float((x.double() - y).norm() / y.norm()) for x, y in zip(got, w))
         t = timing[name] = {"rel_err_f64": rel(getattr(kflash, name)),
@@ -833,10 +848,9 @@ def check_flash_bf16(torch, kflash, peaks, path=FLASH_PATH):
     timing["flash_fwd"]["library_ms"] = sdpa_fwd
     timing["flash_bwd_dq"]["library_ms"] = timing["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
     for name, (f_in, f_p, nbytes) in flash_work(BH, S, dh, elem=2).items():
-        # B1: products of two inputs at the bf16 rate, P V in 2xTF32 at the TF32
-        # rate; B2 and B3 (wgmma) multiply bf16 P and dS: every product bf16
-        t_ops = (f_in / peaks[3] + 2 * f_p / peaks[2] if name == "flash_fwd"
-                 else (f_in + f_p) / peaks[3])
+        # every product at the bf16 rate: B1's QK^T and its P V in two bf16
+        # passes (P split into hi and lo parts); B2 and B3 multiply bf16 P and dS
+        t_ops = (f_in + 2 * f_p if name == "flash_fwd" else f_in + f_p) / peaks[3]
         t_bytes = nbytes / peaks[1]
         timing[name].update(bound_ms=1e3 * max(t_ops, t_bytes),
                             bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -1349,24 +1363,34 @@ def main() -> int:
                                          QWEN3_FLASH_PATH)
     h128b_rows, h128b_errs, h128b_t = timed("flash_bf16_dh128", check_flash_bf16, torch,
                                             kflash, peaks, QWEN3_FLASH_PATH)
-    # the bf16 B2 and B3 (wgmma) at both path shapes: their time beside SDPA's
-    # bf16 backward, ptxas's registers and spills, and their error against
-    # float64, each beside the old kernels'
-    bf16_bwd = {}
+    # the bf16 B1, B2 and B3 (wgmma) at both path shapes: their time beside
+    # SDPA's bf16 forward or backward, ptxas's registers and spills, and their
+    # error against float64, each beside the old kernels', and the host ns to
+    # encode one launch's TMA tensor maps
+    def bf16_ptxas(name, dh):
+        return None if flash_ptxas is None else {
+            flash_entry(k): v for k, v in flash_ptxas.items()
+            if f"{name}_bf16_kernelILi{dh}E" in k}
+
+    bf16_fwd, bf16_bwd = {}, {}
     for path, t in ((FLASH_PATH, bf16_t), (QWEN3_FLASH_PATH, h128b_t)):
+        f = t["flash_fwd"]
+        x = torch.empty(path, dtype=torch.bfloat16, device="cuda")
+        bf16_fwd[str(path)] = {
+            "us": 1e3 * f["ms"], "sdpa_fwd_us": 1e3 * f["library_ms"], "blocks": f["blocks"],
+            "bound_us": 1e3 * f["bound_ms"], "rel_err_f64": f["rel_err_f64"],
+            "plain_rel_err_f64": f["plain_rel_err_f64"],
+            "ptxas": bf16_ptxas("flash_fwd", path[2]), "old": OLD_BF16_FWD[path],
+            "tensor_maps_ns": lib.lib.rbr_flash_fwd_bf16_maps_ns(x.data_ptr(), *path, 1000)}
         bf16_bwd[str(path)] = {name: {
             "us": 1e3 * t[name]["ms"], "sdpa_bwd_us": 1e3 * t[name]["library_ms"],
             "blocks": t[name]["blocks"], "bound_us": 1e3 * t[name]["bound_ms"],
             "rel_err_f64": t[name]["rel_err_f64"],
             "plain_rel_err_f64": t[name]["plain_rel_err_f64"],
-            "ptxas": None if flash_ptxas is None else {
-                flash_entry(k): v for k, v in flash_ptxas.items()
-                if f"{name}_bf16_kernelILi{path[2]}E" in k},
+            "ptxas": bf16_ptxas(name, path[2]),
             "old": OLD_BF16_BWD[path][name]} for name in ("flash_bwd_dq", "flash_bwd_dkv")}
         bf16_bwd[str(path)]["b2_plus_b3_us"] = sum(
             bf16_bwd[str(path)][name]["us"] for name in ("flash_bwd_dq", "flash_bwd_dkv"))
-        # the host ns to encode one launch's four TMA tensor maps
-        x = torch.empty(path, dtype=torch.bfloat16, device="cuda")
         bf16_bwd[str(path)]["tensor_maps_ns"] = lib.lib.rbr_flash_bwd_bf16_maps_ns(
             x.data_ptr(), *path, 1000)
     (OUT_DIR / "chip_smoke_kernels.json").write_text(json.dumps(
@@ -1401,19 +1425,19 @@ def main() -> int:
           "flash_bf16_ms_per_launch": {k: {f: t[f] for f in (
               "ms", "plain_ms", "library_ms", "bound_ms", "host_ms")} for k, t in bf16_t.items()},
           "flash_bf16_blocks": {k: t["blocks"] for k, t in bf16_t.items()},
-          "flash_bf16_bwd_rel_err_f64": {
+          "flash_bf16_rel_err_f64": {
               k: {f: t[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
               for k, t in bf16_t.items() if "rel_err_f64" in t},
           "flash_bf16_bitwise_repeat": {k: all(r[k + "_bitwise_repeat"] for r in bf16_rows)
                                         for k in bf16_t},
-          "flash_bf16_bwd": bf16_bwd,
+          "flash_bf16_fwd": bf16_fwd, "flash_bf16_bwd": bf16_bwd,
           **{f"flash{tag}_dh128": {
               "cases": len(r), "max_abs_err": e, "blocks": {k: x["blocks"] for k, x in t.items()},
               "ms_per_launch": {k: {f: x[f] for f in ("ms", "plain_ms", "library_ms",
                                                       "bound_ms", "host_ms")}
                                 for k, x in t.items()},
-              "bwd_rel_err_f64": {k: {f: x[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
-                                  for k, x in t.items() if "rel_err_f64" in x},
+              "rel_err_f64": {k: {f: x[f] for f in ("rel_err_f64", "plain_rel_err_f64")}
+                              for k, x in t.items() if "rel_err_f64" in x},
               "bitwise_repeat": all(row[k + "_bitwise_repeat"] for row in r for k in t)}
              for tag, r, e, t in (("", h128_rows, h128_errs, h128_t),
                                   ("_bf16", h128b_rows, h128b_errs, h128b_t))}})
@@ -1815,8 +1839,8 @@ def main() -> int:
          "time of SDPA's whole backward (dQ, dK and dV in one call). The _bf16 rows are "
          "B1-B3's bfloat16 entry points per step of the SPMD 1F1B path under --precision "
          "bf16 (launches: its 4-step run); their bound_ms counts the bf16 x bf16 products "
-         "at the bf16 rate (B1's float32-by-bf16 P V as two TF32 passes; B2 and B3 multiply "
-         "bf16 P and dS, all at the bf16 rate), and bf16 "
+         "at the bf16 rate (B1's P V as two bf16 passes, P split into hi and lo parts; B2 "
+         "and B3 multiply bf16 P and dS), and bf16 "
          "heads with float32 L and D; library_ms is SDPA in bf16. The _dh128 rows are "
          "B1-B3 at head dim 128 per step of qwen3_0_6b's SPMD 1F1B path (catalog_1f1b: "
          "4 stages, 8 microbatches; launches: its 3-step runs in float32 and bf16), timed "

@@ -103,9 +103,6 @@
 #include <chrono>
 #include <cmath>
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "flash_common.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -175,17 +172,6 @@ __device__ __forceinline__ Ring make_ring(unsigned char* raw) {
   return ring;
 }
 
-// TMA copies of rows [r0, r0 + BR) of head bh of `map` into the tile at dst,
-// one box per panel; rows past S arrive as zeros.
-template <int DH>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, int r0, int bh,
-                                          uint32_t bar) {
-  using G = TileGeom<DH>;
-#pragma unroll
-  for (int p = 0; p < DH / G::PW; ++p)
-    tma_load_3d(dst + p * G::PANEL, &map, p * G::PW, r0, bh, bar);
-}
-
 // The producer warp. Lane 0 starts the TMA copies of the fixed tiles x0, x1
 // (rows [f0, f0 + BR)) and then, stage after stage, of the range's tiles
 // y0, y1 (rows (lo + i) BR), refilling a stage once the consumers have
@@ -227,15 +213,6 @@ __device__ __forceinline__ void produce(const Ring& ring, const CUtensorMap& x0,
   }
 }
 
-// Key tiles [lo, hi) that can hold a visible key for query rows [q0, q0 + BR).
-__device__ __forceinline__ void key_tiles(int q0, int S, int causal, int window, int& lo,
-                                          int& hi) {
-  const int lo_col = window >= 0 ? max(0, q0 - window + 1) : 0;
-  const int hi_col = causal ? min(S, q0 + BR) : S;
-  lo = lo_col / BR;
-  hi = (hi_col + BR - 1) / BR;
-}
-
 // Query tiles [lo, hi) that can hold a row seeing one of the keys [k0, k0 + BR).
 __device__ __forceinline__ void query_tiles(int k0, int S, int causal, int window, int& lo,
                                             int& hi) {
@@ -244,13 +221,6 @@ __device__ __forceinline__ void query_tiles(int k0, int S, int causal, int windo
   const int hi_row = window >= 0 ? min(S, k0 + BR - 1 + window) : S;
   lo = lo_row / BR;
   hi = (hi_row + BR - 1) / BR;
-}
-
-// Whether every query row of [q0, q0 + BR) sees every key of [k0, k0 + BR):
-// then the tile needs no mask.
-__device__ __forceinline__ bool whole_tile(int q0, int k0, int S, int causal, int window) {
-  return q0 + BR <= S && k0 + BR <= S && (!causal || k0 + BR - 1 <= q0) &&
-         (window < 0 || k0 > q0 + BR - 1 - window);
 }
 
 // Rows [r0, r0 + BR) of out (row stride DH) = mul * acc, the D fragment of a
@@ -364,7 +334,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const float* __restr
   const int bh = blockIdx.x % BH;
   const int q0 = (ntiles - 1 - (int)(blockIdx.x / BH)) * BR;  // late query tiles first
   int lo, hi;
-  key_tiles(q0, S, causal, window, lo, hi);
+  key_steps<BR, BR>(q0, S, causal, window, lo, hi);
   const int n = hi - lo;
 
   if (threadIdx.x >= CONSUMERS) {  // the producer warp
@@ -396,7 +366,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const float* __restr
     float sc[32], dp[32];  // S, then P; dP, then dS
     scores<DH>(sc, dp, Qa, Ka, dOa, Va);
     // P while dP is still on the tensor cores
-    if (whole_tile(q0, k0, S, causal, window))
+    if (whole_tile<BR>(q0, k0, S, S, causal, window))
       probs<false, false>(sc, sl2, nL, q0, k0, S, causal, window);
     else
       probs<true, false>(sc, sl2, nL, q0, k0, S, causal, window);
@@ -458,7 +428,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const float* __rest
     // P^T while dP^T is still on the tensor cores, then dV += P^T dO while
     // dS^T is computed
     const float* LD = stage_stats<DH>(ring, s);  // -L log2(e), then D, of the tile's queries
-    if (whole_tile(q0, k0, S, causal, window))
+    if (whole_tile<BR>(q0, k0, S, S, causal, window))
       probs<false, true>(sc, sl2, LD, k0, q0, S, causal, window);
     else
       probs<true, true>(sc, sl2, LD, k0, q0, S, causal, window);
@@ -491,42 +461,6 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const float* __rest
   const long long head = (long long)bh * S * DH;
   store_rows<DH>(dk + head, dk_acc, k0, S, scale);
   store_rows<DH>(dv + head, dv_acc, k0, S, 1.f);
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda; null if the driver does not offer it.
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
-
-// The tensor map of a (BH, S, DH) bf16 tensor: boxes of 64 rows of one head
-// by PW columns, swizzled as TileGeom<DH> lays a panel out; rows past S
-// (outside the head) are filled with zeros.
-template <int DH>
-bool head_map(CUtensorMap* map, const bf16* x, int BH, int S) {
-  using G = TileGeom<DH>;
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)S * DH * 2};  // bytes
-  const cuuint32_t box[3] = {(cuuint32_t)G::PW, (cuuint32_t)BR, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = G::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : G::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(x), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 template <int DH>

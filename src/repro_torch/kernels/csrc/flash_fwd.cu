@@ -1,5 +1,7 @@
-// Flash-attention forward (B1) for Hopper (sm_90a): causal or sliding-window
-// attention with an online softmax, emitting O and the row logsumexp L.
+// Flash-attention forward (B1) on float32 inputs for Hopper (sm_90a): causal
+// or sliding-window attention with an online softmax, emitting O and the row
+// logsumexp L. The bf16 entry point has a kernel of its own
+// (flash_fwd_bf16.cu).
 //
 // Replaces: repro/kernels/flash.py::_flash_fwd_kernel (Pallas, launched by
 // `_flash_forward`). Per head and query row i:
@@ -38,19 +40,11 @@
 // - The ragged end of S and keys past seq_len are masked in the kernel;
 //   masked scores are selected away before exp, never multiplied by a mask;
 //   nothing is atomic.
-// - bf16 inputs (the reference's bf16 path, flash.py:94-96 and :149): the
-//   same geometry on tiles of half the bytes, rows padded by 16 bytes
-//   (LD16). QK^T runs on mma.sync.m16n8k16 bf16, whose products are exact
-//   in float32, straight from 32-bit pairs of Q and K; PV multiplies the
-//   float32 P by the bf16 V in 2xTF32, so P keeps its float32 accuracy. O
-//   is rounded to bf16 once, at the end; L stays float32. The bytes fall to
-//   0.79 MB a launch at the training shape (0.24 us at 3.35 TB/s); the
-//   products take 0.03 us at the bf16 rate (QK^T) plus 0.10 us in two TF32
-//   passes (PV), so the bytes still bound it.
-// - Head width 128 (flash_common.cuh): float32 blocks have 4 warps, and keep
-//   Q in shared memory, split at each use; bf16 blocks keep 8 warps and Q's
-//   fragments in registers. Either way the products, their split and their
+// - Head width 128 (flash_common.cuh): blocks have 4 warps, and keep Q in
+//   shared memory, split at each use. The products, their split and their
 //   order are those of the narrower widths.
+// - bf16 inputs take a kernel of their own (flash_fwd_bf16.cu: 64-row tiles
+//   on wgmma, fed by TMA).
 
 #include <type_traits>
 
@@ -62,23 +56,22 @@ namespace {
 
 using namespace rbr_tf32;
 
-template <int DH, typename T>
+template <int DH>
 struct FwdGeom {
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int WARPS = block_warps<DH, T>();
+  static constexpr int WARPS = block_warps<DH, float>();
   static constexpr int THREADS = 32 * WARPS;
-  // float32 Q split once into registers takes DH registers: above 64 columns
-  // it is read from shared memory and split at each use (QShared32)
-  static constexpr bool Q_SHARED = F32 && DH > 64;
-  // Q and K rows: 4 * odd floats, or LD16; conflict-free fragment reads
-  static constexpr int LDK = F32 ? DH + 4 : LD16<DH>;
-  // V rows: 8 (mod 32) floats for DH 32, 64 and 128, 24 for 16; or LD16
-  static constexpr int LDV = F32 ? DH + 8 : LD16<DH>;
+  // Q split once into registers takes DH registers: above 64 columns it is
+  // read from shared memory and split at each use (QShared32)
+  static constexpr bool Q_SHARED = DH > 64;
+  // Q and K rows: 4 * odd floats; conflict-free fragment reads
+  static constexpr int LDK = DH + 4;
+  // V rows: 8 (mod 32) floats for DH 32, 64 and 128, 24 for 16
+  static constexpr int LDV = DH + 8;
   static constexpr int K_ELEMS = STEP * LDK;
   static constexpr int V_ELEMS = STEP * LDV;
-  static constexpr int Q_BYTES = (int)sizeof(T) * ROWS * LDK;
+  static constexpr int Q_BYTES = (int)sizeof(float) * ROWS * LDK;
   static constexpr int WARP_BYTES =
-      (int)sizeof(T) * 2 * (K_ELEMS + V_ELEMS) + (int)sizeof(float) * ROWS * LDP;
+      (int)sizeof(float) * 2 * (K_ELEMS + V_ELEMS) + (int)sizeof(float) * ROWS * LDP;
   static_assert(Q_BYTES % 16 == 0 && WARP_BYTES % 16 == 0, "16-byte aligned regions");
   // the merge reuses the warps' space: m, l and a ROWS x DH accumulator per warp
   static constexpr int MERGE_FLOATS = WARPS * (2 * ROWS + ROWS * DH);
@@ -87,18 +80,13 @@ struct FwdGeom {
   static constexpr size_t BYTES = Q_BYTES + WARPS * WARP_BYTES;
 };
 
-// Q's A fragments, held in registers for the whole block: split once into
-// TF32 halves (float32 inputs), or read as bf16 pairs. Float32 heads wider
-// than 64 keep Q in shared memory instead and split each fragment at use
-// (QShared32): the same split values, 4 loads and 8 conversions more per k8
-// step.
+// Q's A fragments, held in registers for the whole block, split once into
+// TF32 halves. Heads wider than 64 keep Q in shared memory instead and split
+// each fragment at use (QShared32): the same split values, 4 loads and 8
+// conversions more per k8 step.
 template <int DH>
 struct QFrag32 {
   FragA f[DH / 8];
-};
-template <int DH>
-struct QFrag16 {
-  uint32_t f[DH / 16][4];
 };
 struct QShared32 {
   const float* Qs;
@@ -106,7 +94,7 @@ struct QShared32 {
 
 template <int DH>
 __device__ __forceinline__ void load_q(QFrag32<DH>& qf, const float* Qs, int g, int t) {
-  constexpr int LDK = FwdGeom<DH, float>::LDK;
+  constexpr int LDK = FwdGeom<DH>::LDK;
 #pragma unroll
   for (int kk = 0; kk < DH / 8; ++kk) {
     const float* r0 = Qs + g * LDK + 8 * kk + t;
@@ -120,25 +108,11 @@ __device__ __forceinline__ void load_q(QShared32& qf, const float* Qs, int, int)
   qf.Qs = Qs;
 }
 
-template <int DH>
-__device__ __forceinline__ void load_q(QFrag16<DH>& qf, const __nv_bfloat16* Qs, int g, int t) {
-  constexpr int LDK = FwdGeom<DH, __nv_bfloat16>::LDK;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const __nv_bfloat16* r0 = Qs + g * LDK + 16 * kk + 2 * t;
-    const __nv_bfloat16* r1 = r0 + 8 * LDK;
-    qf.f[kk][0] = bf16x2_at(r0);
-    qf.f[kk][1] = bf16x2_at(r1);
-    qf.f[kk][2] = bf16x2_at(r0 + 8);
-    qf.f[kk][3] = bf16x2_at(r1 + 8);
-  }
-}
-
 // s += Q K^T for the step's keys 8j .. 8j + 7, over all of dh.
 template <int DH>
 __device__ __forceinline__ void scores(float (&s)[4], const QFrag32<DH>& qf, const float* Kc,
                                        int j, int g, int t) {
-  constexpr int LDK = FwdGeom<DH, float>::LDK;
+  constexpr int LDK = FwdGeom<DH>::LDK;
 #pragma unroll
   for (int kk = 0; kk < DH / 8; ++kk) {
     const float* kr = Kc + (8 * j + g) * LDK + 8 * kk + t;
@@ -149,7 +123,7 @@ __device__ __forceinline__ void scores(float (&s)[4], const QFrag32<DH>& qf, con
 template <int DH>
 __device__ __forceinline__ void scores(float (&s)[4], const QShared32& qf, const float* Kc,
                                        int j, int g, int t) {
-  constexpr int LDK = FwdGeom<DH, float>::LDK;
+  constexpr int LDK = FwdGeom<DH>::LDK;
 #pragma unroll 2
   for (int kk = 0; kk < DH / 8; ++kk) {
     const float* r0 = qf.Qs + g * LDK + 8 * kk + t;
@@ -159,23 +133,11 @@ __device__ __forceinline__ void scores(float (&s)[4], const QShared32& qf, const
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void scores(float (&s)[4], const QFrag16<DH>& qf,
-                                       const __nv_bfloat16* Kc, int j, int g, int t) {
-  constexpr int LDK = FwdGeom<DH, __nv_bfloat16>::LDK;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const __nv_bfloat16* kr = Kc + (8 * j + g) * LDK + 16 * kk + 2 * t;
-    const uint32_t b[2] = {bf16x2_at(kr), bf16x2_at(kr + 8)};
-    mma_bf16(s, qf.f[kk], b);
-  }
-}
-
 // acc[j] += P V over the step's keys 8kk .. 8kk + 7, for every n8 fragment j of dh.
 template <int DH>
 __device__ __forceinline__ void pv_step(float (&acc)[DH / 8][4], const FragA& pa,
                                         const float* Vc, int kk, int g, int t) {
-  constexpr int LDV = FwdGeom<DH, float>::LDV;
+  constexpr int LDV = FwdGeom<DH>::LDV;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const float* vr = Vc + (8 * kk + t) * LDV + 8 * j + g;
@@ -184,28 +146,15 @@ __device__ __forceinline__ void pv_step(float (&acc)[DH / 8][4], const FragA& pa
 }
 
 template <int DH>
-__device__ __forceinline__ void pv_step(float (&acc)[DH / 8][4], const FragA& pa,
-                                        const __nv_bfloat16* Vc, int kk, int g, int t) {
-  constexpr int LDV = FwdGeom<DH, __nv_bfloat16>::LDV;
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
-    const __nv_bfloat16* vr = Vc + (8 * kk + t) * LDV + 8 * j + g;
-    const uint32_t b[2] = {tf32_of(vr[0]), tf32_of(vr[4 * LDV])};
-    mma_2xtf32(acc[j], pa, b);
-  }
-}
-
-template <int DH, typename T>
-__global__ void __launch_bounds__(FwdGeom<DH, T>::THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ L, int BH, int S, int seq_len,
-                 int causal, int window, float scale) {
-  using G = FwdGeom<DH, T>;
-  using QFrags = std::conditional_t<G::Q_SHARED, QShared32,
-                                    std::conditional_t<G::F32, QFrag32<DH>, QFrag16<DH>>>;
+__global__ void __launch_bounds__(FwdGeom<DH>::THREADS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ L,
+                 int BH, int S, int seq_len, int causal, int window, float scale) {
+  using G = FwdGeom<DH>;
+  using QFrags = std::conditional_t<G::Q_SHARED, QShared32, QFrag32<DH>>;
   constexpr int NF = DH / 8;  // n8 fragments of an output row block
   constexpr int WARPS = G::WARPS, THREADS = G::THREADS;
-  constexpr int CH = CHUNK<T>;
+  constexpr int CH = CHUNK<float>;
   extern __shared__ __align__(16) float smem[];
 
   const int ntiles = (S + ROWS - 1) / ROWS;
@@ -221,10 +170,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   unsigned char* base = reinterpret_cast<unsigned char*>(smem);
-  T* Qs = reinterpret_cast<T*>(base);
+  float* Qs = reinterpret_cast<float*>(base);
   unsigned char* W = base + G::Q_BYTES + warp * G::WARP_BYTES;
-  T* Kb = reinterpret_cast<T*>(W);                      // two K buffers
-  T* Vb = Kb + 2 * G::K_ELEMS;                          // two V buffers
+  float* Kb = reinterpret_cast<float*>(W);              // two K buffers
+  float* Vb = Kb + 2 * G::K_ELEMS;                      // two V buffers
   float* Ps = reinterpret_cast<float*>(Vb + 2 * G::V_ELEMS);
 
   for (int idx = threadIdx.x; idx < ROWS * DH / CH; idx += THREADS) {
@@ -267,8 +216,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     cp_async_commit();
     cp_async_wait<1>();  // this step's K and V have landed
     __syncwarp();
-    const T* Kc = Kb + buf * G::K_ELEMS;
-    const T* Vc = Vb + buf * G::V_ELEMS;
+    const float* Kc = Kb + buf * G::K_ELEMS;
+    const float* Vc = Vb + buf * G::V_ELEMS;
     const int k0 = step * STEP;
 
     float s[STEP / 8][4];
@@ -365,24 +314,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       out += As[(w * ROWS + r) * DH + c] * f;
     }
     const bool live = lsum > 0.f;
-    store_out(o + (long long)(q0 + r) * DH + c, live ? out / fmaxf(lsum, EPS) : 0.f);
+    o[(long long)(q0 + r) * DH + c] = live ? out / fmaxf(lsum, EPS) : 0.f;
     if (c == 0) L[q0 + r] = live ? mx + logf(fmaxf(lsum, EPS)) : NEG_INF;
   }
 }
 
-template <int DH, typename T>
-int launch_fwd(const T* q, const T* k, const T* v, T* o, float* L, int BH, int S, int seq_len,
-               int causal, int window, float scale, cudaStream_t stream) {
-  using G = FwdGeom<DH, T>;
-  return launch(SLOT_FWD, flash_fwd_kernel<DH, T>, (long long)BH * ((S + ROWS - 1) / ROWS),
+template <int DH>
+int launch_fwd(const float* q, const float* k, const float* v, float* o, float* L, int BH, int S,
+               int seq_len, int causal, int window, float scale, cudaStream_t stream) {
+  using G = FwdGeom<DH>;
+  return launch(SLOT_FWD, flash_fwd_kernel<DH>, (long long)BH * ((S + ROWS - 1) / ROWS),
                 G::THREADS, G::BYTES, stream, q, k, v, o, L, BH, S, seq_len, causal, window,
                 scale);
 }
 
-template <typename T>
-int fwd_entry(const T* q, const T* k, const T* v, T* o, float* L, int BH, int S, int dh,
-              int seq_len, int causal, int window, float scale, int device,
-              cudaStream_t stream) {
+}  // namespace
+}  // namespace rbr_flash
+
+int rbr_flash_blocks[3] = {0, 0, 0};  // declared in flash_common.cuh
+
+// q, k, v, o: (BH, S, dh) float32 contiguous and 16-byte aligned; L: (BH, S)
+// float32. Keys j >= seq_len are masked (seq_len <= S); window < 0 means no
+// window. Launches on `stream`; returns a CUDA error code (0 on success).
+extern "C" int rbr_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
+                                 float* L, int BH, int S, int dh, int seq_len, int causal,
+                                 int window, float scale, int device, cudaStream_t stream) {
+  using namespace rbr_flash;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (dh) {
@@ -393,28 +350,4 @@ int fwd_entry(const T* q, const T* k, const T* v, T* o, float* L, int BH, int S,
       return launch_fwd<128>(q, k, v, o, L, BH, S, seq_len, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-}  // namespace
-}  // namespace rbr_flash
-
-int rbr_flash_blocks[3] = {0, 0, 0};  // declared in flash_common.cuh
-
-// q, k, v, o: (BH, S, dh) float32 (or bfloat16: _bf16) contiguous and 16-byte
-// aligned; L: (BH, S) float32. Keys j >= seq_len are masked (seq_len <= S);
-// window < 0 means no window. Launches on `stream`; returns a CUDA error
-// code (0 on success).
-extern "C" int rbr_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
-                                 float* L, int BH, int S, int dh, int seq_len, int causal,
-                                 int window, float scale, int device, cudaStream_t stream) {
-  return rbr_flash::fwd_entry(q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device,
-                              stream);
-}
-
-extern "C" int rbr_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                  const __nv_bfloat16* v, __nv_bfloat16* o, float* L, int BH,
-                                  int S, int dh, int seq_len, int causal, int window,
-                                  float scale, int device, cudaStream_t stream) {
-  return rbr_flash::fwd_entry(q, k, v, o, L, BH, S, dh, seq_len, causal, window, scale, device,
-                              stream);
 }

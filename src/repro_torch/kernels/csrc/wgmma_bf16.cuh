@@ -1,7 +1,8 @@
-// Hopper's asynchronous pieces for the bf16 flash backward (flash_bwd_bf16.cu):
-// shared-memory tiles in the layout wgmma's descriptors name, filled by TMA,
-// mbarriers, and wgmma.mma_async on bf16 operands with float32 accumulators
-// (sm_90a).
+// Hopper's asynchronous pieces for the bf16 flash kernels (flash_fwd_bf16.cu:
+// B1, flash_bwd_bf16.cu: B2 and B3): shared-memory tiles in the layout
+// wgmma's descriptors name, filled by TMA from tensor maps encoded on the
+// host, mbarriers, and wgmma.mma_async on bf16 operands with float32
+// accumulators (sm_90a).
 //
 // Tiles. A tile holds 64 rows of a (S, DH) bf16 head, row-major, as DH / PW
 // panels of PW = min(DH, 64) columns: panel p holds columns [p PW, (p + 1) PW)
@@ -33,7 +34,10 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
 
 namespace rbr_wgmma {
 
@@ -130,6 +134,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
+}
+
+// TMA copies of rows [r0, r0 + TILE_ROWS) of head bh of `map` (head_map) into
+// the tile at dst, one box per panel; rows past S arrive as zeros.
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, int r0, int bh,
+                                          uint32_t bar) {
+  using G = TileGeom<DH>;
+#pragma unroll
+  for (int p = 0; p < DH / G::PW; ++p)
+    tma_load_3d(dst + p * G::PANEL, &map, p * G::PW, r0, bh, bar);
 }
 
 // 2^x on the special function unit (ex2.approx.ftz: relative error ~2^-22;
@@ -264,6 +279,42 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda; null if the driver does not offer it.
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a (BH, S, DH) bf16 tensor: boxes of TILE_ROWS rows of one
+// head by PW columns, swizzled as TileGeom<DH> lays a panel out; rows past S
+// (outside the head) are filled with zeros.
+template <int DH>
+bool head_map(CUtensorMap* map, const __nv_bfloat16* x, int BH, int S) {
+  using G = TileGeom<DH>;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)S * DH * 2};  // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)G::PW, (cuuint32_t)TILE_ROWS, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = G::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : G::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(x), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace rbr_wgmma

@@ -3,9 +3,10 @@
 Port of ``repro/kernels/flash.py``. Three CUDA kernels, each beside its
 plain PyTorch version and its launch counter:
 
-* ``flash_fwd`` (B1, ``csrc/flash_fwd.cu``; replaces ``_flash_fwd_kernel``):
-  O and the row logsumexp L = m + log l. A row that sees no key gives O = 0
-  and L = ``NEG_INF``.
+* ``flash_fwd`` (B1, ``csrc/flash_fwd.cu``, on bf16 inputs
+  ``csrc/flash_fwd_bf16.cu``; replaces ``_flash_fwd_kernel``): O and the
+  row logsumexp L = m + log l. A row that sees no key gives O = 0 and
+  L = ``NEG_INF``.
 * ``flash_bwd_dq`` (B2, ``csrc/flash_bwd.cu``, on bf16 inputs
   ``csrc/flash_bwd_bf16.cu``; replaces ``_flash_bwd_dq_kernel``):
   dQ = scale * dS K with p = exp(s*scale - L), dS = p * (dO V^T - D).
@@ -16,7 +17,9 @@ Each kernel has a float32 and a bfloat16 entry point (``_f32``, ``_bf16``),
 as the reference's kernels take either: q, k, v and dO in one of the two
 dtypes, L and D in float32, every sum in float32, and O, dQ, dK and dV
 written in the input dtype. On bf16 inputs the backward rounds P and dS to
-bf16 before their products, so that B2 and B3 multiply only bf16 operands.
+bf16 before their products, so that B2 and B3 multiply only bf16 operands;
+the forward keeps P in float32 (its kernel splits P into two bf16 parts, so
+the plain version rounds nothing).
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors, or raises; it counts its launches by input dtype
 (``launches`` for float32, ``launches_bf16``).
@@ -247,10 +250,11 @@ for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
 
 def launched_blocks() -> dict:
     """Blocks in the grid of each kernel's last launch in this process, as the
-    launch recorded them (0 before a kernel's first launch): B1 and the
-    float32 B2 and B3 one per 16 rows of each head (the float32 B3 at head
-    dim 128 two, each owning half of dh's columns of dK and dV); the bf16 B2
-    and B3 one per 64 rows."""
+    launch recorded them (0 before a kernel's first launch): the float32 B1,
+    B2 and B3 one per 16 rows of each head (the float32 B3 at head dim 128
+    two, each owning half of dh's columns of dK and dV); the bf16 B1, B2 and
+    B3 (``csrc/flash_fwd_bf16.cu``, ``csrc/flash_bwd_bf16.cu``) one per 64
+    rows."""
     grids = (ctypes.c_int * 3).in_dll(load_library().lib, "rbr_flash_blocks")
     return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), grids))
 

@@ -286,34 +286,50 @@ def _launch_counts():
         tflash.flash_fwd, tflash.flash_bwd_dq, tflash.flash_bwd_dkv))
 
 
-# the bf16 B2 and B3 at the edges of their 64-row tiles: one tile, one row
-# past it, a row short of two, a row past two, ranges of 3 and 5 tiles, a
-# window of 8 inside one tile and a ragged windowed length, at dh 64 and 128
-BF16_TILE_CASES = [((2, S, dh), w) for dh in (64, 128)
+# the bf16 B1, B2 and B3 at the edges of their 64-row tiles: one tile, one
+# row past it, a row short of two (also with a window of 1: each row sees
+# itself), a row past two, ranges of 3 and 5 tiles, a window of 8 inside one
+# tile and a ragged windowed length, at dh 64 and 128; and, for B1, keys past
+# seq_len that leave rows seeing no key (window 8 from seq_len 100: rows >=
+# 107; seq_len 0: every row)
+BF16_TILE_CASES = [((2, S, dh), w, None) for dh in (64, 128)
                    for S, w in ((64, None), (65, None), (127, None), (129, None), (192, 8),
-                                (320, None), (256, 8), (200, 100))]
+                                (320, None), (256, 8), (200, 100), (127, 1))]
+BF16_TILE_CASES += [((2, S, dh), w, n) for dh in (64, 128) for S, w, n in ((129, 8, 100),
+                                                                          (65, None, 0))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((6, 256, 64), 32),
-                                          ((4, 200, 32), 100), ((2, 100, 16), 16),
-                                          ((3, 130, 64), None), ((1, 64, 32), 1),
-                                          ((6, 48, 64), None), ((2, 272, 32), None)]
+@pytest.mark.parametrize("shape,window,seq_len",
+                         [(shape, w, None) for shape, w in (
+                             ((6, 256, 64), None), ((6, 256, 64), 32), ((4, 200, 32), 100),
+                             ((2, 100, 16), 16), ((3, 130, 64), None), ((1, 64, 32), 1),
+                             ((6, 48, 64), None), ((2, 272, 32), None))]
                          + BF16_TILE_CASES)
-def test_flash_bf16_kernels_match_plain_on_card(cuda, shape, window):
+def test_flash_bf16_kernels_match_plain_on_card(cuda, shape, window, seq_len):
     """B1, B2 and B3's bfloat16 entry points against their plain versions on
     the same bf16 inputs, over the float32 kernels' cases and the edges of
-    the bf16 B2's and B3's 64-row tiles: O, dQ, dK and dV come back in bf16
+    the bf16 kernels' 64-row tiles: O, dQ, dK and dV come back in bf16
     within 1e-2, L in float32 within 1e-5, and each launch counts as a bf16
-    launch. B1 launches a block per 16 rows of a head, B2 and B3 (wgmma,
-    flash_bwd_bf16.cu) one per 64."""
+    launch. B1 (flash_fwd_bf16.cu), B2 and B3 (flash_bwd_bf16.cu), all on
+    wgmma, launch a block per 64 rows of a head. With seq_len, rows that see
+    no key give O = 0 and L = -1e30, and only B1 runs (the backward sees
+    every key)."""
     q, k, v, do = (x.to(torch.bfloat16) for x in _heads(cuda, shape, seed=shape[1] + 1))
     before = _launch_counts()
-    o, L = tflash.flash_fwd(q, k, v, window=window)
-    o_p, L_p = tflash.flash_fwd_plain(q, k, v, window=window)
+    o, L = tflash.flash_fwd(q, k, v, window=window, seq_len=seq_len)
+    o_p, L_p = tflash.flash_fwd_plain(q, k, v, window=window, seq_len=seq_len)
     assert o.dtype == torch.bfloat16 and L.dtype == torch.float32
     torch.testing.assert_close(o, o_p, rtol=BF16_TOL, atol=BF16_TOL)
     torch.testing.assert_close(L, L_p, rtol=BF16_L_TOL, atol=BF16_L_TOL)
+    if seq_len is not None:
+        S = shape[1]
+        dead = ~tflash.visible_mask(S, seq_len, True, window, cuda).any(-1)
+        assert bool(dead.any())
+        assert float(o[:, dead].abs().max()) == 0.0 and bool((L[:, dead] <= -1e29).all())
+        assert _launch_counts()[0] == (before[0][0], before[0][1] + 1)
+        assert tflash.launched_blocks()["flash_fwd"] == _bf16_blocks(shape)["flash_fwd"]
+        return
     D = (do.float() * o.float()).sum(-1)
     dq = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
     dk, dv = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
@@ -327,11 +343,10 @@ def test_flash_bf16_kernels_match_plain_on_card(cuda, shape, window):
 
 
 def _bf16_blocks(shape):
-    """The grids of the bf16 entry points: B1 a block per 16 rows of each
-    head, B2 and B3 one per 64."""
+    """The grids of the bf16 entry points: B1, B2 and B3 a block per 64 rows
+    of each head."""
     BH, S = shape[:2]
-    return {"flash_fwd": BH * -(-S // 16), "flash_bwd_dq": BH * -(-S // 64),
-            "flash_bwd_dkv": BH * -(-S // 64)}
+    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), BH * -(-S // 64))
 
 
 @pytest.mark.cuda
@@ -379,7 +394,7 @@ def test_flash_kernels_at_head_dim_128_match_plain_on_card(cuda, shape, window, 
     """B1, B2 and B3 at head dim 128, both entry points, against their plain
     versions (float32 at the reference's tolerances, bf16 at 1e-2 with L at
     1e-5); two runs repeat bitwise; the float32 B3 launches two blocks per
-    16 keys, the bf16 B2 and B3 one per 64 rows."""
+    16 keys, the bf16 B1, B2 and B3 one per 64 rows."""
     q, k, v, do = (x.to(dtype) for x in _heads(cuda, shape, seed=shape[1] + 3))
     f32 = dtype == torch.float32
     fwd_tol = (FWD_RTOL, FWD_ATOL) if f32 else (BF16_TOL, BF16_TOL)

@@ -204,16 +204,31 @@ def test_flash_fully_masked_rows_are_zero_with_the_sentinel():
     _close(L, jL, FWD_RTOL, FWD_ATOL, "L")
 
 
-@pytest.mark.parametrize("window", [None, 24])
-def test_flash_logsumexp_matches_reference_forward(window):
-    S, dh = 200, 64
+@pytest.mark.parametrize("window,S,dtype,block", [
+    pytest.param(None, 200, "float32", 128, id="None"),
+    pytest.param(24, 200, "float32", 128, id="24"),
+    # bf16 one row past one and two of the bf16 kernel's 64-row tiles, against
+    # the reference's kernel on the same bf16 inputs in 64-row blocks
+    pytest.param(None, 65, "bfloat16", 64, id="None-65-bf16"),
+    pytest.param(8, 129, "bfloat16", 64, id="8-129-bf16"),
+])
+def test_flash_logsumexp_matches_reference_forward(window, S, dtype, block):
+    """B1's plain version (the CPU's flash_fwd) against the reference's
+    Pallas forward in interpret mode on a length that fills no block: L at
+    the float32 tolerances (the bf16 inputs are upcast, as the reference
+    upcasts them), O at the float32 or the bf16 ones."""
+    dh = 64
     q, k, v = _qkv((4, S, dh), seed=5)
-    Sp = 256
+    Sp = -(-S // block) * block
     pad = ((0, 0), (0, Sp - S), (0, 0))
-    _, jL = _flash_forward((True, window, 128, 128, S, True),
-                           *(jnp.asarray(np.pad(x, pad)) for x in (q, k, v)))
-    _, L = tflash.flash_fwd(_t(q), _t(k), _t(v), window=window)
+    jo, jL = _flash_forward((True, window, block, block, S, True),
+                            *(jnp.asarray(np.pad(x, pad)).astype(dtype) for x in (q, k, v)))
+    o, L = tflash.flash_fwd(*(_t(x).to(getattr(torch, dtype)) for x in (q, k, v)),
+                            window=window)
+    assert o.dtype == getattr(torch, dtype) and L.dtype == torch.float32
     _close(L, np.asarray(jL)[:, :S], FWD_RTOL, FWD_ATOL)
+    o_tol = (FWD_RTOL, FWD_ATOL) if dtype == "float32" else (BF16_FWD_TOL, BF16_FWD_TOL)
+    _close(o.float(), np.asarray(jo, np.float32)[:, :S], *o_tol)
 
 
 @pytest.mark.parametrize("window", [None, 24])
