@@ -34,7 +34,9 @@
    plain versions' error. The float32 B1 (3xTF32 on wgmma,
    flash_fwd_f32.cu) prints its time beside SDPA's float32 forward, ptxas's
    registers and spills and its error against float64, beside the old
-   kernel's time (``flash_f32_fwd``). The bf16 B1 (wgmma,
+   kernel's time (``flash_f32_fwd``); the float32 B2 and B3 (3xTF32 on
+   wgmma at head dim 128, flash_bwd_f32.cu) the same beside SDPA's float32
+   backward (``flash_f32_bwd``). The bf16 B1 (wgmma,
    flash_fwd_bf16.cu) and B2 and B3 (flash_bwd_bf16.cu) print, at both path
    shapes, their time beside SDPA's bf16 forward or backward, ptxas's
    registers and spills, their error against float64 and their tensor
@@ -257,6 +259,15 @@ OLD_BF16_FWD = {(6, 256, 64): {"us": 10.37}, (16, 256, 128): {"us": 21.02}}
 # section 6), one NVIDIA H100 80GB HBM3 at 700 W; phase 2 prints the new
 # kernel's own beside them
 OLD_F32_FWD = {(6, 256, 64): {"us": 12.99}, (16, 256, 128): {"us": 38.34}}
+# the float32 B2 and B3 before their redesign for wgmma (16-row blocks on
+# mma.sync; 4 warps a block at head dim 128, B3 there two blocks a key tile,
+# each owning half of dh's columns), at each path shape: us per launch (PERF.md
+# section 6), one NVIDIA H100 80GB HBM3 at 700 W; phase 2 prints the new
+# kernels' own beside them (at head dim 64 the mma.sync kernels still serve)
+OLD_F32_BWD = {
+    (6, 256, 64): {"flash_bwd_dq": {"us": 14.56}, "flash_bwd_dkv": {"us": 17.25}},
+    (16, 256, 128): {"flash_bwd_dq": {"us": 36.06}, "flash_bwd_dkv": {"us": 71.89}},
+}
 # B1, B2 and B3 x float32 and bf16 entry points (each its own kernel) x head dims
 # 16, 32, 64, 128
 FLASH_INSTANTIATIONS = 24
@@ -371,7 +382,7 @@ def flash_entry(mangled: str) -> str:
 def bf16_source(src: str) -> str:
     """The source of a flash kernel's bf16 entry point: each has a file of
     its own."""
-    return src.replace("flash_bwd.cu", "flash_bwd_bf16.cu").replace(
+    return re.sub(r"flash_bwd(_f32)?\.cu", "flash_bwd_bf16.cu", src).replace(
         "flash_fwd_f32.cu", "flash_fwd_bf16.cu")
 
 
@@ -1391,6 +1402,24 @@ def main() -> int:
             if f"flash_fwd_f32_kernelILi{path[2]}E" in k},
         "old": OLD_F32_FWD[path]}
         for path, t in ((FLASH_PATH, flash_t), (QWEN3_FLASH_PATH, h128_t))}
+    # the float32 B2 and B3 (wgmma at head dim 128, flash_bwd_f32.cu; mma.sync
+    # at 64, flash_bwd.cu) likewise, beside SDPA's float32 backward and the old
+    # kernels' times
+    f32_bwd = {}
+    for path, t in ((FLASH_PATH, flash_t), (QWEN3_FLASH_PATH, h128_t)):
+        f32_bwd[str(path)] = {name: {
+            "us": 1e3 * t[name]["ms"], "sdpa_bwd_us": 1e3 * t[name]["library_ms"],
+            "blocks": t[name]["blocks"], "bound_us": 1e3 * t[name]["bound_ms"],
+            "rel_err_f64": t[name]["rel_err_f64"],
+            "plain_rel_err_f64": t[name]["plain_rel_err_f64"],
+            # the kernel that serves the width: wgmma at 128, mma.sync below
+            "ptxas": None if flash_ptxas is None else {
+                flash_entry(k): v for k, v in flash_ptxas.items()
+                if f"ILi{path[2]}E" in k and (f"{name}_f32_kernel" in k
+                                              or f"{name}_kernel" in k)},
+            "old": OLD_F32_BWD[path][name]} for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+        f32_bwd[str(path)]["b2_plus_b3_us"] = sum(
+            f32_bwd[str(path)][name]["us"] for name in ("flash_bwd_dq", "flash_bwd_dkv"))
     bf16_fwd, bf16_bwd = {}, {}
     for path, t in ((FLASH_PATH, bf16_t), (QWEN3_FLASH_PATH, h128b_t)):
         f = t["flash_fwd"]
@@ -1449,7 +1478,8 @@ def main() -> int:
               for k, t in bf16_t.items() if "rel_err_f64" in t},
           "flash_bf16_bitwise_repeat": {k: all(r[k + "_bitwise_repeat"] for r in bf16_rows)
                                         for k in bf16_t},
-          "flash_f32_fwd": f32_fwd, "flash_bf16_fwd": bf16_fwd, "flash_bf16_bwd": bf16_bwd,
+          "flash_f32_fwd": f32_fwd, "flash_f32_bwd": f32_bwd, "flash_bf16_fwd": bf16_fwd,
+          "flash_bf16_bwd": bf16_bwd,
           **{f"flash{tag}_dh128": {
               "cases": len(r), "max_abs_err": e, "blocks": {k: x["blocks"] for k, x in t.items()},
               "ms_per_launch": {k: {f: x[f] for f in ("ms", "plain_ms", "library_ms",
@@ -1828,9 +1858,9 @@ def main() -> int:
         for kname, src, replaces in (
             ("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd_f32.cu",
              "src/repro/kernels/flash.py:80"),
-            ("flash_bwd_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            ("flash_bwd_dq", "src/repro_torch/kernels/csrc/flash_bwd_f32.cu",
              "src/repro/kernels/flash.py:162"),
-            ("flash_bwd_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            ("flash_bwd_dkv", "src/repro_torch/kernels/csrc/flash_bwd_f32.cu",
              "src/repro/kernels/flash.py:196"),
         ):
             launches = catalog[precision]["launches"][kname + sfx]

@@ -1,7 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a) on float32 inputs: dQ (B2)
-// and dK, dV (B3), recomputing the attention weights from the saved
-// logsumexp L. The bfloat16 entry points have kernels of their own, on wgmma
-// (flash_bwd_bf16.cu).
+// Flash-attention backward for Hopper (sm_90a) on float32 inputs on
+// mma.sync, at head widths 16, 32 and 64: dQ (B2) and dK, dV (B3),
+// recomputing the attention weights from the saved logsumexp L. The float32
+// entry points (rbr_flash_bwd_dq_f32, rbr_flash_bwd_dkv_f32,
+// flash_bwd_f32.cu) run their wgmma kernels at head width 128 and these
+// (launch_dq_mma, launch_dkv_mma) below it: at 64, paper_95m's width, the
+// wgmma kernels were slower (flash_bwd_f32.cu, "Widths"). The bfloat16 entry
+// points have kernels of their own, on wgmma (flash_bwd_bf16.cu).
 //
 // Replaces: repro/kernels/flash.py::_flash_bwd_dq_kernel (B2) and
 // ::_flash_bwd_dkv_kernel (B3), both launched by `_flash_backward`. With
@@ -49,10 +53,6 @@
 // - Masked entries are selected to 0 before exp, never multiplied by a mask
 //   (fully-masked rows carry L = -1e30); the ragged end of S is masked in the
 //   kernel.
-// - Head width 128 (flash_common.cuh): blocks have 4 warps; each B3 block
-//   owns NC = 64 of dh's columns of dK and dV, so B3 launches two blocks per
-//   key tile, each recomputing the step's scores over all of dh. The
-//   products, their splits and their order are those of the narrower widths.
 
 #include <type_traits>
 
@@ -67,20 +67,17 @@ using namespace rbr_tf32;
 template <int DH, typename T>
 struct BwdGeom {
   static_assert(std::is_same<T, float>::value, "bf16 inputs take flash_bwd_bf16.cu's kernels");
-  static constexpr int WARPS = block_warps<DH, T>();
+  static_assert(DH <= 64, "head width 128 runs on wgmma (flash_bwd_f32.cu)");
+  static constexpr int WARPS = MMA_WARPS;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int NF = DH / 8;  // k8 steps over dh, n8 fragments of dh
-  // B3: blocks per key tile, each owning NC of dh's columns of dK and dV
-  static constexpr int CSPLIT = DH > 64 ? 2 : 1;
-  static constexpr int NC = DH / CSPLIT;
   // one streamed tile: STEP x DH floats, swizzled (swz)
   static constexpr int TILE_ELEMS = STEP * DH;
   static constexpr int TILE_BYTES = (int)sizeof(T) * TILE_ELEMS;
   // the two fixed operands' split fragments
   static constexpr int FIXED_BYTES = (int)sizeof(float) * 2 * NF * 2 * 32 * 4;
-  // merge rows (B2: DH columns, B3: NC): conflict-free float2 stores
+  // merge rows: conflict-free float2 stores
   static constexpr int LDM = DH + 8;
-  static constexpr int LDM_KV = NC + 8;
   static constexpr int P_BYTES = (int)sizeof(float) * ROWS * LDP;  // a P or dS tile
   // B2, per warp: two buffers of K and of V, and the dS tile
   static constexpr int DQ_WARP_BYTES = 4 * TILE_BYTES + P_BYTES;
@@ -89,7 +86,7 @@ struct BwdGeom {
       4 * TILE_BYTES + (int)sizeof(float) * 4 * STEP + 2 * P_BYTES;
   static_assert(TILE_BYTES % 16 == 0 && FIXED_BYTES % 16 == 0, "16-byte aligned tiles");
   static_assert((int)sizeof(float) * ROWS * LDM <= DQ_WARP_BYTES &&
-                    (int)sizeof(float) * 2 * ROWS * LDM_KV <= DKV_WARP_BYTES,
+                    (int)sizeof(float) * 2 * ROWS * LDM <= DKV_WARP_BYTES,
                 "the merge fits the warp buffers");
   static constexpr size_t DQ_BYTES = FIXED_BYTES + WARPS * DQ_WARP_BYTES;
   static constexpr size_t DKV_BYTES = FIXED_BYTES + WARPS * DKV_WARP_BYTES;
@@ -247,9 +244,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   using G = BwdGeom<DH, T>;
   using Fixed = Fixed32;
   constexpr int NF = G::NF, WARPS = G::WARPS;
-  // the dh loop of the scores: unrolled whole up to DH 64; by 2 above, where the
-  // fixed fragments of every k8 step live at once would spill
-  constexpr int UNROLL = DH > 64 ? 2 : NF;
   extern __shared__ __align__(16) float smem[];
 
   const int ntiles = (S + ROWS - 1) / ROWS;
@@ -312,7 +306,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    score_pair<DH, UNROLL>(s, dp, fx, Kc, Vc, g, t, lane);
+    score_pair<DH, NF>(s, dp, fx, Kc, Vc, g, t, lane);
 #pragma unroll
     for (int j = 0; j < STEP / 8; ++j)
 #pragma unroll
@@ -349,13 +343,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      int S, int causal, int window, float scale) {
   using G = BwdGeom<DH, T>;
   using Fixed = Fixed32;
-  constexpr int NC = G::NC, WARPS = G::WARPS;
+  constexpr int WARPS = G::WARPS;
   extern __shared__ __align__(16) float smem[];
 
   const int bh = blockIdx.x % BH;
-  const int part = (int)(blockIdx.x / BH);
-  const int k0 = part / G::CSPLIT * ROWS;  // early key tiles first
-  const int j0 = part % G::CSPLIT * (NC / 8);  // the first n8 fragment of this block's columns
+  const int k0 = (int)(blockIdx.x / BH) * ROWS;  // early key tiles first
   const long long head = (long long)bh * S * DH;
   q += head;
   k += head;
@@ -392,9 +384,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   load_fixed<DH>(fx, smem, k, v, k0, S, warp, WARPS, lane);
   __syncthreads();  // every warp's fragments are in place
 
-  float dk_acc[NC / 8][4], dv_acc[NC / 8][4];  // this block's columns
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
 #pragma unroll
-  for (int j = 0; j < NC / 8; ++j)
+  for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
@@ -435,9 +427,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int kk = 0; kk < STEP / 8; ++kk) {
       const FragA pa = frag_p(Ps, kk, g, t), sa = frag_p(dSs, kk, g, t);
 #pragma unroll
-      for (int j = 0; j < NC / 8; ++j) {
-        prod_rn<DH>(dv_acc[j], pa, dOc, kk, j0 + j, g, t);
-        prod_rn<DH>(dk_acc[j], sa, Qc, kk, j0 + j, g, t);
+      for (int j = 0; j < DH / 8; ++j) {
+        prod_rn<DH>(dv_acc[j], pa, dOc, kk, j, g, t);
+        prod_rn<DH>(dk_acc[j], sa, Qc, kk, j, g, t);
       }
     }
     __syncwarp();  // P, dS and this buffer are read before they are written again
@@ -446,12 +438,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with its buffers: reuse them for the merge
   float* Mk = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + G::FIXED_BYTES);
-  float* Mv = Mk + WARPS * ROWS * G::LDM_KV;
-  stage_sums<NC>(Mk + warp * ROWS * G::LDM_KV, dk_acc, g, t);
-  stage_sums<NC>(Mv + warp * ROWS * G::LDM_KV, dv_acc, g, t);
+  float* Mv = Mk + WARPS * ROWS * G::LDM;
+  stage_sums<DH>(Mk + warp * ROWS * G::LDM, dk_acc, g, t);
+  stage_sums<DH>(Mv + warp * ROWS * G::LDM, dv_acc, g, t);
   __syncthreads();
-  merge_rows<NC, DH, WARPS>(dk + 8 * j0, Mk, k0, S, scale);
-  merge_rows<NC, DH, WARPS>(dv + 8 * j0, Mv, k0, S, 1.f);
+  merge_rows<DH, DH, WARPS>(dk, Mk, k0, S, scale);
+  merge_rows<DH, DH, WARPS>(dv, Mv, k0, S, 1.f);
 }
 
 template <int DH, typename T>
@@ -469,32 +461,26 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* dO, const float* L, 
                cudaStream_t stream) {
   using G = BwdGeom<DH, T>;
   return launch(SLOT_DKV, flash_bwd_dkv_kernel<DH, T>,
-                (long long)BH * ((S + ROWS - 1) / ROWS) * G::CSPLIT, G::THREADS, G::DKV_BYTES,
+                (long long)BH * ((S + ROWS - 1) / ROWS), G::THREADS, G::DKV_BYTES,
                 stream, q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale);
 }
 
-template <typename T>
-int dq_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
-             T* dq, int BH, int S, int dh, int causal, int window, float scale, int device,
-             cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+}  // namespace
+
+int launch_dq_mma(const float* q, const float* k, const float* v, const float* dO,
+                  const float* L, const float* D, float* dq, int BH, int S, int dh, int causal,
+                  int window, float scale, cudaStream_t stream) {
   switch (dh) {
     case 16: return launch_dq<16>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
     case 32: return launch_dq<32>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
     case 64: return launch_dq<64>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
-    case 128:
-      return launch_dq<128>(q, k, v, dO, L, D, dq, BH, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int dkv_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, const float* D,
-              T* dk, T* dv, int BH, int S, int dh, int causal, int window, float scale,
-              int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+int launch_dkv_mma(const float* q, const float* k, const float* v, const float* dO,
+                   const float* L, const float* D, float* dk, float* dv, int BH, int S, int dh,
+                   int causal, int window, float scale, cudaStream_t stream) {
   switch (dh) {
     case 16:
       return launch_dkv<16>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
@@ -502,31 +488,8 @@ int dkv_entry(const T* q, const T* k, const T* v, const T* dO, const float* L, c
       return launch_dkv<32>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
     case 64:
       return launch_dkv<64>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
-    case 128:
-      return launch_dkv<128>(q, k, v, dO, L, D, dk, dv, BH, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
 }  // namespace rbr_flash
-
-// q, k, v, dO, dq: (BH, S, dh) float32 contiguous and 16-byte aligned; L, D:
-// (BH, S) float32. window < 0 means no window.
-// Returns a CUDA error code.
-extern "C" int rbr_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
-                                    const float* dO, const float* L, const float* D, float* dq,
-                                    int BH, int S, int dh, int causal, int window, float scale,
-                                    int device, cudaStream_t stream) {
-  return rbr_flash::dq_entry(q, k, v, dO, L, D, dq, BH, S, dh, causal, window, scale, device,
-                             stream);
-}
-
-// As above, writing dk and dv: (BH, S, dh).
-extern "C" int rbr_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
-                                     const float* dO, const float* L, const float* D, float* dk,
-                                     float* dv, int BH, int S, int dh, int causal, int window,
-                                     float scale, int device, cudaStream_t stream) {
-  return rbr_flash::dkv_entry(q, k, v, dO, L, D, dk, dv, BH, S, dh, causal, window, scale,
-                              device, stream);
-}

@@ -1,6 +1,6 @@
 // Flash-attention backward on bfloat16 inputs for Hopper (sm_90a): dQ (B2)
-// and dK, dV (B3), on wgmma. The float32 entry points keep their own kernels
-// (flash_bwd.cu).
+// and dK, dV (B3), on wgmma. The float32 entry points have kernels of their
+// own (flash_bwd_f32.cu, flash_bwd.cu).
 //
 // Replaces: repro/kernels/flash.py::_flash_bwd_dq_kernel (B2) and
 // ::_flash_bwd_dkv_kernel (B3), both launched by `_flash_backward`, on bf16
@@ -213,16 +213,6 @@ __device__ __forceinline__ void produce(const Ring& ring, const CUtensorMap& x0,
   }
 }
 
-// Query tiles [lo, hi) that can hold a row seeing one of the keys [k0, k0 + BR).
-__device__ __forceinline__ void query_tiles(int k0, int S, int causal, int window, int& lo,
-                                            int& hi) {
-  const int lo_row = causal ? k0 : 0;
-  // j > r - window  <=>  r < j + window, and j < k0 + BR
-  const int hi_row = window >= 0 ? min(S, k0 + BR - 1 + window) : S;
-  lo = lo_row / BR;
-  hi = (hi_row + BR - 1) / BR;
-}
-
 // Rows [r0, r0 + BR) of out (row stride DH) = mul * acc, the D fragment of a
 // 64 x DH tile, for the rows below S.
 template <int DH>
@@ -265,60 +255,6 @@ __device__ __forceinline__ void scores(float (&a)[32], float (&b)[32], uint32_t 
   wgmma_commit();
   wgmma_wait<1>();
   fence_regs(a);
-}
-
-// P of one 64 x 64 tile from its scores s (a D fragment), in place:
-// p = 2^(s scale log2(e) - L log2(e)) where the query sees the key, else 0
-// (the select is on exp's argument: -inf gives 0). Fragment rows are
-// r0 + 16 w + g + 8 (e / 2), columns c0 + 8 j + 2 t + e % 2: queries and keys
-// (B2), or keys and queries (KEY_ROWS, B3); nL (-L log2(e)) comes per
-// query: B2's two rows, from registers, or B3's 64 columns, from the stage in
-// shared memory. MASKED = false skips the mask (whole_tile). The mask is
-// visible()'s, as the span of columns [lo, hi] that each of the thread's two
-// rows keeps.
-template <bool MASKED, bool KEY_ROWS>
-__device__ __forceinline__ void probs(float (&s)[32], float sl2, const float* nL, int r0, int c0,
-                                      int S, int causal, int window) {
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  int lo[2], hi[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 16 * w + g + 8 * h;
-    if (KEY_ROWS) {  // key r: queries q >= r (causal) and q < r + window
-      lo[h] = causal ? r : 0;
-      hi[h] = r >= S ? -1 : window >= 0 ? min(S - 1, r + window - 1) : S - 1;
-    } else {  // query r: keys j <= r (causal) and j > r - window
-      lo[h] = window >= 0 ? r - window + 1 : 0;
-      hi[h] = r >= S ? -1 : causal ? min(r, S - 1) : S - 1;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int x = 4 * j + e;
-      float arg = fmaf(s[x], sl2, nL[KEY_ROWS ? 8 * j + 2 * t + e % 2 : e / 2]);
-      if (MASKED) {
-        const int col = c0 + 8 * j + 2 * t + e % 2;
-        arg = col >= lo[e / 2] && col <= hi[e / 2] ? arg : -INFINITY;
-      }
-      s[x] = fast_exp2(arg);
-    }
-}
-
-// dS = p (dP - D) of one tile, in place of dP, from its P (probs) and D per
-// query, as nL comes to probs.
-template <bool KEY_ROWS>
-__device__ __forceinline__ void grad_scores(float (&dp)[32], const float (&p)[32],
-                                            const float* Dv) {
-  const int t = threadIdx.x % 4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int x = 4 * j + e;
-      dp[x] = p[x] * (dp[x] - Dv[KEY_ROWS ? 8 * j + 2 * t + e % 2 : e / 2]);
-    }
 }
 
 template <int DH>
@@ -402,7 +338,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const float* __rest
   const int bh = blockIdx.x % BH;
   const int k0 = (int)(blockIdx.x / BH) * BR;  // early key tiles first
   int lo, hi;
-  query_tiles(k0, S, causal, window, lo, hi);
+  query_steps<BR, BR>(k0, S, causal, window, lo, hi);
   const int n = hi - lo;
 
   if (threadIdx.x >= CONSUMERS) {  // the producer warp

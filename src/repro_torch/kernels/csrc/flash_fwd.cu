@@ -51,7 +51,7 @@ using namespace rbr_tf32;
 template <int DH>
 struct FwdGeom {
   static_assert(DH <= 32, "head widths 64 and 128 run on wgmma (flash_fwd_f32.cu)");
-  static constexpr int WARPS = block_warps<DH, float>();
+  static constexpr int WARPS = MMA_WARPS;
   static constexpr int THREADS = 32 * WARPS;
   // Q and K rows: 4 * odd floats; conflict-free fragment reads
   static constexpr int LDK = DH + 4;

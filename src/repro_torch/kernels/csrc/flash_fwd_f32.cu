@@ -101,7 +101,6 @@ namespace {
 using namespace rbr_wgmma;
 
 constexpr int BR = TILE_ROWS;    // query rows a cluster owns; keys of a tile
-constexpr int WG = 128;          // threads of a warpgroup
 constexpr int THREADS = 2 * WG;  // the consumer warpgroup, then the producer warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -128,101 +127,6 @@ struct FwdF32Geom {
   // + 1024: the dynamic shared memory is aligned up to 1024 bytes in the kernel
   static constexpr size_t BYTES = 1024 + TILE + 2 * STAGES * TILE + BARS;
 };
-
-__device__ __forceinline__ float lane_of(const float4& x, int j) {
-  return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
-}
-
-// 64 rows of DH floats as float4s (thread p holds float4s p, p + 128, ...
-// of the rows), split, into the K-major tile of 64 rows by DH at `tile`
-// (its small half HALF bytes on). 8 neighbouring threads write the 8 chunks
-// of one row: no bank conflicts.
-template <int DH>
-__device__ __forceinline__ void store_rows(uint32_t tile, const float4 (&x)[DH / 8], int p) {
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) {
-    const int f = p + WG * i;
-    uint4 big, small;
-    split4(big, small, x[i]);
-    const uint32_t at = tile + chunk_at<BR>(f / (DH / 4), f % (DH / 4));
-    st_shared_v4(at, big);
-    st_shared_v4(at + FwdF32Geom<DH>::HALF, small);
-  }
-}
-
-// Synchronise the producer warpgroup alone.
-__device__ __forceinline__ void producer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(WG) : "memory");
-}
-
-// Split the raw rows that a bulk copy landed row-major at `tile` (`rows` of
-// them valid; the rest of the 64 become zeros) into the tile's halves: big
-// over the raw rows, swizzled, small HALF bytes on. Every thread reads its
-// float4s (8 neighbouring threads a 128-byte run: no bank conflicts) before
-// any thread writes.
-template <int DH>
-__device__ __forceinline__ void split_in_place(uint32_t tile, int rows, int p) {
-  float4 x[DH / 8];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) {
-    const int f = p + WG * i;
-    x[i] = f / (DH / 4) < rows ? ld_shared_v4(tile + 16 * f) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  producer_sync();
-  store_rows<DH>(tile, x, p);
-}
-
-// Thread p's units of V's keys [k0, k0 + 64): unit u = p + 128 m covers
-// chunk kc = 8 (u / (2 DH)) + u % 8 of the transposed tile, the keys
-// 8 G + h + 2 e (e = 0..3) of parity h = kc % 2 in k8 group G = kc / 2,
-// and columns [4 n, 4 n + 4), n = u / 8 % (DH / 4).
-template <int DH>
-__device__ __forceinline__ void unit(int u, int& kc, int& n) {
-  kc = 8 * (u / (2 * DH)) + u % 8;
-  n = u / 8 % (DH / 4);
-}
-
-// V's keys [k0, k0 + 64) as float4s, by store_vt's units: x[4 m + e] holds
-// key 8 G + h + 2 e of unit m; keys past S are zeros.
-template <int DH>
-__device__ __forceinline__ void load_v(float4 (&x)[DH / 8], const float* __restrict__ v, int k0,
-                                       int S, int p) {
-#pragma unroll
-  for (int m = 0; m < DH / 32; ++m) {
-    int kc, n;
-    unit<DH>(p + WG * m, kc, n);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + 8 * (kc / 2) + kc % 2 + 2 * e;
-      const float4 y =
-          ld_stream(reinterpret_cast<const float4*>(v + (long long)min(key, S - 1) * DH) + n);
-      x[4 * m + e] = key < S ? y : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
-// V's keys loaded by load_v, split and transposed, into the K-major tile of
-// DH rows by 64 keys at `tile`, each 8 keys in the order (0, 2, 4, 6, 1, 3,
-// 5, 7): the keys 8 G + h + 2 e of a unit fill chunk kc = 2 G + h of rows
-// 4 n .. 4 n + 3. 8 neighbouring threads write the 8 chunks of one row.
-template <int DH>
-__device__ __forceinline__ void store_vt(uint32_t tile, const float4 (&x)[DH / 8], int p) {
-#pragma unroll
-  for (int m = 0; m < DH / 32; ++m) {
-    int kc, n;
-    unit<DH>(p + WG * m, kc, n);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 col = make_float4(lane_of(x[4 * m], j), lane_of(x[4 * m + 1], j),
-                                     lane_of(x[4 * m + 2], j), lane_of(x[4 * m + 3], j));
-      uint4 big, small;
-      split4(big, small, col);
-      const uint32_t at = tile + chunk_at<DH>(4 * n + j, kc);
-      st_shared_v4(at, big);
-      st_shared_v4(at + FwdF32Geom<DH>::HALF, small);
-    }
-  }
-}
 
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -301,24 +205,24 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (mine > 0) copy_rows(Kt, k + head, key0(0), kraw(0));
     if (ST > 1 && mine > 1) copy_rows(Kt + G::TILE, k + head, key0(1), kraw(1));
     float4 y[G::NL];  // V's next tile
-    if (mine > 0) load_v<DH>(y, v + head, key0(0), S, tid);
+    if (mine > 0) load_t<DH>(y, v + head, key0(0), S, DH, tid);
     mbar_wait(qraw, 0);
-    split_in_place<DH>(Qt, S - q0, tid);
+    split_in_place<DH>(Qt, G::HALF, S - q0, tid);
     fence_proxy_async();
     mbar_arrive(qfull);
     for (int j = 0; j < mine; ++j) {
       const int s = j % ST;
       mbar_wait(kraw(s), (j / ST) & 1);
-      split_in_place<DH>(Kt + s * G::TILE, S - key0(j), tid);
+      split_in_place<DH>(Kt + s * G::TILE, G::HALF, S - key0(j), tid);
       fence_proxy_async();
       mbar_arrive(kfull(s));
       if (j >= ST) mbar_wait(vempty(s), (j / ST - 1) & 1);
-      store_vt<DH>(Vt + s * G::TILE, y, tid);
+      store_t<DH>(Vt + s * G::TILE, G::HALF, y, tid);
       fence_proxy_async();
       mbar_arrive(vfull(s));
       // the next tiles: V's loads go out, and K's rows land once the
       // consumer is done with the stage
-      if (j + 1 < mine) load_v<DH>(y, v + head, key0(j + 1), S, tid);
+      if (j + 1 < mine) load_t<DH>(y, v + head, key0(j + 1), S, DH, tid);
       if (j + ST < mine) {
         mbar_wait(kempty(s), (j / ST) & 1);
         copy_rows(Kt + s * G::TILE, k + head, key0(j + ST), kraw(s));

@@ -1,9 +1,9 @@
 // Float32-accurate products on Hopper's tensor cores on mma.sync, shared by
 // the rotation matmul (matmul.cu, B4) and the float32 flash forward at head
-// widths 16 and 32 (flash_fwd.cu: B1) and backward (flash_bwd.cu: B2 and
-// B3); the 3xTF32 split, which the float32 B1 on wgmma (flash_fwd_f32.cu,
-// wgmma_tf32.cuh) uses too; and the cp.async copies that the mma.sync
-// kernels' loads use.
+// widths 16 and 32 (flash_fwd.cu: B1) and backward at 16, 32 and 64
+// (flash_bwd.cu: B2 and B3); the 3xTF32 split, which the float32 B1 and B2,
+// B3 on wgmma (flash_fwd_f32.cu, flash_bwd_f32.cu, wgmma_tf32.cuh) use too;
+// and the cp.async copies that the mma.sync kernels' loads use.
 //
 // The 3xTF32 split: a float32 x is written as big + small, where
 // big = rna_tf32(x) keeps the top 11 significant bits and
@@ -25,22 +25,27 @@
 //                  in the tensor cores over K = 8192 its error exceeded the
 //                  rotation parity limit.
 //   mma_3xtf32_rn  sums each k8 product from zero and adds it to the running
-//                  sum with a float32 add. The flash backward (B2, B3) uses
-//                  it: its sums feed dP - D, which cancels, and accumulating
-//                  in the tensor cores there doubled the error of the model's
-//                  gradients at full width (chip_smoke.py's schedule check on
-//                  an H100: 6.3e-6 against 2.75e-6 with this form, limit 1e-5)
-//                  for 0.6 us (B2) and 1.0 us (B3) more per launch at the
-//                  path shape. Its cost and gain in B1 and B4 are not
-//                  measured.
+//                  sum with a float32 add. The flash backward on mma.sync
+//                  (B2, B3 at head widths 16-64) uses it: its sums feed
+//                  dP - D, which cancels, and accumulating in the tensor
+//                  cores there doubled the error of the model's gradients at
+//                  full width (chip_smoke.py's schedule check on an H100:
+//                  6.3e-6 against 2.75e-6 with this form, limit 1e-5) for
+//                  0.6 us (B2) and 1.0 us (B3) more per launch at the path
+//                  shape. The backward on wgmma (flash_bwd_f32.cu, head
+//                  width 128) keeps the idea a level up: each 64-row step's
+//                  product is summed from zero in the tensor cores and added
+//                  to the running sum in float32. Its cost and gain in B1
+//                  and B4 are not measured.
 //
 // mma.sync.m16n8k8 fragments (g = lane / 4, t = lane % 4):
 //   A (16 x 8, row-major):  a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
 //   B (8 x 8, k by n):      b0 (t, g)  b1 (t + 4, g)
 //   C (16 x 8):             c0 (g, 2t) c1 (g, 2t + 1) c2 (g + 8, 2t) c3 (g + 8, 2t + 1)
 //
-// (The bf16 flash kernels and the float32 B1 at head widths 64 and 128 run on
-// wgmma instead: wgmma_bf16.cuh, wgmma_tf32.cuh.)
+// (The bf16 flash kernels, the float32 B1 at head widths 64 and 128 and the
+// float32 B2 and B3 at 128 run on wgmma instead: wgmma_bf16.cuh,
+// wgmma_tf32.cuh.)
 #pragma once
 
 #include <cstdint>

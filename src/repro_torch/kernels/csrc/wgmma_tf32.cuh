@@ -2,7 +2,8 @@
 // wgmma (sm_90a): K-major float32 tiles in shared memory that threads write
 // already split into their TF32 halves, the tf32 wgmma.mma_async products,
 // and the cluster's barrier, mbarrier signals and shared-memory stores.
-// Used by the float32 B1 (flash_fwd_f32.cu); the dtype-neutral pieces
+// Used by the float32 B1 (flash_fwd_f32.cu) and the float32 B2 and B3 at
+// head width 128 (flash_bwd_f32.cu); the dtype-neutral pieces
 // (mbarriers, descriptors, fences) are in wgmma.cuh.
 //
 // Why threads write the tiles: tf32 wgmma reads its shared-memory operands
@@ -10,7 +11,8 @@
 // transpose. So a producer splits each float32 x into big = rna_tf32(x) and
 // small = rna_tf32(x - big) (tf32_mma.cuh) and writes both halves, each in
 // its own tile; a tile whose rows lie along the contraction in memory (V in
-// P V) is transposed on the way.
+// B1's P V, K in B2's dS K, Q and dO in B3's dS^T Q and P^T dO) is
+// transposed on the way (store_t).
 //
 // Tiles. A K-major tile of R rows (M or N) holds C float32 columns of the
 // contraction as C / 32 panels of 32 columns: panel p holds columns
@@ -117,6 +119,112 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint4& v) {
 // async proxy (wgmma's operand reads) before it arrives on a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A warpgroup's writes of split tiles. Thread p (0-127) of the warpgroup
+// holds a tile's values as C / 8 float4s, in one of two orders:
+// - rows (store_rows): float4s f = p + 128 i, chunk f % (C / 4)
+//   of row f / (C / 4) of 64 rows of C floats, for the K-major tile of 64
+//   rows by C; 8 neighbouring threads write the 8 chunks of one panel row,
+//   so the stores meet no bank conflict;
+// - transposed (load_t, store_t): 64 rows (keys) of C floats written as
+//   the K-major tile of C rows by the 64 keys, each 8 keys in KEY_ORDER, so
+//   that a score fragment over those keys is the A operand of the product
+//   with it where it lies (a_frag_tf32). Unit u = p + 128 m (m < C / 32)
+//   covers chunk kc = 8 (u / (2 C)) + u % 8 of the transposed rows 4 n to
+//   4 n + 3, n = u / 8 % (C / 4): the keys 8 G + h + 2 e (e = 0..3) of
+//   parity h = kc % 2 in k8 group G = kc / 2; x[4 m + e] holds key
+//   8 G + h + 2 e's columns [4 n, 4 n + 4).
+// Each value is split into big = rna_tf32(x) and small = rna_tf32(x - big),
+// the small half `half` bytes after the big one. Rows past S are zeros.
+constexpr int WG = 128;  // threads of a warpgroup
+
+// Synchronise one warpgroup alone, on named barrier BAR (0 is __syncthreads):
+// the producer's is 1.
+template <int BAR>
+__device__ __forceinline__ void warpgroup_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(WG) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int j) {
+  return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
+}
+
+template <int C>
+__device__ __forceinline__ void store_rows(uint32_t tile, uint32_t half,
+                                           const float4 (&x)[C / 8], int p) {
+#pragma unroll
+  for (int i = 0; i < C / 8; ++i) {
+    const int f = p + WG * i;
+    uint4 big, small;
+    split4(big, small, x[i]);
+    const uint32_t at = tile + chunk_at<TILE_ROWS>(f / (C / 4), f % (C / 4));
+    st_shared_v4(at, big);
+    st_shared_v4(at + half, small);
+  }
+}
+
+// Split the raw rows that a bulk copy landed row-major (C floats a row) at
+// `tile` (`rows` of them valid; the rest of the 64 become zeros) into the
+// tile's halves: big over the raw rows, swizzled, small `half` bytes on.
+// Every thread of the warpgroup (named barrier BAR) reads its float4s (8
+// neighbouring threads a 128-byte run: no bank conflicts) before any thread
+// writes.
+template <int C, int BAR = 1>
+__device__ __forceinline__ void split_in_place(uint32_t tile, uint32_t half, int rows, int p) {
+  float4 x[C / 8];
+#pragma unroll
+  for (int i = 0; i < C / 8; ++i) {
+    const int f = p + WG * i;
+    x[i] = f / (C / 4) < rows ? ld_shared_v4(tile + 16 * f) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  warpgroup_sync<BAR>();
+  store_rows<C>(tile, half, x, p);
+}
+
+template <int C>
+__device__ __forceinline__ void unit(int u, int& kc, int& n) {
+  kc = 8 * (u / (2 * C)) + u % 8;
+  n = u / 8 % (C / 4);
+}
+
+// Keys [k0, k0 + 64) of a tensor of S rows, row stride ld floats, columns
+// [0, C) from src, in store_t's order.
+template <int C>
+__device__ __forceinline__ void load_t(float4 (&x)[C / 8], const float* __restrict__ src, int k0,
+                                       int S, int ld, int p) {
+#pragma unroll
+  for (int m = 0; m < C / 32; ++m) {
+    int kc, n;
+    unit<C>(p + WG * m, kc, n);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * (kc / 2) + kc % 2 + 2 * e;
+      const float4 y =
+          ld_stream(reinterpret_cast<const float4*>(src + (long long)min(key, S - 1) * ld) + n);
+      x[4 * m + e] = key < S ? y : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_t(uint32_t tile, uint32_t half, const float4 (&x)[C / 8],
+                                        int p) {
+#pragma unroll
+  for (int m = 0; m < C / 32; ++m) {
+    int kc, n;
+    unit<C>(p + WG * m, kc, n);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 col = make_float4(lane_of(x[4 * m], j), lane_of(x[4 * m + 1], j),
+                                     lane_of(x[4 * m + 2], j), lane_of(x[4 * m + 3], j));
+      uint4 big, small;
+      split4(big, small, col);
+      const uint32_t at = tile + chunk_at<C>(4 * n + j, kc);
+      st_shared_v4(at, big);
+      st_shared_v4(at + half, small);
+    }
+  }
 }
 
 // The A fragments of k8 step kk of a 64 x 64 float32 D fragment, each value

@@ -8,10 +8,12 @@ plain PyTorch version and its launch counter:
   bf16 inputs ``csrc/flash_fwd_bf16.cu``; replaces ``_flash_fwd_kernel``): O
   and the row logsumexp L = m + log l. A row that sees no key gives O = 0
   and L = ``NEG_INF``.
-* ``flash_bwd_dq`` (B2, ``csrc/flash_bwd.cu``, on bf16 inputs
-  ``csrc/flash_bwd_bf16.cu``; replaces ``_flash_bwd_dq_kernel``):
-  dQ = scale * dS K with p = exp(s*scale - L), dS = p * (dO V^T - D).
-* ``flash_bwd_dkv`` (B3, the same two files; replaces
+* ``flash_bwd_dq`` (B2, ``csrc/flash_bwd_f32.cu``: 3xTF32 on ``wgmma`` at
+  head width 128, ``csrc/flash_bwd.cu`` on ``mma.sync`` at 16, 32 and 64;
+  on bf16 inputs ``csrc/flash_bwd_bf16.cu``; replaces
+  ``_flash_bwd_dq_kernel``): dQ = scale * dS K with p = exp(s*scale - L),
+  dS = p * (dO V^T - D).
+* ``flash_bwd_dkv`` (B3, the same three files; replaces
   ``_flash_bwd_dkv_kernel``): dV = p^T dO, dK = scale * dS^T Q.
 
 Each kernel has a float32 and a bfloat16 entry point (``_f32``, ``_bf16``),
@@ -255,8 +257,10 @@ def launched_blocks() -> dict:
     at head dims 64 and 128 (``csrc/flash_fwd_f32.cu``) a cluster per 64
     rows of each head, of four blocks at 64 and two at 128, sharing the
     rows' key tiles, at 16 and 32 one per 16 rows; the float32 B2 and B3
-    one per 16 rows (B3 at head dim 128 two, each owning half of dh's
-    columns of dK and dV); the bf16 B1, B2 and B3 (``csrc/flash_fwd_bf16.cu``,
+    at head dim 128 (``csrc/flash_bwd_f32.cu``) a cluster of two blocks per
+    64 rows, one computing S and the other dP (B2: each writing half of
+    dQ's columns; B3: one writing dV, the other dK), at 16, 32 and 64
+    (``csrc/flash_bwd.cu``) one per 16 rows; the bf16 B1, B2 and B3 (``csrc/flash_fwd_bf16.cu``,
     ``csrc/flash_bwd_bf16.cu``) one per 64 rows."""
     grids = (ctypes.c_int * 3).in_dll(load_library().lib, "rbr_flash_blocks")
     return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), grids))

@@ -44,9 +44,12 @@ GROUPS = (  # first match wins; names are the kernels' symbol names
     # float32 inputs, flash_fwd_bf16.cu on bf16
     ("port: flash_fwd (B1)", ("flash_fwd_f32_kernel", "flash_fwd_kernel",
                               "flash_fwd_bf16_kernel")),
-    # B2 and B3: flash_bwd.cu on float32 inputs, flash_bwd_bf16.cu on bf16
-    ("port: flash_bwd dq (B2)", ("flash_bwd_dq_kernel", "flash_bwd_dq_bf16_kernel")),
-    ("port: flash_bwd dkv (B3)", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_bf16_kernel")),
+    # B2 and B3: flash_bwd_f32.cu (head dim 128) and flash_bwd.cu (16, 32, 64)
+    # on float32 inputs, flash_bwd_bf16.cu on bf16
+    ("port: flash_bwd dq (B2)", ("flash_bwd_dq_f32_kernel", "flash_bwd_dq_kernel",
+                                 "flash_bwd_dq_bf16_kernel")),
+    ("port: flash_bwd dkv (B3)", ("flash_bwd_dkv_f32_kernel", "flash_bwd_dkv_kernel",
+                                  "flash_bwd_dkv_bf16_kernel")),
     ("qr", ("geqrf", "orgqr", "larf", "householder", "geqr2", "potrf", "trsm")),
     # cuBLAS's products: its bf16 ones run as nvjet kernels
     ("library gemm", ("gemm", "xmma", "cutlass", "sm90", "dot_kernel", "nvjet")),

@@ -206,8 +206,8 @@ def _heads(cuda, shape, seed):
 def test_flash_kernels_match_plain_on_card(cuda, shape, window):
     """B1, B2 and B3 against their plain versions: the training shape,
     windows that leave whole tiles masked, lengths that are no tile
-    multiple, and ranges that give a block's 8 warps uneven numbers of
-    16-row steps (3 steps at S = 48, 17 at S = 272)."""
+    multiple, and ranges that give an mma.sync block's 8 warps uneven
+    numbers of 16-row steps (3 steps at S = 48, 17 at S = 272)."""
     q, k, v, do = _heads(cuda, shape, seed=shape[1] + (window or 0))
     before = (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
               tflash.flash_bwd_dkv.launches)
@@ -225,11 +225,10 @@ def test_flash_kernels_match_plain_on_card(cuda, shape, window):
     torch.testing.assert_close(dv, dv_p, rtol=BWD_RTOL, atol=BWD_ATOL)
     assert (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
             tflash.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
-    # the grids the launches recorded: B2 and B3 one block per 16 rows of
-    # each head, B1 as _f32_fwd_blocks says
-    blocks = shape[0] * -(-shape[1] // 16)
+    # the grids the launches recorded: as _f32_fwd_blocks and _f32_bwd_blocks say
     assert tflash.launched_blocks() == {"flash_fwd": _f32_fwd_blocks(shape),
-                                        "flash_bwd_dq": blocks, "flash_bwd_dkv": blocks}
+                                        "flash_bwd_dq": _f32_bwd_blocks(shape),
+                                        "flash_bwd_dkv": _f32_bwd_blocks(shape)}
 
 
 def _f32_fwd_blocks(shape):
@@ -238,6 +237,15 @@ def _f32_fwd_blocks(shape):
     rows at 16 and 32 (flash_fwd.cu)."""
     BH, S, dh = shape
     return {64: 4, 128: 2}[dh] * BH * -(-S // 64) if dh >= 64 else BH * -(-S // 16)
+
+
+def _f32_bwd_blocks(shape):
+    """The float32 B2's and B3's grid: at head dim 128 a cluster of two
+    blocks per 64 rows of each head, each block computing one of the two
+    score products (flash_bwd_f32.cu); a block per 16 rows at 16, 32 and
+    64 (flash_bwd.cu)."""
+    BH, S, dh = shape
+    return 2 * BH * -(-S // 64) if dh == 128 else BH * -(-S // 16)
 
 
 @pytest.mark.cuda
@@ -394,6 +402,33 @@ def test_flash_f32_forward_at_its_64_row_tile_edges_on_card(cuda, shape, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,window", [(shape, w) for shape, w, n in TILE_CASES if n is None])
+def test_flash_f32_backward_at_its_64_row_tile_edges_on_card(cuda, shape, window):
+    """The float32 B2 and B3 at the edges of 64-row tiles, fed the plain
+    forward's L, at head dim 128 (3xTF32 on wgmma, flash_bwd_f32.cu) and 64
+    (mma.sync, flash_bwd.cu): dQ, dK and dV within the reference's
+    tolerances of the plain versions, two runs bitwise equal, one float32
+    launch each a run, the grids of _f32_bwd_blocks."""
+    q, k, v, do = _heads(cuda, shape, seed=shape[1] + 4)
+    o, L = tflash.flash_fwd_plain(q, k, v, window=window)
+    D = (do * o).sum(-1)
+    before = _launch_counts()
+    dq = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+    dk, dv = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+    dq2 = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
+    dk2, dv2 = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
+    assert _launch_counts()[1:] == tuple((n32 + 2, n16) for n32, n16 in before[1:])
+    assert tflash.launched_blocks()["flash_bwd_dq"] == _f32_bwd_blocks(shape)
+    assert tflash.launched_blocks()["flash_bwd_dkv"] == _f32_bwd_blocks(shape)
+    dk_p, dv_p = tflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
+    for got, again, want in ((dq, dq2, tflash.flash_bwd_dq_plain(q, k, v, do, L, D,
+                                                                  window=window)),
+                             (dk, dk2, dk_p), (dv, dv2, dv_p)):
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, rtol=BWD_RTOL, atol=BWD_ATOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,window", [((6, 256, 64), None), ((2, 200, 32), 100),
                                           ((2, 100, 16), 16), ((2, 320, 128), None),
                                           ((2, 129, 64), 8)])
@@ -437,9 +472,9 @@ DH128_CASES = [((16, 256, 128), None), ((4, 200, 128), 100), ((2, 130, 128), Non
 def test_flash_kernels_at_head_dim_128_match_plain_on_card(cuda, shape, window, dtype):
     """B1, B2 and B3 at head dim 128, both entry points, against their plain
     versions (float32 at the reference's tolerances, bf16 at 1e-2 with L at
-    1e-5); two runs repeat bitwise; the float32 B1 launches a cluster of two
-    blocks per 64 rows, the float32 B2 a block per 16 rows and B3 two per 16
-    keys, the bf16 B1, B2 and B3 a block per 64 rows."""
+    1e-5); two runs repeat bitwise; the float32 B1, B2 and B3 launch a
+    cluster of two blocks per 64 rows, the bf16 B1, B2 and B3 a block per 64
+    rows."""
     q, k, v, do = (x.to(dtype) for x in _heads(cuda, shape, seed=shape[1] + 3))
     f32 = dtype == torch.float32
     fwd_tol = (FWD_RTOL, FWD_ATOL) if f32 else (BF16_TOL, BF16_TOL)
@@ -452,10 +487,9 @@ def test_flash_kernels_at_head_dim_128_match_plain_on_card(cuda, shape, window, 
     D = (do.float() * o.float()).sum(-1)
     dq = tflash.flash_bwd_dq(q, k, v, do, L, D, window=window)
     dk, dv = tflash.flash_bwd_dkv(q, k, v, do, L, D, window=window)
-    blocks = shape[0] * -(-shape[1] // 16)
     assert tflash.launched_blocks() == (
-        {"flash_fwd": _f32_fwd_blocks(shape), "flash_bwd_dq": blocks,
-         "flash_bwd_dkv": 2 * blocks} if f32 else _bf16_blocks(shape))
+        {"flash_fwd": _f32_fwd_blocks(shape), "flash_bwd_dq": _f32_bwd_blocks(shape),
+         "flash_bwd_dkv": _f32_bwd_blocks(shape)} if f32 else _bf16_blocks(shape))
     dk_p, dv_p = tflash.flash_bwd_dkv_plain(q, k, v, do, L, D, window=window)
     for got, want in ((dq, tflash.flash_bwd_dq_plain(q, k, v, do, L, D, window=window)),
                       (dk, dk_p), (dv, dv_p)):

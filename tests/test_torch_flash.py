@@ -121,8 +121,27 @@ def test_flash_at_head_dim_128_matches_pallas_kernels(window, S, dtype):
     reference's custom-vjp Pallas kernels in interpret mode on the same
     inputs: causal, windowed, and a length that fills no block. float32 at
     the reference's tolerances, bf16 at the bf16 ones."""
+    _matches_pallas_kernels(S, 128, window, dtype)
+
+
+@pytest.mark.parametrize("dh,S,window", [(64, 65, None), (64, 129, 8), (128, 65, None),
+                                         (128, 129, 8)])
+def test_flash_f32_backward_at_64_row_tile_edges_matches_pallas_kernels(dh, S, window):
+    """The float32 B2 and B3 walk 64-row tiles on the card
+    (csrc/flash_bwd_f32.cu at head dims 64 and 128). Their plain versions,
+    which the card holds them to, against the reference's custom-vjp Pallas
+    kernels in interpret mode with 64-row blocks at those tiles' edges: a
+    row past one tile, and a row past two under a window of 8. O and dQ,
+    dK, dV at the reference's tolerances."""
+    _matches_pallas_kernels(S, dh, window, "float32")
+
+
+def _matches_pallas_kernels(S, dh, window, dtype):
+    """O and dQ, dK, dV of (1, 2, S, dh) heads through the port's
+    autograd.Function against the reference's Pallas kernels (64-row
+    blocks, interpret mode) on the same numpy inputs."""
     rng = np.random.RandomState(S + (window or 0))
-    xs = [rng.randn(1, 2, S, 128).astype(np.float32) for _ in range(4)]
+    xs = [rng.randn(1, 2, S, dh).astype(np.float32) for _ in range(4)]
     jx = [jnp.asarray(x).astype(dtype) for x in xs]
     tx = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs]
     q, k, v = (x.requires_grad_(True) for x in tx[:3])
