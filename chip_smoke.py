@@ -75,6 +75,20 @@
    checks finite losses and the launch counts of the steps it ran, and
    reports the snapshot, write, load and fast-forward seconds, the
    checkpoint's bytes and the peak memory.
+   ``data_async`` drives the asynchronous data axis on one list of four
+   16-row batches sampled once: the sim path for 4 steps on their first 8
+   rows without the flags and with ``--data-async --data-delay`` 0, 1 and
+   2 (finite losses, B4 4 and B5 1 launches a step, D = 0 bit for bit the
+   losses without the flags, the delay rings' bytes by leaf kind as
+   allocated equal to ``expected_rings_by_kind``'s (tau + D) x numel x 4
+   from the shapes alone), and the 1F1B path with ``--batch 16 --data-par
+   2 --data-async --data-delay 2`` for 4 steps (two data replicas in one
+   process, one row of every microbatch each: per step B1 2 R M L = 1,024,
+   B2 and B3 R M L = 512, B4 4, B5 1; its stage rings equal to the
+   formula's, K-1 slots a stacked leaf whatever D), its peak beside the
+   state, the FIFO's D and the local gradients' R float32 copies of the
+   parameters (``reckon_sim(replicas=)``), and split at the local
+   gradients (``peak_probe``: the peak inside them and outside them).
    ``baselines`` trains the paper's baseline optimizers on one list of three
    batches sampled once: each of the seven on the sim path for 3 steps, and
    delay compensation, pipedream_lr and muon on the SPMD 1F1B path for 3.
@@ -120,8 +134,11 @@
    losses; then each baseline on the sim backend and the SPMD 1F1B one, the
    public architectures (qwen3_0_6b on 1F1B at head dim 128, qwen1_5_0_5b on
    the sim path, phi4_mini_3_8b_swa on 1F1B with a window of 16, xlstm_1_3b
-   on the sim path) with Adam and basis rotation, and the SPMD 1F1B path in
-   bf16 (first loss within 1e-2, all within 5e-2).
+   on the sim path) with Adam and basis rotation, the SPMD 1F1B path in
+   bf16 (first loss within 1e-2, all within 5e-2), and the asynchronous
+   data axis: sim ``--data-async --data-delay 2`` with Adam, and 1F1B
+   ``--data-par 2 --data-async --data-delay 1`` with Adam and with basis
+   rotation.
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -161,6 +178,13 @@ SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
 BF16_STEPS = 4  # steps of the 1F1B path under --precision bf16
 RESUME_CUT = {"sim": 6, "spmd": 2}  # the step each resume check checkpoints at
 MODE_STEPS = 2  # steps of each sim staleness mode
+# the asynchronous data axis: the sim path with each data delay (and without
+# the flags), and the 1F1B path with two data replicas in one process, each
+# DATA_ASYNC_STEPS steps on one list of 16-row batches sampled once (the sim
+# runs take the first 8 rows of each)
+DATA_ASYNC_STEPS = 4
+DATA_ASYNC_SIM_DELAYS = (0, 1, 2)
+DATA_ASYNC_SPMD = {"replicas": 2, "delay": 2, "batch": 16}
 # the paper's baselines: each on the sim path, and three on the SPMD 1F1B path
 # (the stage weight queues, per-stage factors, Newton-Schulz over stacked leaves)
 BASELINES_SIM = ("adasgd", "nesterov", "nesterov_pp", "pipedream_lr", "delay_compensation",
@@ -1093,38 +1117,136 @@ def tensor_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in state_leaves(tree).values())
 
 
-def reckon_sim(cfg, stages):
+def leaf_kind(path: str) -> str:
+    """The kind of a parameter leaf, for memory by kind: ``mixer``, ``mlp``,
+    ``norms``, ``embed`` (with the position embedding) or ``lm_head``. Takes
+    the sim layout's paths (``blocks/3/mixer/w_q``) and the SPMD engine's
+    (``0/mixer/w_q``, ``1/embed/embedding``)."""
+    parts = path.split("/")
+    if parts[0] in ("0", "1"):
+        parts = parts[1:]
+    if parts[0] == "blocks":
+        parts = parts[2:]
+    name = parts[0]
+    return "norms" if "norm" in name else "embed" if name in ("embed", "pos_emb") else name
+
+
+def rings_by_kind(opt_state, paths) -> dict:
+    """Bytes of a delay wrapper's rings (gradients and weights) by the kind
+    of the leaf each ring belongs to; ``paths`` are the leaves in order."""
+    out = Counter()
+    for name in ("grad_q", "param_q"):
+        for path, q in zip(paths, opt_state.get(name, ())):
+            if q is not None:
+                out[leaf_kind(path)] += q.numel() * q.element_size()
+    return dict(out)
+
+
+def expected_rings_by_kind(cfg, stages, data_delay=0, stacked=False) -> dict:
+    """The gradient rings' bytes by leaf kind that the staleness requires,
+    from the parameter shapes alone, not from the optimizer: one float32
+    slot per step of delay. A leaf on stage s of K has tau = K-1-s (layers
+    split evenly and in order, stage 0 holds the input embeddings and
+    projection, the last stage the final norm and the head). Sim
+    (per-layer leaves): each leaf's ring holds tau + D slots. SPMD
+    (``stacked``): a stacked block leaf's ring holds K-1 slots of all its
+    stages whatever D (the deferred reduction deepens only weight rings),
+    a shared leaf's its own tau."""
+    from repro_torch.models import Transformer, param_leaves
+
+    cfg = cfg.replace(scan_layers=False)
+    K, per = stages, max(1, cfg.num_layers // stages)
+    out = Counter()
+    for path, p in param_leaves(Transformer(cfg, device="meta", seed=None)).items():
+        parts = path.split("/")
+        if parts[0] == "blocks":
+            slots = K - 1 if stacked else K - 1 - min(int(parts[1]) // per, K - 1) + data_delay
+        else:
+            tau = K - 1 if parts[0] in ("embed", "pos_emb", "frontend_proj") else 0
+            slots = tau if stacked else tau + data_delay
+        if slots:
+            out[leaf_kind(path)] += 4 * slots * p.numel()
+    return dict(out)
+
+
+def peak_probe(torch, engine) -> list:
+    """Splits each SPMD step's peak memory at the replicas' local
+    gradients: wraps ``engine.local_grad_fn`` so that the peak counter is
+    read and reset just before it (the peak of the previous step's reduce,
+    FIFO, clip and optimizer update; at the first step, of the run's start)
+    and just after it (the peak inside the replicas' schedules and their
+    stacked gradients). Returns the list each step's reading joins."""
+    marks, real = [], engine.local_grad_fn
+
+    def local_grad_fn(*a):
+        torch.cuda.synchronize()
+        mark = {"allocated_before_gb": torch.cuda.memory_allocated() / 1e9,
+                "peak_before_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*a)
+        torch.cuda.synchronize()
+        mark["peak_in_local_grads_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        mark["allocated_after_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        marks.append(mark)
+        return out
+
+    engine.local_grad_fn = local_grad_fn
+    return marks
+
+
+def reckon_sim(cfg, stages, data_delay=0, replicas=None):
     """What a sim step of ``cfg`` on ``stages`` stages (basis rotation with
     the launcher's defaults, the kernels' grouped step) must hold, in bytes
     by kind, from the optimizer that the launcher builds, initialised over
     the model's meta-device parameters (nothing is allocated): float32
     masters and their gradients, Adam's m and v, the bases U, V, the grams
-    L, R and the delay rings; and, beside them, the grouped rotation's
-    transients at their peak (U^T [G, M] and [G, M] V both alive: four
-    floats per rotated element). Activations and the updates are not
-    counted."""
+    L, R and the delay rings (also by leaf kind); and, beside them, the
+    grouped rotation's transients at their peak (U^T [G, M] and [G, M] V
+    both alive: four floats per rotated element). Activations and the
+    updates are not counted. ``data_delay`` D deepens every ring by D slots
+    (``--data-async --data-delay D``). With ``replicas`` R, the SPMD
+    engine's step instead (stacked leaves, stage rings, weight queues D
+    deeper for delay compensation), and beside its state the D deferred
+    reductions of its FIFO and the R replicas' local gradients, each a
+    float32 copy of the parameters."""
     from repro_torch.analysis import state_leaves
     from repro_torch.configs import OptimizerConfig
     from repro_torch.core.layout import build_layout
+    from repro_torch.engine.spmd import SpmdEngine, opt_leaves, stack_stage_params
+    from repro_torch.launch.topology import Topology
     from repro_torch.models import Transformer, param_leaves
     from repro_torch.optim.factory import build_optimizer
 
     cfg = cfg.replace(scan_layers=False)
+    ocfg = OptimizerConfig(name="basis_rotation")
     params = param_leaves(Transformer(cfg, device="meta", seed=None))
-    opt = build_optimizer(OptimizerConfig(name="basis_rotation"), params, cfg,
-                          num_stages=stages, use_kernels=True)
+    if replicas is None:
+        opt = build_optimizer(ocfg, params, cfg, num_stages=stages, use_kernels=True,
+                              data_delay=data_delay)
+    else:
+        opt = SpmdEngine(cfg, ocfg, stages, device="meta", use_kernels=True,
+                         topology=Topology(stages=stages, data=replicas),
+                         data_async=data_delay > 0, data_delay=data_delay).opt
+        params = opt_leaves(*stack_stage_params(params, cfg, stages))
     kind = {"m": "adam", "v": "adam", "U": "bases", "V": "bases", "L": "grams", "R": "grams"}
     out = Counter()
-    for path, x in state_leaves(opt.init(params)).items():
+    state = opt.init(params)
+    for path, x in state_leaves(state).items():
         parts = path.split("/")
         out[kind[parts[-1]] if parts[0] == "inner" else "delay_rings"] += (
             x.numel() * x.element_size())
     nparams = sum(p.numel() for p in params.values())
     out["masters"] = out["gradients"] = 4 * nparams
+    if replicas is not None:
+        out["data_fifo"] = 4 * nparams * data_delay
+        out["local_gradients"] = 4 * nparams * replicas if replicas > 1 else 0
     rotated = sum(math.prod(pl.shape) for pl in build_layout(params, "bilateral") if pl.rotate)
     held = sum(out.values())
     return {"layers": cfg.num_layers, "params": nparams, "rotated_params": rotated,
-            "bytes": dict(out), "held_bytes": held, "rotation_transient_bytes": 16 * rotated,
+            "data_delay": data_delay, "replicas": replicas,
+            "bytes": dict(out), "delay_rings_by_kind": rings_by_kind(state, list(params)),
+            "held_bytes": held, "rotation_transient_bytes": 16 * rotated,
             "reckoned_peak_bytes": held + 16 * rotated}
 
 
@@ -1240,19 +1362,30 @@ def check_resume(train, torch, kernels, args, cut, want_per_step, uninterrupted)
             "first_leg": first, "resumed_leg": second}
 
 
-def run_baseline(train, torch, kernels, args, batch_list, want, first_loss=None):
+def run_baseline(train, torch, kernels, args, batch_list, want, first_loss=None,
+                 rings=False, probe=None):
     """One run through the launcher's trainer with the phase's batches in
     place of its stream; every launch count zeroed just before and read just
     after. Checks finite losses, the launches, and the first loss against
     ``first_loss`` (the same weights and batch, before any update) where one
-    is given. For delay compensation also reports its weight queues' bytes."""
+    is given. For delay compensation also reports its weight queues' bytes;
+    with ``rings``, the delay rings' bytes by leaf kind, as allocated. With
+    ``probe(torch, engine)`` (``peak_probe``), its readings under
+    ``peak_split`` and the peak as the largest of them and the last."""
     from repro_torch.engine import run_loop
+    from repro_torch.engine.spmd import opt_leaves
 
     steps = int(args[args.index("--steps") + 1])
     engine, _, loop_cfg = train.build(train.parse_args(args))
+    marks = probe(torch, engine) if probe else None
     held = [engine.init_state()]
     opt_state = held[0].opt_state
     param_q = tensor_bytes(opt_state["param_q"]) if "param_q" in opt_state else None
+    by_kind = None
+    if rings:
+        params = held[0].params
+        by_kind = rings_by_kind(opt_state, list(
+            opt_leaves(*params) if isinstance(params, tuple) else params))
     del opt_state
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
@@ -1267,11 +1400,105 @@ def run_baseline(train, torch, kernels, args, batch_list, want, first_loss=None)
     first_diff = None if first_loss is None else abs(losses[0] - first_loss)
     if first_diff is not None and first_diff > FIRST_LOSS_TOL:
         raise AssertionError(f"{' '.join(args)}: first loss {losses[0]} against {first_loss}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if marks is not None:
+        marks.append({"peak_before_gb": peak})  # the last step's reduce and update
+        peak = max(v for m in marks for k, v in m.items() if k.startswith("peak"))
     return {"losses": losses, "launches": launches, "first_loss_diff": first_diff,
             "step_s": timings.step_s, "median_step_s_no_refresh": statistics.median(
-                timings.step_s[1:]), "wall_s": wall,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            **({"param_q_bytes": param_q} if param_q is not None else {})}
+                timings.step_s[1:]), "wall_s": wall, "peak_mem_gb": peak,
+            **({"peak_split": marks} if marks is not None else {}),
+            **({"param_q_bytes": param_q} if param_q is not None else {}),
+            **({"delay_rings_by_kind": by_kind} if rings else {})}
+
+
+def check_data_async(train, torch, kernels, cfg, sim_per_step, sgroups, sadam_per_step):
+    """The asynchronous data axis at full width. Sim: the path of phase 3
+    for DATA_ASYNC_STEPS steps without the flags and with --data-async at
+    each data delay D (every leaf's ring D slots deeper; D = 0 must give the
+    same bits as no flag), the rings' bytes by leaf kind as allocated
+    against ``expected_rings_by_kind``. SPMD: the 1F1B path of phase 4 with
+    R = 2 data replicas (each its row of every 2-row microbatch, so B1-B3
+    launch R times as often) and a reduction D = 2 steps old; its rings
+    against the formula, its peak beside the state, the FIFO and the local
+    gradients reckoned, and split at the local gradients. One list of
+    batches sampled once, the sim runs on the first 8 rows of each."""
+    from itertools import islice
+
+    from repro_torch.data import batches as data_batches
+
+    none = {k: 0 for k in kernels}
+    K = int(SPMD_ARGS[SPMD_ARGS.index("--stages") + 1])
+    M = int(SPMD_ARGS[SPMD_ARGS.index("--microbatches") + 1])
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    n, spec = DATA_ASYNC_STEPS, DATA_ASYNC_SPMD
+    big = list(islice(data_batches(cfg, spec["batch"], 256, seed=0, device="cuda"), n))
+    small = [{k: v[:8] for k, v in b.items()} for b in big]
+    data_async = {"sample_s": time.perf_counter() - t_phase, "sim": {}}
+    sim_args = list(MAIN_ARGS)
+    sim_args[sim_args.index("--steps") + 1] = str(n)
+    for dd in (None,) + DATA_ASYNC_SIM_DELAYS:
+        torch.cuda.empty_cache()
+        flags = [] if dd is None else ["--data-async", "--data-delay", str(dd)]
+        first = None if dd is None else data_async["sim"]["no_flags"]["losses"][0]
+        run = run_baseline(train, torch, kernels, sim_args + flags, small,
+                           {k: n * c for k, c in sim_per_step.items()}, first, rings=True)
+        reckon = reckon_sim(cfg, K, data_delay=dd or 0)
+        expected = expected_rings_by_kind(cfg, K, data_delay=dd or 0)
+        if run["delay_rings_by_kind"] != expected:
+            raise AssertionError(f"data delay {dd}: rings {run['delay_rings_by_kind']} against "
+                                 f"the (tau + D) x numel x 4 formula's {expected}")
+        run["reckoned_gb"] = {k: v / 1e9 for k, v in reckon["bytes"].items()}
+        run["reckoned_held_gb"] = reckon["held_bytes"] / 1e9
+        run["reckoned_peak_gb"] = reckon["reckoned_peak_bytes"] / 1e9
+        data_async["sim"]["no_flags" if dd is None else f"data_delay_{dd}"] = run
+    if data_async["sim"]["data_delay_0"]["losses"] != data_async["sim"]["no_flags"]["losses"]:
+        raise AssertionError(f"--data-async --data-delay 0: {data_async['sim']['data_delay_0']}"
+                             f" against no flags {data_async['sim']['no_flags']}")
+    torch.cuda.empty_cache()
+    R, dd = spec["replicas"], spec["delay"]
+    spmd_args = SPMD_ARGS + ["--schedule", "1f1b", "--steps", str(n), "--data-par", str(R),
+                             "--data-async", "--data-delay", str(dd)]
+    spmd_args[spmd_args.index("--batch") + 1] = str(spec["batch"])
+    run = run_baseline(train, torch, kernels, spmd_args, big, {
+        **none, "flash_fwd": n * 2 * R * M * L, "flash_bwd_dq": n * R * M * L,
+        "flash_bwd_dkv": n * R * M * L, "matmul": n * sum(1 for g in sgroups if g),
+        "adam_scale": n * sadam_per_step}, rings=True, probe=peak_probe)
+    reckon = reckon_sim(cfg, K, data_delay=dd, replicas=R)
+    expected = expected_rings_by_kind(cfg, K, data_delay=dd, stacked=True)
+    if run["delay_rings_by_kind"] != expected:
+        raise AssertionError(f"spmd: rings {run['delay_rings_by_kind']} against the "
+                             f"(K-1 stacked, tau shared) x numel x 4 formula's {expected}")
+    run["reckoned_gb"] = {k: v / 1e9 for k, v in reckon["bytes"].items()}
+    run["reckoned_held_gb"] = reckon["held_bytes"] / 1e9
+    run["launches_per_step"] = {k: v / n for k, v in run["launches"].items() if v}
+    data_async["spmd_1f1b"] = run
+    data_async["phase_s"] = time.perf_counter() - t_phase
+    return data_async
+
+
+def data_async_cuda_vs_cpu(train):
+    """Phase 5's pairs of the asynchronous data axis at smoke size: the sim
+    path's deeper rings with Adam, and two data replicas with a deferred
+    reduction on the 1F1B path, Adam and basis rotation, under the gates of
+    the other pairs."""
+    for backend, opts in (
+            (["--backend", "sim", "--data-async", "--data-delay", "2"],
+             ((["--optimizer", "adam"], 1e-4, 1e-4),)),
+            (["--backend", "spmd", "--schedule", "1f1b", "--data-par", "2", "--data-async",
+              "--data-delay", "1"],
+             ((["--optimizer", "adam"], 1e-4, 1e-4), (["--use-kernels"], 2e-3, 5e-2)))):
+        for opt, first2_tol, all_tol in opts:
+            args = SMOKE_ARGS + backend + opt
+            gpu = train.main(args)["losses"]
+            cpu = train.main(args + ["--device", "cpu"])["losses"]
+            diffs = [abs(a - b) for a, b in zip(gpu, cpu)]
+            if not (len(diffs) == len(cpu) and max(diffs[:2]) < first2_tol
+                    and max(diffs) < all_tol):
+                raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
+            emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
+                  "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
 
 
 def main() -> int:
@@ -1551,6 +1778,12 @@ def main() -> int:
                                {k: MODE_STEPS * n for k, n in sim_per_step.items()})
     emit({"phase": "sim_modes", **modes})
 
+    # the asynchronous data axis on both backends
+    torch.cuda.empty_cache()
+    data_async = check_data_async(train, torch, kernels, cfg, sim_per_step, sgroups,
+                                  sadam_per_step)
+    emit({"phase": "data_async", **data_async})
+
     # the paper's baselines: one list of batches for every run (host sampling
     # costs seconds a batch), the sim path and the SPMD 1F1B path at full
     # width. B4 and B5 belong to basis rotation alone; B1-B3 run in every
@@ -1696,6 +1929,7 @@ def main() -> int:
                 raise AssertionError(f"{args}: cuda vs cpu losses differ: {gpu} vs {cpu}")
             emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "cuda": gpu, "cpu": cpu,
                   "max_diff_first2": max(diffs[:2]), "max_diff": max(diffs)})
+    data_async_cuda_vs_cpu(train)
     for backend in (["--backend", "sim"], ["--backend", "spmd", "--schedule", "1f1b"]):
         for opt in BASELINES_SIM:
             all_tol = 1e-3 if opt in NEWTON_SCHULZ else 1e-4
@@ -1910,6 +2144,9 @@ def main() -> int:
          "resume_spmd_launches": [resume_spmd[leg]["launches"]
                                   for leg in ("first_leg", "resumed_leg")],
          "sim_modes_launches": {m: r["launches"] for m, r in modes.items()},
+         "data_async_launches": {**{f"sim_{k}": r["launches"]
+                                    for k, r in data_async["sim"].items()},
+                                 "spmd_1f1b": data_async["spmd_1f1b"]["launches"]},
          "xlstm_sim_launches": xsim["launches"],
          "paper_1b_sim_launches": p1b["launches"],
          "baselines_launches": {path: {n: r["launches"] for n, r in runs.items()}

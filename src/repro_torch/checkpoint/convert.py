@@ -20,6 +20,11 @@ buffer advanced by one shared ``head``, the reference in logical order with
 row 0 the oldest and no ``head``. Logical row r is ring slot ``(head + r) %
 d``, for the per-leaf queues and the stage queues alike; a restored ring
 starts at ``head = 0``.
+
+``fifo_to_numpy`` and ``fifo_from_numpy`` carry the SPMD engine's
+deferred data reductions (an asynchronous data axis): a tuple of
+``(stacked, shared)`` gradient trees, oldest first, the third element of the
+reference's checkpoint tree.
 """
 from __future__ import annotations
 
@@ -126,6 +131,19 @@ def stacked_to_numpy(stacked: Dict[str, torch.Tensor], shared: Dict[str, torch.T
                  for d in (stacked, shared))
 
 
+def fifo_to_numpy(fifo) -> Tuple[Any, ...]:
+    """The deferred reductions ``[(g_stacked, g_shared), ...]`` as the
+    reference's tuple of ``(stacked, shared)`` numpy trees."""
+    return tuple(stacked_to_numpy(gs, gsh) for gs, gsh in fifo)
+
+
+def fifo_from_numpy(tree: Any, device: torch.device | str = "cuda"
+                    ) -> List[Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+    """The inverse of ``fifo_to_numpy``: one ``(stacked, shared)`` pair of
+    float32 ``{path: tensor}`` dicts per entry, oldest first."""
+    return [stacked_from_numpy(entry, device) for entry in tree]
+
+
 def _ring_to_logical(q: Optional[torch.Tensor], head: int) -> Optional[np.ndarray]:
     if q is None:
         return None
@@ -198,14 +216,16 @@ def opt_state_from_numpy(tree: Any, state: Any) -> Any:
     return state
 
 
-def stage_shard_axes(stacked: Dict[str, Any], shared: Dict[str, Any], opt_state: Any
-                     ) -> List[Optional[int]]:
+def stage_shard_axes(stacked: Dict[str, Any], shared: Dict[str, Any], opt_state: Any,
+                     data_fifo: Optional[List[Any]] = None) -> List[Optional[int]]:
     """Per-leaf shard axes of the SPMD engine's checkpoint tree, in its leaf
     order: axis 0 for the stacked parameters and their optimizer state, axis
     1 for their stage delay queues ``(K-1, K, per, ...)`` (gradients and
     weights alike), None for the shared leaves and theirs and for a scalar
-    state (stored whole in shard 0). These are the axes the reference reads
-    off its leaves' stage sharding."""
+    state (stored whole in shard 0); then, for each entry of ``data_fifo``
+    (the tree's third element), axis 0 for its stacked gradients and None
+    for its shared ones. These are the axes the reference reads off its
+    leaves' stage sharding."""
     on_stage = [True] * len(stacked) + [False] * len(shared)
     axes: List[Optional[int]] = [0 if s else None for s in on_stage]
 
@@ -224,4 +244,6 @@ def stage_shard_axes(stacked: Dict[str, Any], shared: Dict[str, Any], opt_state:
                      else [0 if s else None for s in on_stage])
     if "param_q" in opt_state:  # sorts after "inner"
         axes += queue_axes(opt_state["param_q"])
+    for _ in data_fifo or ():
+        axes += [0 if s else None for s in on_stage]
     return axes

@@ -16,8 +16,11 @@ leaves) or a length-K tuple for a leaf whose leading axis is the pipeline
 stage (the SPMD stage-stacked layout). Refresh periods are budget-
 renormalised over the expanded per-layer multiset (``repeats``), so a
 stacked ``(K, per, m, n)`` leaf gets exactly the per-(stage, layer) periods
-the per-layer sim layout would. ``data_delay`` (the asynchronous data axis)
-is carried but stays 0 until that axis is ported.
+the per-layer sim layout would. ``data_delay`` is the asynchronous data
+axis's uniform extra staleness: refresh periods and delay scales read the
+total delay tau + data_delay, while the FIFO specs stay pipeline-only (the
+data delay is imposed by the engine's deferred-reduction FIFO, or, on the
+sim backend, by deepening every leaf's queue).
 """
 from __future__ import annotations
 

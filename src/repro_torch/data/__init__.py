@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import SyntheticLM, batches, eval_batches
+from repro_torch.data.synthetic import SyntheticLM, batches, eval_batches, sharded_batches
 
-__all__ = ["SyntheticLM", "batches", "eval_batches"]
+__all__ = ["SyntheticLM", "batches", "eval_batches", "sharded_batches"]

@@ -4,6 +4,9 @@ Tokens follow a Zipf unigram prior modulated by a low-rank order-1 Markov
 transition. Sampling stays in numpy with the reference's ``RandomState``
 draws, so a fixed seed gives bit-identical token streams in both packages;
 only the finished batch becomes a tensor on the requested device.
+``sharded_batches`` yields one host's contiguous row slice of that stream;
+the hosts' slices concatenated give the stream of ``batches`` back bit for
+bit.
 """
 from __future__ import annotations
 
@@ -62,6 +65,29 @@ def batches(
         toks = torch.from_numpy(stream.sample(batch_size, seq_len).astype(np.int64))
         toks = toks.to(device)
         yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def sharded_batches(
+    cfg: ModelConfig,
+    batch_size: int,
+    seq_len: int,
+    num_hosts: int,
+    host_id: int,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Host ``host_id``'s contiguous row slice of the global batch stream.
+
+    Every host walks the same seeded global stream and keeps rows
+    ``[host_id * B/num_hosts, (host_id + 1) * B/num_hosts)``: the sampler
+    draws each batch's rows from one generator, so slicing after sampling is
+    the only way to shard it exactly."""
+    if batch_size % num_hosts:
+        raise ValueError(f"global batch {batch_size} must divide over {num_hosts} hosts")
+    local = batch_size // num_hosts
+    lo, hi = host_id * local, (host_id + 1) * local
+    for batch in batches(cfg, batch_size, seq_len, seed=seed, device=device):
+        yield {k: v[lo:hi] for k, v in batch.items()}
 
 
 def eval_batches(

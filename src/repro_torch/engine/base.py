@@ -6,10 +6,12 @@ drives.
     state, loss, metrics = engine.step(state, batch, t)
 
 `EngineState` is a plain container: `params` and `opt_state` are
-backend-specific (the SPMD engine keeps the stage-stacked layout), and
-`history` is the sim backend's no-stash snapshot window. `checkpoint_tree`
-and `load_state` convert to and from the reference's ``(params,
-opt_state)`` tree of numpy arrays, which the checkpointer stores.
+backend-specific (the SPMD engine keeps the stage-stacked layout),
+`history` is the sim backend's no-stash snapshot window, and `data_fifo`
+the SPMD engine's deferred data reductions under an asynchronous data
+axis. `checkpoint_tree` and `load_state` convert to and from the
+reference's ``(params, opt_state[, data_fifo])`` tree of numpy arrays,
+which the checkpointer stores.
 """
 from __future__ import annotations
 
@@ -25,6 +27,10 @@ class EngineState:
     params: Any
     opt_state: Any
     history: List[Any] = field(default_factory=list)
+    # asynchronous data axis (SpmdEngine ``data_async``): the last D deferred
+    # cross-replica gradient reductions, oldest first; None when the data
+    # axis is synchronous
+    data_fifo: Optional[List[Any]] = None
 
 
 class PipelineEngine(abc.ABC):

@@ -1,5 +1,5 @@
 """Pipeline tick schedules for the SPMD engine. Port of
-``repro/engine/schedules.py`` (the ``reduce_data=True`` forms).
+``repro/engine/schedules.py``.
 
 Both schedules share one contract:
 
@@ -31,6 +31,13 @@ exact: M x (layers) stage-layer forwards for fill-drain, twice that for
   into float32 gradient buffers. The last stage seeds its backward with
   ce_m / M from this tick's fresh output; stage 0's input gradient becomes
   the embedding gradient. Activations held: O(K) per stage, whatever M.
+
+``make_local_grad`` is the port's form of the reference's
+``reduce_data=False``: each data replica's local gradient, with no
+reduction over the replicas. On one card the replicas run one after
+another, each the schedule above on its rows of every microbatch, and their
+losses and gradients are stacked along a leading replica axis; the engine
+reduces them (``SpmdEngine._reduce``).
 
 Under the ``bf16`` precision policy both schedules run on compute-dtype
 copies of the float32 masters (``cast_params``) and return float32
@@ -300,6 +307,39 @@ def make_schedule_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
     if schedule == "1f1b":
         return make_1f1b_grad(cfg, num_stages, num_microbatches, stats)
     raise ValueError(f"unknown pipeline schedule {schedule!r}; one of {SCHEDULES}")
+
+
+def make_local_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
+                    topology, schedule: str = "fill_drain"):
+    """``grad_fn(stacked, shared, batch) -> (loss_r, (gs_r, gsh_r))``: the
+    losses ``(R,)`` and local gradients ``{path: (R, K, per, ...)}`` and
+    ``{path: (R, ...)}`` of the R = ``topology.data_shards`` data replicas,
+    unreduced. Replica r takes its rows of each microbatch
+    (``topology.replica_rows``, the reference's pod-major split over the
+    flattened ``(pod, data)`` axes), and its loss and gradient are the
+    schedule's on those rows alone: the mean over its own tokens, as on the
+    reference's data replica."""
+    grad_fn = make_schedule_grad(cfg, num_stages, num_microbatches, schedule)
+    R = topology.data_shards
+
+    def local_grad_fn(stacked: Params, shared: Params, batch: Dict[str, Tensor]):
+        mb = batch["tokens"].shape[1]
+        losses, out = [], None
+        for r in range(R):
+            lo, hi = topology.replica_rows(r, mb)
+            loss, grads = grad_fn(stacked, shared,
+                                  {k: v[:, lo:hi].contiguous() for k, v in batch.items()})
+            if out is None:
+                out = tuple({p: g.new_empty((R,) + tuple(g.shape)) for p, g in d.items()}
+                            for d in grads)
+            for acc, d in zip(out, grads):
+                for p, g in d.items():
+                    acc[p][r].copy_(g)
+            del grads
+            losses.append(loss)
+        return torch.stack(losses), out
+
+    return local_grad_fn
 
 
 def schedule_activation_bytes(cfg: ModelConfig, num_stages: int, num_microbatches: int,

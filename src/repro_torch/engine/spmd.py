@@ -12,11 +12,17 @@ built from the stacked layout's ``StageContext``, so stage-aware refresh
 periods act per stage slice and the basis-rotation products run batched
 over the stacked layers.
 
-On one card the stages run in one process (see ``engine.schedules``); one
-rank per stage over ``torch.distributed``, the data axis and its
-asynchronous form, and topologies are not ported yet. Checkpoints use the
-reference's sharded format, one arrays file per stage, written by this one
-process.
+On one card the stages run in one process (see ``engine.schedules``), and
+so do the data replicas of a ``launch.topology.Topology``: each takes its
+rows of every microbatch, one after another, and ``_reduce`` means their
+gradients, the one place where replicas combine. With ``data_async`` and
+``data_delay=D > 0`` the data axis is asynchronous, as in the reference
+(DESIGN.md §12): each step computes the replicas' local gradients from the
+current weights, applies the reduction of D steps ago from a FIFO in the
+engine state, and enqueues this step's; the optimizer sees the total delay
+tau_k + D. One rank per stage over ``torch.distributed`` is not ported yet.
+Checkpoints use the reference's sharded format, one arrays file per stage,
+written by this one process.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.checkpoint.convert import (
+    fifo_from_numpy,
+    fifo_to_numpy,
     opt_state_from_numpy,
     opt_state_to_numpy,
     stacked_from_numpy,
@@ -38,8 +46,9 @@ from repro_torch.configs.base import (
     PrecisionPolicy,
 )
 from repro_torch.engine.base import EngineState, PipelineEngine
-from repro_torch.engine.schedules import SCHEDULES, make_schedule_grad
+from repro_torch.engine.schedules import SCHEDULES, make_local_grad, make_schedule_grad
 from repro_torch.core.layout import tree_order_key
+from repro_torch.launch.topology import Topology
 from repro_torch.models.model import Transformer, param_leaves
 from repro_torch.optim.base import apply_updates, clip_by_global_norm
 from repro_torch.optim.factory import build_optimizer
@@ -118,6 +127,16 @@ class SpmdEngine(PipelineEngine):
     second copy of the parameters and optimizer state. ``"auto"`` donates
     on a CUDA device and copies on the CPU, where the reference's
     ``"auto"`` does not donate either.
+
+    ``topology`` (default: K stages, one data replica) sets the data
+    replicas R = ``topology.data_shards``; each microbatch's rows must
+    divide over them. With R > 1 and a synchronous data axis the step
+    reduces the replicas' gradients at once. ``data_async=True,
+    data_delay=D`` with D > 0 applies instead the reduction of D steps ago
+    (zeros for the first D steps, on which the optimizer still updates);
+    the reductions in flight are ``EngineState.data_fifo`` and the
+    checkpoint tree's third element. ``data_delay=0`` is the synchronous
+    step, bit for bit. A FIFO entry is never written: the step clips a copy.
     """
 
     name = "spmd"
@@ -127,7 +146,8 @@ class SpmdEngine(PipelineEngine):
                  async_grads: bool = True, use_kernels: bool = False,
                  grad_clip: float = 1.0, device: Union[str, torch.device] = "cuda",
                  seed: int = 0, precision: Union[str, PrecisionPolicy, None] = None,
-                 donate: Union[bool, str] = "auto"):
+                 donate: Union[bool, str] = "auto", topology: Optional[Topology] = None,
+                 data_async: bool = False, data_delay: int = 0):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown pipeline schedule {schedule!r}; one of {SCHEDULES}")
         if cfg.scan_layers:
@@ -148,22 +168,45 @@ class SpmdEngine(PipelineEngine):
         self.donate = self.device.type == "cuda" if donate == "auto" else bool(donate)
         self.grad_clip = grad_clip
         self.seed = seed
+        topology = topology if topology is not None else Topology(stages=K)
+        if topology.stages != K:
+            raise ValueError(f"topology {topology.describe()} has {topology.stages} stages "
+                             f"but the engine was asked for {K}")
+        self.topology = topology
+        # data_delay == 0 is the synchronous step at construction: the same
+        # step, optimizer and checkpoint layout
+        self.data_async = bool(data_async)
+        self.data_delay = int(data_delay)
+        if self.data_delay < 0:
+            raise ValueError(f"data_delay must be >= 0, got {self.data_delay}")
+        if self.data_delay > 0 and not self.data_async:
+            raise ValueError("data_delay > 0 requires data_async=True")
+        self._data_eff = self.data_async and self.data_delay > 0
+        D = self.data_delay if self._data_eff else 0
         self.grad_fn = make_schedule_grad(cfg, K, M, schedule)
+        # each replica's local gradient, when there is more than one replica
+        # (one replica's reduction is the identity)
+        self.local_grad_fn = (make_local_grad(cfg, K, M, topology, schedule)
+                              if topology.data_shards > 1 else None)
 
         # the stage context from parameter shapes only: a weightless model
         meta = Transformer(cfg, device="meta", seed=None)
         stacked_s, shared_s = stack_stage_params(param_leaves(meta), cfg, K)
-        ctx = stage_context_for_stacked(stacked_s, shared_s, K)
+        # delay-aware bases see the total delay tau_k + D
+        ctx = stage_context_for_stacked(stacked_s, shared_s, K, data_delay=D)
+        self._stacked_shapes = {k: tuple(v.shape) for k, v in stacked_s.items()}
+        self._shared_shapes = {k: tuple(v.shape) for k, v in shared_s.items()}
         self._leaf_shapes = {k: tuple(v.shape) for k, v in opt_leaves(stacked_s, shared_s).items()}
         base = build_optimizer(ocfg, opt_leaves(stacked_s, shared_s), cfg, num_stages=K,
                                apply_delay=False, use_kernels=use_kernels, stage_context=ctx)
-        # delay compensation reads each stage's stale weights from the FIFO.
-        # Per-stage factors of the delay-aware bases are built here from the
-        # meta shapes on the host and follow the state to its device at
-        # their first use
+        # delay compensation reads each stage's stale weights from the FIFO,
+        # D steps deeper under a deferred reduction. Per-stage factors of the
+        # delay-aware bases are built here from the meta shapes on the host
+        # and follow the state to its device at their first use
         self.opt = (stage_delayed_optimizer(base, ctx.delay_specs(), K,
-                                            store_params=(ocfg.name == "delay_compensation"))
-                    if async_grads and K > 1 else base)
+                                            store_params=(ocfg.name == "delay_compensation"),
+                                            extra_param_delay=D)
+                    if async_grads and (K > 1 or self._data_eff) else base)
 
     def init_state(self, params: Any = None) -> EngineState:
         """``params``: None (a model drawn from the engine's seed), a
@@ -179,28 +222,65 @@ class SpmdEngine(PipelineEngine):
                        for k, v in stacked.items()}
             shared = {k: v.detach().to(self.device, torch.float32).clone()
                       for k, v in shared.items()}
+        # warm-up: the first D steps apply zero reductions, the data axis's
+        # analogue of the delay FIFO's zero-gradient warm-up. No step writes
+        # into a FIFO entry, so the D entries may share one zero tree
+        fifo = [self._zero_gbar()] * self.data_delay if self._data_eff else None
         return EngineState(params=(stacked, shared),
-                           opt_state=self.opt.init(opt_leaves(stacked, shared)))
+                           opt_state=self.opt.init(opt_leaves(stacked, shared)),
+                           data_fifo=fifo)
+
+    def _zero_gbar(self) -> Tuple[Params, Params]:
+        """A zero reduction: float32 ``(g_stacked, g_shared)`` on the device."""
+        return tuple({k: torch.zeros(sh, dtype=torch.float32, device=self.device)
+                      for k, sh in shapes.items()}
+                     for shapes in (self._stacked_shapes, self._shared_shapes))
 
     def _shape_batch(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         """(B, S) -> (M, B // M, S): equal microbatches, so that 1F1B's sum of
-        ce_m / M equals fill-drain's joint mean."""
+        ce_m / M equals fill-drain's joint mean. Each microbatch's rows must
+        divide over the topology's data shards."""
         tokens = batch["tokens"]
-        if tokens.ndim == 3:  # already microbatched
-            return batch
-        M = self.num_microbatches
-        B, S = tokens.shape
-        if B % M:
-            raise ValueError(f"batch {B} must divide into {M} microbatches")
-        return {k: v.reshape(M, B // M, S) for k, v in batch.items()}
+        if tokens.ndim != 3:
+            M = self.num_microbatches
+            B, S = tokens.shape
+            if B % M:
+                raise ValueError(f"batch {B} must divide into {M} microbatches")
+            batch = {k: v.reshape(M, B // M, S) for k, v in batch.items()}
+        mb, shards = batch["tokens"].shape[1], self.topology.data_shards
+        if mb % shards:
+            raise ValueError(f"microbatch size {mb} must divide over the {shards} data shards "
+                             f"of topology {self.topology.describe()}")
+        return batch
+
+    def _reduce(self, loss_r: Tensor, local: Tuple[Params, Params]
+                ) -> Tuple[Tensor, Tuple[Params, Params]]:
+        """The mean over the leading replica axis of the replicas' losses and
+        local gradients: the only place where data replicas combine."""
+        with torch.no_grad():
+            return loss_r.mean(), tuple({k: v.mean(0) for k, v in d.items()} for d in local)
+
+    def _fresh_grads(self, stacked: Params, shared: Params, batch: Dict[str, Tensor]):
+        """This step's loss and gradients, reduced over the data replicas."""
+        if self.local_grad_fn is None:
+            return self.grad_fn(stacked, shared, batch)
+        loss_r, local = self.local_grad_fn(stacked, shared, batch)
+        return self._reduce(loss_r, local)
 
     def step(self, state: EngineState, batch: Dict, t: int) -> Tuple[EngineState, Any, Dict]:
         stacked, shared = state.params
-        loss, (gs, gsh) = self.grad_fn(stacked, shared, self._shape_batch(batch))
+        loss, (gs, gsh) = self._fresh_grads(stacked, shared, self._shape_batch(batch))
+        fifo = None
+        if self._data_eff:
+            # enqueue this step's reduction; apply the one of D steps ago
+            fifo = list(state.data_fifo)
+            fifo.append((gs, gsh))
+            gs, gsh = fifo.pop(0)
         grads = opt_leaves(gs, gsh)
         if self.grad_clip:
-            # the step's own gradients: scaled where they lie
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            # the step's own gradients are scaled where they lie; a popped
+            # reduction out of place, so that no FIFO entry is ever written
+            grads = clip_by_global_norm(grads, self.grad_clip, inplace=not self._data_eff)
         params = opt_leaves(stacked, shared)
         with torch.no_grad():
             updates, opt_state = self.opt.update(grads, state.opt_state, params, t,
@@ -210,7 +290,7 @@ class SpmdEngine(PipelineEngine):
                 shared = {k: v.clone() for k, v in shared.items()}
                 params = opt_leaves(stacked, shared)
             apply_updates(params, updates)  # in place: the step's stacked and shared tensors
-        return EngineState((stacked, shared), opt_state), loss, {"ce": loss}
+        return EngineState((stacked, shared), opt_state, data_fifo=fifo), loss, {"ce": loss}
 
     def canonical_params(self, state: EngineState) -> Params:
         """Per-layer ``{path: tensor}``, e.g. for evaluation."""
@@ -219,33 +299,54 @@ class SpmdEngine(PipelineEngine):
     # -- checkpointing -----------------------------------------------------
 
     def checkpoint_tree(self, state: EngineState) -> Any:
-        """``((stacked, shared), opt_state)``: the reference's 2-tuple."""
-        return (stacked_to_numpy(*state.params), opt_state_to_numpy(state.opt_state))
+        """``((stacked, shared), opt_state)``, the reference's 2-tuple, and
+        under a deferred reduction the FIFO as its third element, so that a
+        resumed run applies the same reductions."""
+        tree = (stacked_to_numpy(*state.params), opt_state_to_numpy(state.opt_state))
+        if self._data_eff:
+            tree += (fifo_to_numpy(state.data_fifo),)
+        return tree
 
     def load_state(self, tree: Any) -> EngineState:
-        params_tree, opt_tree = tree
+        """From a ``checkpoint_tree``; a synchronous 2-tuple warm-starts a
+        deferred reduction with a zero FIFO, as the reference does."""
+        params_tree, opt_tree, *rest = tree
+        fifo_tree = rest[0] if rest else None
+        if self._data_eff and fifo_tree is not None and len(fifo_tree) != self.data_delay:
+            raise ValueError(f"checkpoint FIFO depth {len(fifo_tree)} does not match "
+                             f"data_delay={self.data_delay}")
         stacked, shared = stacked_from_numpy(params_tree, "cpu")
         got = {k: tuple(v.shape) for k, v in opt_leaves(stacked, shared).items()}
         if got != self._leaf_shapes:
             raise ValueError(f"checkpoint parameters {got} do not fit this engine's "
                              f"{self._leaf_shapes}")
+        if self._data_eff and fifo_tree is not None:
+            fifo = fifo_from_numpy(fifo_tree, self.device)
+            for i, entry in enumerate(fifo):
+                shapes = {k: tuple(v.shape) for k, v in opt_leaves(*entry).items()}
+                if shapes != self._leaf_shapes:
+                    raise ValueError(f"checkpoint FIFO entry {i}: {shapes} do not fit this "
+                                     f"engine's {self._leaf_shapes}")
         state = self.init_state((stacked, shared))
         opt_state_from_numpy(opt_tree, state.opt_state)
+        if self._data_eff and fifo_tree is not None:
+            state.data_fifo = fifo
         return state
 
     def checkpoint_job(self, path: str, state: EngineState, step: int = 0,
                        meta: Optional[Dict] = None):
         """Per-stage-shard save: one arrays file per pipeline stage. The
-        stacked parameters and their optimizer state are sliced on axis 0,
-        the stage delay queues on axis 1; the shared leaves go whole to
-        shard 0. The host snapshot is taken now, the returned closure only
-        writes files."""
+        stacked parameters, their optimizer state and the FIFO's stacked
+        gradients are sliced on axis 0, the stage delay queues on axis 1;
+        the shared leaves go whole to shard 0. The host snapshot is taken
+        now, the returned closure only writes files."""
         from repro_torch.checkpoint.ckpt import snapshot_sharded, write_sharded_checkpoint
 
-        axes = stage_shard_axes(*state.params, state.opt_state)
+        axes = stage_shard_axes(*state.params, state.opt_state,
+                                data_fifo=state.data_fifo if self._data_eff else None)
         snapshot = snapshot_sharded(self.checkpoint_tree(state), self.num_stages, axes)
-        # one process, one data replica
-        full_meta = {"topology": f"{self.num_stages}x1", "precision": self.precision,
+        # one process holds every stage and data replica
+        full_meta = {"topology": self.topology.describe(), "precision": self.precision,
                      "num_processes": 1, **(meta or {})}
 
         def write() -> None:

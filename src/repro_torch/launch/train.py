@@ -37,11 +37,21 @@ checkpoints every N steps and at the end, in the reference's format; a
 rerun with the same directory resumes from its checkpoint, fast-forwarding
 the data stream past the batches already consumed.
 
+``--data-async [--data-delay D]`` (D defaults to 1) makes the data axis
+asynchronous. On the sim backend it adds D steps of uniform staleness to
+every leaf's gradient FIFO (one replica's reduction is the identity, so a
+D-step-late gradient is the deferred reduction). On the spmd backend
+``--pods P --data-par R`` place the run on a (pod, stage, data)
+``Topology`` whose P * R data replicas run in this one process, each on its
+rows of every microbatch, and ``--data-async`` applies their mean gradient
+D steps late (``--data-par 0``, the default, means one replica per pod).
+``--data-delay 0`` is the synchronous data axis, bit for bit.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for but absent. The reference's flags are accepted; those whose
-feature is not ported yet exit with a message that says so. On the sim
-backend ``--microbatches`` and ``--process-id`` are ignored, as the
-reference ignores them there.
+feature is not ported yet (the multi-process flags on the spmd backend)
+exit with a message that says so. On the sim backend ``--microbatches``
+and ``--process-id`` are ignored, as the reference ignores them there.
 """
 from __future__ import annotations
 
@@ -101,16 +111,27 @@ def parse_args(argv=None):
 WEIGHT_PREDICTION_REFUSED = ("adasgd",)
 
 
+def data_delay_of(args) -> int:
+    """The reference's checks of the data-axis flags; the data delay D (1 by
+    default under ``--data-async``, 0 without it)."""
+    if args.data_delay is not None and not args.data_async:
+        raise SystemExit("--data-delay only applies under --data-async")
+    if args.data_async and args.sync:
+        raise SystemExit(
+            "--sync forces fully synchronous gradients; it cannot be "
+            "combined with --data-async"
+        )
+    data_delay = (1 if args.data_delay is None else args.data_delay) if args.data_async else 0
+    if data_delay < 0:
+        raise SystemExit("--data-delay must be >= 0")
+    return data_delay
+
+
 def _refuse_unported(args) -> None:
-    if args.data_async or args.data_delay is not None:
-        raise SystemExit("--data-async / --data-delay is not yet ported to repro_torch")
     if args.backend == "spmd":
         if args.coordinator is not None or args.num_processes > 1 or args.process_id != 0:
             raise SystemExit(
                 "--coordinator / --num-processes / --process-id is not yet ported to repro_torch")
-        if args.pods != 1 or args.data_par > 1:
-            raise SystemExit("--pods / --data-par (the spmd data axis) is not yet ported "
-                             "to repro_torch")
         if args.weight_prediction or args.no_stash:
             raise SystemExit(
                 "--weight-prediction / --no-stash are sim-backend modes; the spmd "
@@ -169,12 +190,14 @@ def resolve_device(name: str) -> torch.device:
 
 def build(args):
     """The trainer that ``args`` describe: (engine, data iterator, loop config)."""
+    data_delay = data_delay_of(args)
     _refuse_unported(args)
     device = resolve_device(args.device)
 
     from repro_torch.configs import PRECISION_POLICIES, OptimizerConfig, get_config
     from repro_torch.data import batches
     from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine
+    from repro_torch.launch.topology import Topology
     from repro_torch.models import Transformer, init_model, param_count, param_leaves
     from repro_torch.models.transformer import check_homogeneous
     from repro_torch.optim.base import make_schedule
@@ -209,22 +232,35 @@ def build(args):
         rotation_geometry=args.rotation_geometry,
         rotation_freq=args.rotation_freq, stage_aware=args.stage_aware,
     )
+    topology = None
     if args.backend == "spmd":
+        # one card holds every (pod, stage, data) position, so --data-par 0
+        # (fill the data axis from the devices) means one replica a pod
+        topology = Topology(stages=args.stages, data=max(args.data_par, 1), pods=args.pods)
         M = args.microbatches or args.stages
-        if args.batch % M:
-            raise SystemExit(f"--batch {args.batch} must split into {M} microbatches")
+        shards = topology.data_shards
+        if args.batch % M or (args.batch // M) % shards:
+            raise SystemExit(
+                f"--batch {args.batch} must split into {M} microbatches of a "
+                f"size divisible by the {shards} data shard(s) of topology "
+                f"{topology.describe()}"
+            )
         # the engine draws the model from the seed itself, into its stacked layout
         engine = SpmdEngine(cfg, ocfg, num_stages=args.stages, num_microbatches=M,
                             schedule=args.schedule, async_grads=not args.sync,
                             use_kernels=args.use_kernels, grad_clip=1.0, device=device,
-                            seed=args.seed, precision=policy)
+                            seed=args.seed, precision=policy, topology=topology,
+                            data_async=args.data_async, data_delay=data_delay)
         n_params = param_count(Transformer(engine.cfg, device="meta", seed=None))
     else:
         cfg = policy.apply(cfg)
         model = init_model(cfg, seed=args.seed, device=device)
         params = param_leaves(model)
+        # --data-async deepens every leaf's FIFO by D; the engine's delays
+        # (weight prediction, no-stash) stay the pipeline's, as in the reference
         opt = build_optimizer(ocfg, params, cfg, num_stages=args.stages,
-                              apply_delay=not args.sync, use_kernels=args.use_kernels)
+                              apply_delay=not args.sync, use_kernels=args.use_kernels,
+                              data_delay=data_delay)
         sched = make_schedule(ocfg.schedule, ocfg.learning_rate, ocfg.total_steps,
                               ocfg.warmup_frac)
         engine = SimEngine(model, opt, grad_clip=1.0,
@@ -232,9 +268,12 @@ def build(args):
                            delays_tree=delay_tree(params, cfg, args.stages),
                            schedule=sched, no_stash=args.no_stash)
         n_params = param_count(model)
+    topo_str = topology.describe() if topology is not None else None
     print(f"arch={cfg.name} params={n_params:,} stages={args.stages} "
           f"optimizer={args.optimizer} backend={args.backend} precision={policy.name} "
-          f"device={device}")
+          f"device={device}" + (f" topology={topo_str}" if topo_str else ""))
+    # one process samples the global stream whatever the pods: the
+    # reference's per-host assembly of it gives the same bits
     data = batches(cfg, args.batch, args.seq, seed=args.seed, device=device)
     loop_cfg = LoopConfig(
         steps=args.steps, log_every=args.log_every,
@@ -242,7 +281,9 @@ def build(args):
         out_meta={"arch": cfg.name, "optimizer": args.optimizer,
                   "stages": args.stages, "backend": args.backend,
                   "schedule": args.schedule if args.backend == "spmd" else None,
-                  "precision": args.precision, "use_kernels": args.use_kernels,
+                  "topology": topo_str, "precision": args.precision,
+                  "use_kernels": args.use_kernels,
+                  "data_async": args.data_async, "data_delay": data_delay,
                   "device": str(device)},
     )
     return engine, data, loop_cfg

@@ -56,12 +56,15 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+def clip_by_global_norm(grads: Params, max_norm: float, inplace: bool = True) -> Params:
     """Scale ``grads`` so their global norm is at most ``max_norm``, in
     their own tensors (the caller's step owns them: no copy of the
-    gradients is made); returns the same dict."""
+    gradients is made) and the same dict returned; or, without ``inplace``,
+    into new tensors (the same bits), leaving ``grads`` as they were."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    if not inplace:
+        return {k: g * scale for k, g in grads.items()}
     for g in grads.values():
         g.mul_(scale)
     return grads

@@ -29,9 +29,10 @@ def build_optimizer(
     apply_delay: bool = True,
     use_kernels: bool = False,
     stage_context: Optional[StageContext] = None,
+    data_delay: int = 0,
 ) -> Optimizer:
     """Base optimizer, wrapped in the gradient-staleness FIFO when there is
-    more than one stage and ``apply_delay`` holds; for
+    more than one stage or a data delay and ``apply_delay`` holds; for
     ``delay_compensation`` the FIFO also queues the stale weights it reads.
 
     ``stage_context`` carries the per-leaf delays; by default it comes from
@@ -39,10 +40,16 @@ def build_optimizer(
     ``stage_context_for_stacked`` so that stacked ``(K, per, ...)`` leaves
     get per-stage delays and refresh periods, and builds with
     ``apply_delay=False``: it wraps the result in ``stage_delayed_optimizer``
-    itself."""
+    itself.
+
+    ``data_delay=D`` is the uniform extra staleness of an asynchronous data
+    axis: delay-aware bases see tau + D through the context, and the FIFO
+    deepens every leaf's queue by D, the sim backend's model of a D-step
+    deferred reduction (one replica's reduction is the identity, so delaying
+    its gradient by D is the deferred-reduction semantics)."""
     sched = make_schedule(ocfg.schedule, ocfg.learning_rate, ocfg.total_steps, ocfg.warmup_frac)
     ctx = stage_context if stage_context is not None else stage_context_for_tree(
-        params, model_cfg, num_stages)
+        params, model_cfg, num_stages, data_delay=data_delay)
 
     name = ocfg.name
     if name in ("adam", "adamw", "pipedream"):
@@ -82,10 +89,13 @@ def build_optimizer(
     else:
         raise ValueError(f"unknown optimizer {name}")
 
-    if apply_delay and num_stages > 1:
+    if apply_delay and (num_stages > 1 or data_delay > 0):
         delays = ctx.delay_specs()
         if not all(isinstance(d, int) for d in delays):
             raise ValueError("the per-leaf FIFO needs scalar delays; stage-stacked layouts "
                              "take stage_delayed_optimizer instead")
-        base = delayed_optimizer(base, delays, store_params=(name == "delay_compensation"))
+        # one FIFO imposes the total delay tau + D per leaf, on the gradients
+        # and on delay compensation's weight snapshots alike
+        base = delayed_optimizer(base, [d + data_delay for d in delays],
+                                 store_params=(name == "delay_compensation"))
     return base

@@ -128,13 +128,19 @@ def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
     ``delayed_optimizer``; logical row r of a depth-d queue is slot
     ``(head + r) % d``. ``store_params=True`` queues weight snapshots with
     the same reads, so stage k sees its own w_{t-tau_k} and the last stage
-    the live weights. ``extra_param_delay`` (the asynchronous data axis's
-    deeper weight queues) is not ported yet.
+    the live weights.
+
+    ``extra_param_delay=E`` (the asynchronous data axis, whose engine
+    applies a reduction E steps old to every gradient) deepens only the
+    weight queues, to (K-1)+E for stage leaves and s+E for shared ones, so
+    that stage k reads w_{t-(tau_k+E)}: logical row k of its ring, for
+    every stage once E >= 1 (even the last reads a queued snapshot). The
+    gradient queues keep pipeline depth.
     """
-    if extra_param_delay:
-        raise NotImplementedError(
-            "not yet ported: extra_param_delay (the asynchronous data axis)")
     K = int(num_stages)
+    E = int(extra_param_delay)
+    if E < 0:
+        raise ValueError(f"extra_param_delay must be >= 0, got {E}")
     specs = list(specs)
 
     def depth(s) -> int:
@@ -150,19 +156,22 @@ def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
         ]
         state = {"inner": inner.init(params), "grad_q": queues, "head": 0}
         if store_params:
-            state["param_q"] = [_warm_ring(p, depth(s)) for p, s in zip(params.values(), specs)]
+            state["param_q"] = [_warm_ring(p, depth(s) + E)
+                                for p, s in zip(params.values(), specs)]
         return state
 
     def pop(leaves, queues, head):
+        # a ring's depth is its own: K-1 (+E for weights) for stage leaves
         out = {}
         for (k, x), q, s in zip(leaves.items(), queues, specs):
             if q is None:
                 out[k] = x
             elif s == "stage":
-                d = K - 1
+                d = q.shape[0]
                 # stage j reads logical row j (pushed d - j steps ago), slice j;
-                # the last stage reads the fresh value
-                out[k] = torch.stack([q[(head + j) % d, j] for j in range(d)] + [x[d].float()])
+                # at depth K-1 the last stage reads the fresh value
+                rows = [q[(head + j) % d, j] for j in range(min(d, K))]
+                out[k] = torch.stack(rows + ([x[d].float()] if d < K else []))
             else:
                 out[k] = q[head % q.shape[0]]
         return out

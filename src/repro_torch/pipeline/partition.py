@@ -52,16 +52,20 @@ def delay_tree(params: Dict[str, torch.Tensor], cfg: ModelConfig, num_stages: in
 
 
 def stage_context_for_tree(
-    params: Dict[str, torch.Tensor], cfg: ModelConfig, num_stages: int
+    params: Dict[str, torch.Tensor], cfg: ModelConfig, num_stages: int, data_delay: int = 0
 ) -> StageContext:
-    """Per-layer (sim) layout: every leaf lives wholly on one stage."""
+    """Per-layer (sim) layout: every leaf lives wholly on one stage.
+    ``data_delay`` is the uniform extra staleness of an asynchronous data
+    axis: delay-aware consumers see tau + data_delay."""
     return StageContext(
-        num_stages=num_stages, delays=tuple(leaf_delays(params, cfg, num_stages))
+        num_stages=num_stages, delays=tuple(leaf_delays(params, cfg, num_stages)),
+        data_delay=data_delay,
     )
 
 
 def stage_context_for_stacked(
-    stacked: Dict[str, torch.Tensor], shared: Dict[str, torch.Tensor], num_stages: int
+    stacked: Dict[str, torch.Tensor], shared: Dict[str, torch.Tensor], num_stages: int,
+    data_delay: int = 0,
 ) -> StageContext:
     """SPMD stage-stacked layout, for the leaves of ``(stacked, shared)`` in
     that order (each dict in the reference's leaf order).
@@ -69,7 +73,8 @@ def stage_context_for_stacked(
     Stacked block leaves have shape ``(K, per, ...)``: per-stage delays
     ``(K-1, ..., 0)`` over the leading axis, each slot standing for ``per``
     per-layer leaves. Shared leaves get the delay of the stage that owns
-    them: the embedding K-1, the final norm and the head 0."""
+    them: the embedding K-1, the final norm and the head 0. ``data_delay``
+    as in ``stage_context_for_tree``."""
     K = num_stages
     stage_delays = tuple(K - 1 - k for k in range(K))
     shapes = [tuple(x.shape) for x in stacked.values()]
@@ -82,4 +87,5 @@ def stage_context_for_stacked(
     for path in shared:
         delays.append(K - 1 if path.split("/")[0] in FIRST_STAGE_SHARED else 0)
         repeats.append(1)
-    return StageContext(num_stages=K, delays=tuple(delays), repeats=tuple(repeats))
+    return StageContext(num_stages=K, delays=tuple(delays), repeats=tuple(repeats),
+                        data_delay=data_delay)

@@ -350,8 +350,34 @@ def test_stage_delayed_optimizer_reads_each_stages_own_stale_weights():
         np.testing.assert_array_equal(upd["1/embed"].numpy(), np.asarray(jsh["embed"]))
         np.testing.assert_array_equal(upd["1/lm_head"].numpy(), np.asarray(jsh["lm_head"]))
         _assert_rings_unroll_to(state, jstate)
-    with pytest.raises(NotImplementedError, match="extra_param_delay"):
-        tdelay.stage_delayed_optimizer(probe, specs, K, store_params=True, extra_param_delay=1)
+    # under a deferred data reduction of E steps, stage k reads w_{t-(tau_k+E)}
+    # (the last stage too), as the reference's deeper weight queues give
+    E = 1
+    opt = tdelay.stage_delayed_optimizer(probe, specs, K, store_params=True,
+                                         extra_param_delay=E)
+    jopt = jdelay.stage_delayed_optimizer(jprobe, specs, K, store_params=True,
+                                          extra_param_delay=E)
+    for t in range(8):
+        with torch.no_grad():
+            for k in range(K):
+                params["0/w"][k].fill_(100.0 * t + k)
+            params["1/embed"].fill_(100.0 * t - 1)
+            params["1/lm_head"].fill_(100.0 * t - 2)
+        if t == 0:
+            state, jstate = opt.init(params), jopt.init(jp())
+        grads = {k: torch.ones_like(v) for k, v in params.items()}
+        upd, state = opt.update(grads, state, params, t)
+        (jw, jsh), jstate = jopt.update(
+            (jnp.ones((K, n)), {"embed": jnp.ones(n), "lm_head": jnp.ones(n)}),
+            jstate, jp(), jnp.int32(t))
+        for k in range(K):
+            tau = K - 1 - k + E
+            want = 100.0 * (t - tau) + k if t >= tau else float(k)
+            assert torch.equal(upd["0/w"][k], torch.full((n,), want)), (t, k)
+        np.testing.assert_array_equal(upd["0/w"].numpy(), np.asarray(jw))
+        np.testing.assert_array_equal(upd["1/embed"].numpy(), np.asarray(jsh["embed"]))
+        np.testing.assert_array_equal(upd["1/lm_head"].numpy(), np.asarray(jsh["lm_head"]))
+        _assert_rings_unroll_to(state, jstate)
 
 
 def test_factory_builds_every_reference_name_with_its_state_layout():

@@ -131,9 +131,9 @@ def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):
         train.main(["--smoke", "--stages", "2", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--backend", "spmd", "--data-par", "2"],
+@pytest.mark.parametrize("flags", [["--backend", "spmd", "--num-processes", "2"],
                                    ["--backend", "sim", "--precision", "bf16"],
-                                   ["--data-async"],
+                                   ["--backend", "spmd", "--process-id", "1"],
                                    ["--num-processes", "2"], ["--schedule", "1f1b"],
                                    ["--coordinator", "localhost:1234"],
                                    ["--backend", "spmd", "--weight-prediction"],

@@ -168,8 +168,30 @@ def test_stage_delayed_optimizer_gives_exact_pipedream_delays():
         np.testing.assert_array_equal(upd["0/w"].numpy(), np.asarray(ju))
         np.testing.assert_array_equal(upd["1/embed"].numpy(), np.asarray(jsh["embed"]))
         np.testing.assert_array_equal(upd["1/lm_head"].numpy(), np.asarray(jsh["lm_head"]))
-    with pytest.raises(NotImplementedError, match="extra_param_delay"):
-        stage_delayed_optimizer(identity, specs, K, store_params=True, extra_param_delay=1)
+    # a deferred data reduction deepens only the weight queues: the gradient
+    # delays stay the pipeline's while each weight ring is E slots deeper
+    E = 2
+    reads_aux = Optimizer(init=lambda p: {},
+                          update=lambda g, s, p, t, aux=None, inplace=False: (
+                              {k: v.clone() for k, v in g.items()}, s))
+    deeper = stage_delayed_optimizer(reads_aux, specs, K, store_params=True,
+                                     extra_param_delay=E)
+    plain = stage_delayed_optimizer(reads_aux, specs, K, store_params=True)
+    ds, ps = deeper.init(params), plain.init(params)
+    assert [q is None for q in ds["grad_q"]] == [q is None for q in ps["grad_q"]]
+    for dq, pq in zip(ds["grad_q"], ps["grad_q"]):
+        assert dq is None or dq.shape == pq.shape
+    for dq, pq, s in zip(ds["param_q"], ps["param_q"], specs):
+        depth = K - 1 if s == "stage" else s
+        assert dq.shape[0] == depth + E and (pq is None if depth == 0
+                                             else pq.shape[0] == depth)
+    for t in range(8):
+        g = {"0/w": torch.full((K, n), 1.0 + t), "1/embed": torch.full((n,), 2.0 + t),
+             "1/lm_head": torch.full((n,), 3.0 + t)}
+        du, ds = deeper.update(g, ds, params, t)
+        pu, ps = plain.update(g, ps, params, t)
+        for k in g:
+            assert torch.equal(du[k], pu[k]), (t, k)
 
 
 def _batch(seed=0, mb=2, S=16):
