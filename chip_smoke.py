@@ -52,9 +52,7 @@
    the whole-model gradient on one batch. Then drives the SPMD path like
    the sim path: full-width paper_95m on 8 stacked stages with 8
    microbatches, basis rotation and ``--use-kernels``, under the 1F1B
-   schedule for 12 steps and the fill-drain schedule for 4 (the cosine
-   schedule's length is the step count, so the two curves differ after the
-   first steps). Checks finite losses and the exact launch counts of all
+   schedule and the fill-drain schedule for 4 steps each. Checks finite losses and the exact launch counts of all
    five kernels. ``spmd_bf16`` trains the 1F1B path under ``--precision
    bf16`` for 4 steps: B1-B3 through their bf16 entry points only (2 M L and
    M L launches a step), B4 and B5 as in float32; then one more step under
@@ -99,8 +97,8 @@
    ``catalog_1f1b`` trains the full-width qwen3_0_6b (28 layers, head dim
    128, GQA 16/8, qk_norm, vocab 151,936) through the launcher on the SPMD
    1F1B path (4 stages, 8 microbatches, basis rotation, ``--use-kernels``)
-   for 3 steps in ``--precision f32`` and 3 in ``bf16``, from one list of
-   three batches sampled once: finite losses and per step B1 448, B2 and B3
+   for 2 steps in ``--precision f32`` and 2 in ``bf16``, from one list of
+   two batches sampled once: finite losses and per step B1 448, B2 and B3
    224 launches (in the entry point of the policy), B4 4 and B5 1; then one
    bf16 step under the dtype check. ``serve_decode`` serves the full-width
    qwen3_0_6b on the card (batch 4, prompt 8, 24 tokens): in float32
@@ -121,7 +119,25 @@
    on the meta device (``reckon_sim``; layers are cut only if that does not
    fit): finite losses, per step four B4 launches and one B5 launch (in
    place) over its 144 rotated leaves, B1-B3 none, and the peak beside the
-   reckoning. ``peaks`` prints the peaks of phases 3-4, ``catalog_1f1b``
+   reckoning. ``llava_sim``, ``musicgen_sim`` and ``mixtral_sim`` train the
+   catalog's frontend and MoE configs at full width through the launcher
+   on the sim path for 4 steps, each cut by ``fit_sim`` (layers, then
+   llava's batch; never widths or the prefix) to what its reckoning
+   (``reckon_sim`` with the optimizer and the dense attention over text
+   and prefix) says fits 90% of the card, and each printing that
+   reckoning first (``*_reckoning``): llava_next_34b (d_model 7168, 56
+   heads over 8 KV heads, d_ff 20480, vocab 64,000, the 2,880-token vision
+   prefix of width 1152 before 256 text tokens) on one stage with
+   ``--data-async --data-delay 1``, basis rotation; musicgen_large (d_model
+   2048, four codebooks of 2,048) on 8 stages, basis rotation, batch 8;
+   mixtral_8x22b (d_model 6144, 8 experts top-2 of d_ff 16384, window 4096)
+   on one stage, one step stale, with Adam (its basis-rotation reckoning is
+   printed beside: it does not fit); llava and mixtral at lr 1e-4. Finite
+   losses, per step B4 4 and B5 1 launches
+   (mixtral: none), step, data and refresh times, the peak
+   beside the reckoning. Phase 2 holds and times B4 and B5 at llava's and
+   musicgen's groups (B4's contraction up to K = 20480), and the kernel
+   line has a row for each. ``peaks`` prints the peaks of phases 3-4, ``catalog_1f1b``
    and ``xlstm_sim`` beside theirs before the optimizer state was updated
    in place, and fails if any grew. Every training path updates its
    optimizer state in place on the card (the sim engine always, the SPMD
@@ -138,7 +154,9 @@
    bf16 (first loss within 1e-2, all within 5e-2), and the asynchronous
    data axis: sim ``--data-async --data-delay 2`` with Adam, and 1F1B
    ``--data-par 2 --data-async --data-delay 1`` with Adam and with basis
-   rotation.
+   rotation; and llava_next_34b, musicgen_large and mixtral_8x22b on the
+   sim path and mixtral on 1F1B with a window of 16, each with Adam and
+   with basis rotation through the kernels.
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -174,7 +192,9 @@ SMOKE_ARGS = ["--smoke", "--stages", "2", "--steps", "4", "--batch", "4",
 SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
              "--microbatches", "8", "--optimizer", "basis_rotation", "--use-kernels",
              "--batch", "8", "--seq", "256", "--log-every", "1"]
-SPMD_STEPS = {"1f1b": 12, "fill_drain": 4}
+# 4 steps each, the first a refresh: enough for launch counts and step
+# times, and short enough to leave the script's time to the later paths
+SPMD_STEPS = {"1f1b": 4, "fill_drain": 4}
 BF16_STEPS = 4  # steps of the 1F1B path under --precision bf16
 RESUME_CUT = {"sim": 6, "spmd": 2}  # the step each resume check checkpoints at
 MODE_STEPS = 2  # steps of each sim staleness mode
@@ -205,7 +225,7 @@ RESUME_TOL = 1e-6  # resumed losses against the uninterrupted run's, same card a
 CATALOG_ARGS = ["--arch", "qwen3_0_6b", "--backend", "spmd", "--schedule", "1f1b",
                 "--stages", "4", "--microbatches", "8", "--optimizer", "basis_rotation",
                 "--use-kernels", "--batch", "8", "--seq", "256", "--log-every", "1"]
-CATALOG_STEPS = 3
+CATALOG_STEPS = 2  # the first a refresh
 SERVE = {"batch": 4, "prompt_len": 8, "gen_len": 24}  # full-width qwen3_0_6b decode
 DECODE_TOL = 2e-4  # decode against the training forward (tests/test_models.py:35)
 # xlstm_1_3b at full width, cut to one superblock of its pattern: 8 of its 48
@@ -225,6 +245,29 @@ XLSTM_DECODE_TOL = 1e-3
 PAPER_1B_ARGS = ["--arch", "paper_1b", "--backend", "sim", "--stages", "8",
                  "--optimizer", "basis_rotation", "--use-kernels", "--steps", "12",
                  "--batch", "8", "--seq", "256", "--log-every", "1"]
+# the catalog's frontend and MoE configs at full width on the sim path, each
+# through the launcher for 4 steps, cut in depth (and llava in batch) to what
+# ``fit_sim`` reckons fits FIT_SHARE of the card. llava_next_34b: one stage,
+# every leaf one step stale through the data axis, basis rotation, 256 text
+# tokens after its 2,880-token vision prefix (never cut), the batch the
+# largest of LLAVA_BATCHES whose dense attention fits. musicgen_large: 8
+# stages, basis rotation, its layers cut to a multiple of 8. mixtral_8x22b:
+# Adam (its bases and grams would not fit beside one layer), one stage, one
+# step stale; basis rotation is held card against CPU at smoke size.
+# llava and mixtral train at lr 1e-4: at the launcher's 1e-3 with one
+# warm-up step the first applied update sent their single wide layers'
+# losses from 11.39 to 16.15 and from 10.79 to 20.00 (PERF.md §6)
+LLAVA_ARGS = ["--arch", "llava_next_34b", "--backend", "sim", "--stages", "1", "--data-async",
+              "--data-delay", "1", "--optimizer", "basis_rotation", "--use-kernels",
+              "--steps", "4", "--seq", "256", "--lr", "1e-4", "--log-every", "1"]
+LLAVA_BATCHES = (8, 4, 2, 1)
+MUSICGEN_ARGS = ["--arch", "musicgen_large", "--backend", "sim", "--stages", "8",
+                 "--optimizer", "basis_rotation", "--use-kernels", "--steps", "4",
+                 "--seq", "256", "--log-every", "1"]
+MIXTRAL_ARGS = ["--arch", "mixtral_8x22b", "--backend", "sim", "--stages", "1", "--data-async",
+                "--data-delay", "1", "--optimizer", "adam", "--steps", "4", "--seq", "256",
+                "--lr", "1e-4", "--log-every", "1"]
+FIT_SHARE = 0.9  # of the card's memory a path's reckoned peak may take
 # peak device memory (GB) of the earlier paths before the optimizer state was
 # updated in place (chip_smoke.py on one H100 80GB HBM3 at 700 W, PERF.md §5):
 # the state is now updated in its own tensors, so none may grow past these
@@ -1195,16 +1238,27 @@ def peak_probe(torch, engine) -> list:
     return marks
 
 
-def reckon_sim(cfg, stages, data_delay=0, replicas=None):
-    """What a sim step of ``cfg`` on ``stages`` stages (basis rotation with
-    the launcher's defaults, the kernels' grouped step) must hold, in bytes
-    by kind, from the optimizer that the launcher builds, initialised over
-    the model's meta-device parameters (nothing is allocated): float32
-    masters and their gradients, Adam's m and v, the bases U, V, the grams
-    L, R and the delay rings (also by leaf kind); and, beside them, the
-    grouped rotation's transients at their peak (U^T [G, M] and [G, M] V
-    both alive: four floats per rotated element). Activations and the
-    updates are not counted. ``data_delay`` D deepens every ring by D slots
+def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotation",
+               batch=0, seq=0):
+    """What a sim step of ``cfg`` on ``stages`` stages must hold, in bytes
+    by kind, from the optimizer that the launcher builds for ``optimizer``
+    (basis rotation with the launcher's defaults and the kernels' grouped
+    step, or Adam), initialised over the model's meta-device parameters
+    (nothing is allocated): float32 masters and their gradients, Adam's m
+    and v, the bases U, V and grams L, R of basis rotation, and the delay
+    rings (also by leaf kind). Beside them, the transients of the update at
+    its peak: basis rotation's grouped rotation (U^T [G, M] and [G, M] V
+    both alive: four floats per rotated element); Adam's updates (one float
+    per parameter, every leaf's but the last) and three float temporaries
+    of the largest leaf. With ``batch`` and ``seq``, also the activations
+    that outgrow the rest at long sequences: the sim path's dense attention
+    keeps each layer's (B, H, S, S) float32 probabilities for the backward,
+    and three more such tensors live while one layer's are formed or
+    differentiated, S being the text plus the frontend prefix; and the
+    float32 logits, their log-softmax and its gradient over the text. The
+    peak is the state plus the larger of the update's transients and the
+    activations; nothing else (the MLP's activations, the allocator's
+    blocks) is counted. ``data_delay`` D deepens every ring by D slots
     (``--data-async --data-delay D``). With ``replicas`` R, the SPMD
     engine's step instead (stacked leaves, stage rings, weight queues D
     deeper for delay compensation), and beside its state the D deferred
@@ -1219,7 +1273,7 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None):
     from repro_torch.optim.factory import build_optimizer
 
     cfg = cfg.replace(scan_layers=False)
-    ocfg = OptimizerConfig(name="basis_rotation")
+    ocfg = OptimizerConfig(name=optimizer)
     params = param_leaves(Transformer(cfg, device="meta", seed=None))
     if replicas is None:
         opt = build_optimizer(ocfg, params, cfg, num_stages=stages, use_kernels=True,
@@ -1234,20 +1288,138 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None):
     state = opt.init(params)
     for path, x in state_leaves(state).items():
         parts = path.split("/")
-        out[kind[parts[-1]] if parts[0] == "inner" else "delay_rings"] += (
-            x.numel() * x.element_size())
+        if parts[0] != "inner":
+            key = "delay_rings"
+        else:  # basis rotation: inner/leaves/i/<m|v|U|V|L|R>; Adam: inner/<m|v>/<leaf>
+            key = kind[parts[-1] if parts[1] == "leaves" else parts[1]]
+        out[key] += x.numel() * x.element_size()
     nparams = sum(p.numel() for p in params.values())
     out["masters"] = out["gradients"] = 4 * nparams
     if replicas is not None:
         out["data_fifo"] = 4 * nparams * data_delay
         out["local_gradients"] = 4 * nparams * replicas if replicas > 1 else 0
     rotated = sum(math.prod(pl.shape) for pl in build_layout(params, "bilateral") if pl.rotate)
+    if optimizer == "basis_rotation":
+        transient = 16 * rotated
+    else:
+        largest = max(p.numel() for p in params.values())
+        transient = 4 * (nparams - largest) + 12 * largest
+    activations = {}
+    if batch:
+        S = seq + cfg.frontend_tokens
+        attn_layers = sum(cfg.pattern[l % len(cfg.pattern)].mixer == "attn"
+                          for l in range(cfg.num_layers))
+        activations = {
+            "dense_attention": (4 * batch * cfg.attention.num_heads * S * S * (attn_layers + 3)
+                                if attn_layers else 0),
+            "logits": 3 * 4 * batch * seq * cfg.num_codebooks * cfg.vocab_size}
     held = sum(out.values())
     return {"layers": cfg.num_layers, "params": nparams, "rotated_params": rotated,
-            "data_delay": data_delay, "replicas": replicas,
-            "bytes": dict(out), "delay_rings_by_kind": rings_by_kind(state, list(params)),
-            "held_bytes": held, "rotation_transient_bytes": 16 * rotated,
-            "reckoned_peak_bytes": held + 16 * rotated}
+            "optimizer": optimizer, "data_delay": data_delay, "replicas": replicas,
+            "batch": batch, "seq": seq, "bytes": dict(out),
+            "delay_rings_by_kind": rings_by_kind(state, list(params)),
+            "held_bytes": held, "update_transient_bytes": transient,
+            "activation_bytes": activations,
+            "reckoned_peak_bytes": held + max(transient, sum(activations.values()))}
+
+
+def launch_shape(args):
+    """(stages, data delay, optimizer, seq) of the launcher's run for
+    ``args``, read as the launcher reads them."""
+    from repro_torch.launch import train
+
+    ns = train.parse_args(args)
+    return ns.stages, train.data_delay_of(ns), ns.optimizer, ns.seq
+
+
+def fit_sim(cfg, args, card_bytes, batches=(0,)):
+    """The launcher's sim path for ``args`` over ``cfg``, cut to fit
+    ``FIT_SHARE`` of the card: the most layers, in multiples of its stage
+    count (at least one multiple), whose reckoning at the smallest of
+    ``batches`` fits; then the largest of ``batches`` that fits beside
+    them (batch 0 counts no activations). Stages, data delay, optimizer and
+    sequence are read from ``args``; widths are never cut. Returns (layers,
+    batch, reckoning at both)."""
+    stages, data_delay, optimizer, seq = launch_shape(args)
+
+    def reckon(layers, batch):
+        return reckon_sim(cfg.replace(num_layers=layers), stages, data_delay,
+                          optimizer=optimizer, batch=batch, seq=seq)
+
+    def fits(r):
+        return r["reckoned_peak_bytes"] <= FIT_SHARE * card_bytes
+
+    lo, hi = 1, cfg.num_layers // stages  # multiples of the stage count
+    while lo < hi:  # the reckoning grows with depth: bisect for the deepest that fits
+        mid = (lo + hi + 1) // 2
+        if fits(reckon(mid * stages, min(batches))):
+            lo = mid
+        else:
+            hi = mid - 1
+    layers = lo * stages
+    for batch in sorted(batches, reverse=True):
+        r = reckon(layers, batch)
+        if fits(r) or batch == min(batches):
+            return layers, batch, r
+
+
+# (key, arch, launcher args, batches fit_sim may choose from)
+FRONTEND_MOE = (("llava", "llava_next_34b", LLAVA_ARGS, LLAVA_BATCHES),
+                ("musicgen", "musicgen_large", MUSICGEN_ARGS, (8,)),
+                ("mixtral", "mixtral_8x22b", MIXTRAL_ARGS, (8,)))
+
+
+def frontend_moe_fits(get_config, total):
+    """``fit_sim`` of each of the three paths on a card of ``total`` bytes:
+    {key: (layers, batch, reckoning)}."""
+    return {key: fit_sim(get_config(arch), args, total, batches)
+            for key, arch, args, batches in FRONTEND_MOE}
+
+
+def frontend_moe_paths(train, torch, kernels, fits, paths, total):
+    """The frontends and the MoE MLP at full width on the sim path, each
+    through the launcher, cut as ``fits`` says, with its reckoning printed
+    before its run and beside its peak after: per step four B4 launches
+    and one B5 launch on basis rotation's leaves (``paths[key]``: the
+    step's B4 groups and B5 leaves), none for mixtral's Adam, whose
+    basis-rotation reckoning is printed beside its own. Returns {key: run}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adam_step as kadam
+
+    out = {}
+    for key, arch, args, _ in FRONTEND_MOE:
+        layers, batch, reckon = fits[key]
+        cfg_full = get_config(arch)
+        n = int(args[args.index("--steps") + 1])
+        line = {"phase": f"{key}_reckoning", "arch": arch, "card_bytes": total,
+                "gate_bytes": FIT_SHARE * total, "layers": layers,
+                "layers_full": cfg_full.num_layers, "batch": batch,
+                "frontend_tokens": cfg_full.frontend_tokens, **reckon}
+        if key == "mixtral":
+            stages, data_delay, _, seq = launch_shape(args)
+            line["basis_rotation"] = reckon_sim(cfg_full.replace(num_layers=layers), stages,
+                                                data_delay, batch=batch, seq=seq)
+        emit(line)
+        want = {k: 0 for k in kernels}
+        if key in paths:
+            groups, leaves = paths[key]
+            want.update(matmul=n * sum(1 for g in groups if g),
+                        adam_scale=n * -(-len(leaves) // kadam.MAX_LEAVES))
+        torch.cuda.empty_cache()
+        with swapped_config(arch, lambda c, layers=layers: c.replace(num_layers=layers)):
+            run = run_path(train, torch, kernels, args + ["--batch", str(batch)], want)
+        run.update(layers=layers, batch=batch,
+                   launches_per_step={k: v / n for k, v in run["launches"].items()},
+                   peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                   reckoned_peak_gb=reckon["reckoned_peak_bytes"] / 1e9,
+                   reckoned_gb={k: v / 1e9 for k, v in reckon["bytes"].items()},
+                   reckoned_activation_gb={k: v / 1e9
+                                           for k, v in reckon["activation_bytes"].items()},
+                   gate_gb=FIT_SHARE * total / 1e9)
+        out[key] = run
+        emit({"phase": f"{key}_sim", "arch": arch, **run})
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_to_checkpoint(train, torch, kernels, args, cut, ckpt_dir, want):
@@ -1583,6 +1755,15 @@ def main() -> int:
     # paper_1b's sim path: 144 rotated leaves, 1728- and 6912-sided bases
     pcfg = get_config("paper_1b")
     pgroups, padam_leaves = path_groups(pcfg)
+    # the frontend and MoE paths, cut to fit the card (``fit_sim``, from the
+    # reckoning alone): llava's 7168- and 20480-sided bases (B4's contraction
+    # reaches K = 20480) and musicgen's 2048- and 8192-sided ones
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = frontend_moe_fits(get_config, total)
+    lgroups, ladam_leaves = path_groups(get_config("llava_next_34b").replace(
+        num_layers=fits["llava"][0]))
+    mgroups, madam_leaves = path_groups(get_config("musicgen_large").replace(
+        num_layers=fits["musicgen"][0]))
     mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
     check_s = {}  # host seconds of each of phase 2's checks
 
@@ -1594,12 +1775,14 @@ def main() -> int:
 
     mm_rows, mm_err = timed("matmul", check_matmul, torch, kmm, peaks)
     grp_rows, grp_err = timed("matmul_grouped", check_matmul_groups, torch, kmm, {
-        "sim": groups, "spmd": sgroups, "xlstm_sim": xgroups, "paper_1b_sim": pgroups}, peaks)
+        "sim": groups, "spmd": sgroups, "xlstm_sim": xgroups, "paper_1b_sim": pgroups,
+        "llava_sim": lgroups, "musicgen_sim": mgroups}, peaks)
     mm_err = max(mm_err, grp_err)
     adam_rows, adam_err = timed("adam", check_adam, torch, kadam)
     agrp_rows, agrp_err = timed("adam_grouped", check_adam_groups, torch, kadam, {
         "sim": adam_leaves, "spmd": sadam_leaves, "xlstm_sim": xadam_leaves,
-        "paper_1b_sim": padam_leaves}, peaks)
+        "paper_1b_sim": padam_leaves, "llava_sim": ladam_leaves,
+        "musicgen_sim": madam_leaves}, peaks)
     adam_err = max(adam_err, agrp_err)
     flash_rows, flash_errs, flash_t = timed("flash", check_flash, torch, kflash, peaks)
     bf16_rows, bf16_errs, bf16_t = timed("flash_bf16", check_flash_bf16, torch, kflash, peaks)
@@ -1874,12 +2057,7 @@ def main() -> int:
     # whole layers per stage) only if the state the step holds and the
     # rotation's transients would take more than 90% of the card, leaving
     # the rest to activations, updates and the allocator
-    total = torch.cuda.get_device_properties(0).total_memory
-    layers, K1b = pcfg.num_layers, int(PAPER_1B_ARGS[PAPER_1B_ARGS.index("--stages") + 1])
-    reckon = reckon_sim(pcfg, K1b)
-    while reckon["reckoned_peak_bytes"] > 0.9 * total and layers > K1b:
-        layers -= K1b
-        reckon = reckon_sim(pcfg.replace(num_layers=layers), K1b)
+    layers, _, reckon = fit_sim(pcfg, PAPER_1B_ARGS, total)
     emit({"phase": "paper_1b_reckoning", "card_bytes": total, "layers": layers,
           "layers_full": pcfg.num_layers, **reckon})
     n = int(PAPER_1B_ARGS[PAPER_1B_ARGS.index("--steps") + 1])
@@ -1891,11 +2069,15 @@ def main() -> int:
             "adam_scale": n * -(-len(padam_leaves) // kadam.MAX_LEAVES)})
     p1b["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
     p1b["reserved_headroom_gb"] = (total - torch.cuda.max_memory_reserved()) / 1e9
-    p1b["gate_gb"] = 0.9 * total / 1e9
+    p1b["gate_gb"] = FIT_SHARE * total / 1e9
     p1b["reckoned_peak_gb"] = reckon["reckoned_peak_bytes"] / 1e9
     p1b["reckoned_gb"] = {k: v / 1e9 for k, v in reckon["bytes"].items()}
     p1b["launches_per_step"] = {k: v / n for k, v in p1b["launches"].items()}
     emit({"phase": "paper_1b_sim", "layers": layers, **p1b})
+
+    # the frontends and the MoE MLP at full width on the sim path
+    frontend_moe = frontend_moe_paths(train, torch, kernels, fits, {
+        "llava": (lgroups, ladam_leaves), "musicgen": (mgroups, madam_leaves)}, total)
 
     # the earlier paths' peaks against theirs before the state was updated in place
     peaks_now = {"main_path": sim["peak_mem_gb"], "spmd_1f1b": spmd["1f1b"]["peak_mem_gb"],
@@ -1944,14 +2126,21 @@ def main() -> int:
     # the public architectures at smoke size: qwen3_0_6b on 1F1B at head dim
     # 128 (the B1-B3 instantiation of its full config), qwen1_5_0_5b on the
     # sim path (qkv_bias), phi4_mini_3_8b_swa on 1F1B with a window of 16 of
-    # the 32-token sequences, and xlstm_1_3b (an mLSTM and an sLSTM block) on
-    # the sim path
+    # the 32-token sequences, xlstm_1_3b (an mLSTM and an sLSTM block), llava
+    # (a 4-token prefix), musicgen (four codebooks and a prefix) and mixtral
+    # (B4 on its batched expert stacks) on the sim path, and mixtral on 1F1B
+    # with a window of 16 (B1-B3 windowed, B4 over the stacked layers and
+    # experts)
     for arch, backend, change in (
             ("qwen3_0_6b", ["--backend", "spmd", "--schedule", "1f1b"], {"head_dim": 128}),
             ("qwen1_5_0_5b", ["--backend", "sim"], {}),
             ("phi4_mini_3_8b_swa", ["--backend", "spmd", "--schedule", "1f1b"],
              {"window": 16}),
-            ("xlstm_1_3b", ["--backend", "sim"], {})):
+            ("xlstm_1_3b", ["--backend", "sim"], {}),
+            ("llava_next_34b", ["--backend", "sim"], {}),
+            ("musicgen_large", ["--backend", "sim"], {}),
+            ("mixtral_8x22b", ["--backend", "sim"], {}),
+            ("mixtral_8x22b", ["--backend", "spmd", "--schedule", "1f1b"], {"window": 16})):
         for opt, first2_tol, all_tol in ((["--optimizer", "adam"], 1e-4, 1e-4),
                                          (["--use-kernels"], 2e-3, 5e-2)):
             args = SMOKE_ARGS + ["--arch", arch] + backend + opt
@@ -1992,7 +2181,8 @@ def main() -> int:
     smm_tot = per_step(mm_rows, smm_counts, shape_key)
     grouped = {path: {f: sum(r[f] for r in grp_rows if r["group"].startswith(path + "/"))
                       for f in ("ms", "plain_ms", "library_ms")}
-               for path in ("sim", "spmd", "xlstm_sim", "paper_1b_sim")}
+               for path in ("sim", "spmd", "xlstm_sim", "paper_1b_sim", "llava_sim",
+                            "musicgen_sim")}
     b5_step = {r["group"]: r for r in agrp_rows}
     mm_bound, mm_bound_f32, mm_by = bounds(*mm_work([p for g in groups for p in g]), peaks,
                                            TF32_PASSES)
@@ -2044,6 +2234,33 @@ def main() -> int:
         "paper_1b_plain_ms": b5_step["paper_1b_sim"]["plain_ms"],
         "paper_1b_bound_ms": adam_bound(padam_leaves)[0],
     }]
+    # B4 and B5 per step of the frontend paths, at the groups phase 2 timed
+    for key, path, arch, (pgrp, pleaves) in (
+            ("llava", "llava_sim", "llava_next_34b", (lgroups, ladam_leaves)),
+            ("musicgen", "musicgen_sim", "musicgen_large", (mgroups, madam_leaves))):
+        run = frontend_moe[key]
+        bound_ms, _, bound_by = bounds(*mm_work([p for g in pgrp for p in g]), peaks,
+                                       TF32_PASSES)
+        rows.append({
+            "name": f"matmul_{arch}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/matmul.cu",
+            "replaces": "src/repro/kernels/matmul.py:30",
+            "launches": run["launches"]["matmul"],
+            "max_abs_err": max(r["max_abs_err"] for r in grp_rows
+                               if r["group"].startswith(path + "/")),
+            "ms": grouped[path]["ms"], "plain_ms": grouped[path]["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": grouped[path]["library_ms"], "layers": run["layers"]})
+        rows.append({
+            "name": f"adam_scale_{arch}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/adam_step.cu",
+            "replaces": "src/repro/kernels/adam_step.py:28",
+            "launches": run["launches"]["adam_scale"],
+            "max_abs_err": max(b5_step[path]["max_abs_err"],
+                               b5_step[path]["inplace_max_abs_err"]),
+            "ms": b5_step[path]["ms"], "per_leaf_ms": b5_step[path]["per_leaf_ms"],
+            "plain_ms": b5_step[path]["plain_ms"], "bound_ms": adam_bound(pleaves)[0],
+            "bound_by": adam_bound(pleaves)[1], "library_ms": None, "layers": run["layers"]})
     onef = spmd["1f1b"]
     # computed, so kept off the kernels line
     bound_fp32 = {"matmul": mm_bound_f32, "matmul_xlstm": xmm_bound_f32,
@@ -2133,6 +2350,10 @@ def main() -> int:
          "torch.matmul on contiguous operands of each of the step's products. The "
          "paper_1b_* keys of B4 and B5 are per step of paper_1b's sim path (paper_1b_sim: "
          "its launches, its four B4 groups and one B5 group over its 144 rotated leaves). "
+         "The matmul_<arch> and adam_scale_<arch> rows are B4 and B5 per step of the "
+         "llava_next_34b and musicgen_large sim paths, cut to their layers (phases "
+         "llava_sim, musicgen_sim: launches of their 4-step runs); library_ms is torch.matmul "
+         "on contiguous operands of each of the step's products. "
          "Every training path calls B5's in-place entry (v' written over v); adam_scale's "
          "max_abs_err covers both entries, and the in-place entry's time is "
          "adam_grouped's inplace_ms on phase 2's line",
@@ -2149,6 +2370,7 @@ def main() -> int:
                                  "spmd_1f1b": data_async["spmd_1f1b"]["launches"]},
          "xlstm_sim_launches": xsim["launches"],
          "paper_1b_sim_launches": p1b["launches"],
+         **{f"{k}_sim_launches": r["launches"] for k, r in frontend_moe.items()},
          "baselines_launches": {path: {n: r["launches"] for n, r in runs.items()}
                                 for path, runs in baselines.items()}}, indent=1))
     emit({"bound_fp32_ms": bound_fp32})

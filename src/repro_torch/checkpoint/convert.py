@@ -7,7 +7,10 @@ The reference keeps parameters as a nested tree of dicts and tuples; after
 shapes (projections stay (in, out)) and the same ``/``-joined leaf paths.
 ``stacked_from_numpy`` and ``stacked_to_numpy`` do the same for the SPMD
 engine's stage-stacked ``(stacked, shared)`` pair (the reference's
-``stack_stage_params`` output).
+``stack_stage_params`` output). Every leaf crosses by its path, whatever
+its rank: the MoE's router and ``(E, d, d_ff)`` expert stacks (``(K, per,
+E, d, d_ff)`` stage-stacked), a ``(K, V, d)`` codebook embedding,
+``frontend_proj``, and the optimizer state over them.
 
 ``opt_state_to_numpy`` and ``opt_state_from_numpy`` carry optimizer state:
 moments kept per leaf (adam, nesterov, nesterov_pp, pipedream_lr,

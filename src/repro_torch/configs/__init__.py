@@ -3,6 +3,7 @@ from repro_torch.configs.base import (
     AttentionConfig,
     BlockSpec,
     ModelConfig,
+    MoEConfig,
     OptimizerConfig,
     PrecisionPolicy,
     SSMConfig,
@@ -14,6 +15,7 @@ __all__ = [
     "AttentionConfig",
     "BlockSpec",
     "ModelConfig",
+    "MoEConfig",
     "OptimizerConfig",
     "PrecisionPolicy",
     "SSMConfig",

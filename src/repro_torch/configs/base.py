@@ -1,8 +1,10 @@
 """Configuration dataclasses for the model and the optimizer.
 
 Port of ``repro/configs/base.py``, cut to what the dense attention models
-(the paper's nanoGPT family and the dense public architectures) and the
-xLSTM family (``SSMConfig``, mLSTM and sLSTM blocks) use.
+(the paper's nanoGPT family and the dense public architectures), the
+xLSTM family (``SSMConfig``, mLSTM and sLSTM blocks), the MoE MLP
+(``MoEConfig``) and the modality frontends (a projected prefix of frontend
+embeddings, several codebooks) use.
 Defaults are the reference's; dtype properties return torch dtypes. Both
 of the reference's precision policies exist: ``f32`` and ``bf16``
 (``bf16_compute``, the SPMD backend's).
@@ -54,6 +56,21 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-Experts MLP configuration."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    num_shared: int = 0  # DeepSeek-style always-on shared experts
+    d_ff_expert: int = 0  # 0 -> use model d_ff
+    aux_loss_coef: float = 0.01
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25
+    # GShard routing-group size: the dispatch one-hots are per group
+    group_size: int = 4096
+
+
+@dataclass(frozen=True)
 class BlockSpec:
     """One layer inside the repeating superblock pattern."""
 
@@ -73,11 +90,17 @@ class ModelConfig:
     max_seq_len: int = 4096
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     ssm: Optional[SSMConfig] = None
+    moe: Optional[MoEConfig] = None
     pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
     norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
     mlp_act: str = "swiglu"  # "swiglu" | "gelu"
     tie_embeddings: bool = False
     learnable_pos_emb: bool = False
+    # modality frontend stub: the batch carries precomputed embeddings
+    frontend: Optional[str] = None  # None | "vision" | "audio"
+    frontend_tokens: int = 0  # prefix embedding tokens before the text
+    frontend_dim: int = 0  # width of those embeddings, projected into d_model
+    num_codebooks: int = 1  # >1: a summed embedding and a head per codebook
     # the port keeps one parameter subtree per layer; stacked layers belong
     # to the SPMD engine
     scan_layers: bool = True

@@ -5,30 +5,28 @@ Each module exports ``CONFIG`` (the published configuration) and
 ``phi4_mini_3_8b`` also exports ``SWA_CONFIG``, the sliding-window variant
 that ``get_config`` returns for an id ending in ``_swa``. The dense public
 architectures, the xLSTM family (``xlstm_1_3b``: mLSTM and sLSTM blocks in a
-superblock of 8, without MLPs) and the paper's models are ported; every
-other id of the reference's catalog raises ``NotImplementedError`` naming
-what it needs.
+superblock of 8, without MLPs), the frontends (``llava_next_34b``'s
+projected vision prefix, ``musicgen_large``'s four codebooks), the MoE MLP
+(``mixtral_8x22b``) and the paper's models are ported; every other id of
+the reference's catalog raises ``NotImplementedError`` naming what it
+needs.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import AttentionConfig, ModelConfig, SSMConfig
+from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig, SSMConfig
 
-ARCH_IDS: List[str] = ["stablelm_1_6b", "qwen3_0_6b", "qwen1_5_0_5b", "phi4_mini_3_8b",
-                       "xlstm_1_3b"]
+ARCH_IDS: List[str] = ["llava_next_34b", "mixtral_8x22b", "stablelm_1_6b", "qwen3_0_6b",
+                       "qwen1_5_0_5b", "phi4_mini_3_8b", "xlstm_1_3b", "musicgen_large"]
 
 PAPER_IDS = ["paper_95m", "paper_1b", "paper_3b"]
 
 # the reference's other catalog ids, with what their port needs first
 UNPORTED: Dict[str, str] = {
-    "llava_next_34b": "the vision frontend (frontend_proj and prefix embeddings)",
-    "mixtral_8x22b": "MoE blocks (models/moe.py)",
-    "jamba_v0_1_52b": "Mamba SSM and MoE blocks (models/mamba.py, models/moe.py)",
-    "deepseek_v2_236b": "MLA attention and MoE blocks (models/attention.py::mla_*, "
-                        "models/moe.py)",
-    "musicgen_large": "the audio frontend and multi-codebook embedding and head",
+    "jamba_v0_1_52b": "the Mamba SSM mixer (models/mamba.py)",
+    "deepseek_v2_236b": "MLA attention (models/attention.py::mla_*)",
 }
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS + PAPER_IDS + list(UNPORTED)}
@@ -56,7 +54,8 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Shrink a config to CPU-steppable size, keeping its family traits
     (qk_norm, qkv_bias, window, norm, activation, the recurrent mixer's
-    kind and projection factor)."""
+    kind and projection factor, the MoE's routing, the frontend and the
+    codebooks: a frontend becomes a prefix of 4 tokens of width 32)."""
     d_model = min(cfg.d_model, 256)
     att = cfg.attention
     n_heads = 4
@@ -71,6 +70,15 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         window=min(att.window, 64) if att.window else None,
         rope_theta=att.rope_theta,
     )
+    moe = cfg.moe
+    if moe is not None:
+        moe = MoEConfig(
+            num_experts=min(moe.num_experts, 4),
+            top_k=min(moe.top_k, 2),
+            num_shared=min(moe.num_shared, 1),
+            d_ff_expert=64,
+            aux_loss_coef=moe.aux_loss_coef,
+        )
     ssm = cfg.ssm
     if ssm is not None:
         ssm = SSMConfig(
@@ -91,8 +99,11 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 2048),
         max_seq_len=256,
         attention=att,
+        moe=moe,
         ssm=ssm,
         pattern=pattern,
+        frontend_tokens=4 if cfg.frontend else 0,
+        frontend_dim=32 if cfg.frontend else 0,
     )
     kw.update(overrides)
     return cfg.replace(**kw)

@@ -3,10 +3,12 @@
 Tokens follow a Zipf unigram prior modulated by a low-rank order-1 Markov
 transition. Sampling stays in numpy with the reference's ``RandomState``
 draws, so a fixed seed gives bit-identical token streams in both packages;
-only the finished batch becomes a tensor on the requested device.
-``sharded_batches`` yields one host's contiguous row slice of that stream;
-the hosts' slices concatenated give the stream of ``batches`` back bit for
-bit.
+only the finished batch becomes a tensor on the requested device. A
+config with several codebooks draws them one after another from the one
+stream; a frontend config's prefix embeddings come from a generator of
+their own, as in the reference. ``sharded_batches`` yields one host's
+contiguous row slice of that stream; the hosts' slices concatenated give
+the stream of ``batches`` back bit for bit.
 """
 from __future__ import annotations
 
@@ -59,12 +61,27 @@ def batches(
     seed: int = 0,
     device: torch.device | str = "cuda",
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Infinite iterator of {tokens, labels} int64 batches on ``device``."""
+    """Infinite iterator of {tokens, labels[, frontend]} batches on
+    ``device``: int64 tokens and labels, (B, S) or, with ``K =
+    cfg.num_codebooks > 1``, (B, S, K), the codebooks sampled in turn from
+    the one stream; and for a frontend config with prefix tokens, float32
+    prefix embeddings (B, cfg.frontend_tokens, cfg.frontend_dim or d_model)
+    drawn from ``RandomState(seed + 7)``."""
     stream = SyntheticLM(cfg.vocab_size, seed)
+    rng = np.random.RandomState(seed + 7)
     while True:
-        toks = torch.from_numpy(stream.sample(batch_size, seq_len).astype(np.int64))
-        toks = toks.to(device)
-        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.num_codebooks > 1:
+            toks = np.stack([stream.sample(batch_size, seq_len)
+                             for _ in range(cfg.num_codebooks)], axis=-1)  # (B, S+1, K)
+        else:
+            toks = stream.sample(batch_size, seq_len)
+        toks = torch.from_numpy(toks.astype(np.int64)).to(device)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.frontend is not None and cfg.frontend_tokens:
+            dim = cfg.frontend_dim or cfg.d_model
+            prefix = rng.randn(batch_size, cfg.frontend_tokens, dim).astype(np.float32) * 0.02
+            batch["frontend"] = torch.from_numpy(prefix).to(device)
+        yield batch
 
 
 def sharded_batches(
@@ -81,7 +98,8 @@ def sharded_batches(
     Every host walks the same seeded global stream and keeps rows
     ``[host_id * B/num_hosts, (host_id + 1) * B/num_hosts)``: the sampler
     draws each batch's rows from one generator, so slicing after sampling is
-    the only way to shard it exactly."""
+    the only way to shard it exactly. Every key (tokens, labels, the
+    frontend prefix) is sliced on its rows."""
     if batch_size % num_hosts:
         raise ValueError(f"global batch {batch_size} must divide over {num_hosts} hosts")
     local = batch_size // num_hosts

@@ -23,6 +23,12 @@ engine state, and enqueues this step's; the optimizer sees the total delay
 tau_k + D. One rank per stage over ``torch.distributed`` is not ported yet.
 Checkpoints use the reference's sharded format, one arrays file per stage,
 written by this one process.
+
+MoE blocks stack like any other: expert stacks become ``(K, per, E, d,
+d_ff)`` leaves, each microbatch routes as its own GShard group, and the
+stage apply drops the blocks' auxiliary loss, as the reference's does. The
+frontend configs are refused (``check_spmd_config``), because the
+reference's engine is wrong on them.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from repro_torch.engine.schedules import SCHEDULES, make_local_grad, make_schedu
 from repro_torch.core.layout import tree_order_key
 from repro_torch.launch.topology import Topology
 from repro_torch.models.model import Transformer, param_leaves
+from repro_torch.models.transformer import check_homogeneous
 from repro_torch.optim.base import apply_updates, clip_by_global_norm
 from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.delay import stage_delayed_optimizer
@@ -57,6 +64,22 @@ from repro_torch.pipeline.partition import stage_context_for_stacked
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
+
+
+def check_spmd_config(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config that the stage-stacked pipeline does
+    not run: a pattern of mixed block kinds (``check_homogeneous``), and the
+    frontend configs, on which the reference's engine is wrong: its
+    ``_shape_batch`` (``repro/engine/spmd.py:419-428``) rebuilds the batch
+    from tokens and labels alone, dropping the frontend prefix, and takes a
+    (B, S, K) codebook batch as already microbatched."""
+    check_homogeneous(cfg)
+    if cfg.frontend is not None or cfg.num_codebooks > 1:
+        raise ValueError(
+            f"{cfg.name}: a frontend config ({cfg.frontend} frontend, {cfg.num_codebooks} "
+            "codebook(s)) cannot run on the spmd backend: the reference's SpmdEngine drops "
+            "the frontend prefix from its batch and reads a (B, S, K) codebook batch as "
+            "already microbatched (repro/engine/spmd.py:419-428); use --backend sim")
 
 
 def stack_stage_params(params: Params, cfg: ModelConfig, num_stages: int) -> Tuple[Params, Params]:
@@ -152,6 +175,7 @@ class SpmdEngine(PipelineEngine):
             raise ValueError(f"unknown pipeline schedule {schedule!r}; one of {SCHEDULES}")
         if cfg.scan_layers:
             raise ValueError("pipeline stacking starts from per-layer params (scan_layers=False)")
+        check_spmd_config(cfg)
         if isinstance(precision, str):
             precision = PRECISION_POLICIES[precision]
         if precision is not None:

@@ -1,6 +1,10 @@
 """Batched greedy decoding through ``forward_decode``, with the model's
 decode caches (a KV cache per attention layer, the recurrent state of an
-mLSTM or sLSTM layer). Port of ``examples/serve_decode.py``.
+mLSTM or sLSTM layer). Port of ``examples/serve_decode.py``. It decodes
+the dense, MoE (``mixtral_8x22b``) and xLSTM configs; a config with
+several codebooks (``musicgen_large``) is refused: its generation, one
+token per codebook a step, is not ported yet. Decoding takes no frontend
+prefix, as the reference's ``forward_decode`` takes none.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch qwen3_0_6b
     PYTHONPATH=src python -m repro_torch.launch.serve_decode \\
@@ -36,6 +40,10 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen_len: int,
     (B, gen_len) and the generation's tokens per second."""
     from repro_torch.models import forward_decode, init_cache, init_model
 
+    if cfg.num_codebooks > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: decoding {cfg.num_codebooks} codebooks is not yet ported "
+            "(greedy generation of one token per codebook a step)")
     cfg = cfg.replace(scan_layers=False)
     model = init_model(cfg, seed=seed, device=device)
     rng = np.random.RandomState(seed)

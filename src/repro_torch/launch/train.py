@@ -19,13 +19,18 @@ and on the spmd backend attention runs in the flash-attention kernels too.
 
 ``--arch`` takes the paper's models, the dense public architectures
 (``qwen3_0_6b``, ``qwen1_5_0_5b``, ``stablelm_1_6b``, ``phi4_mini_3_8b``,
-``phi4_mini_3_8b_swa``) and ``xlstm_1_3b``; a full config's depth must
-divide into ``--stages``. A pattern of mixed block kinds (xLSTM's mLSTM and
-sLSTM blocks) runs on the sim backend only: the reference's SPMD runtime
-stacks homogeneous layers, and ``--backend spmd`` refuses it before any
-work. ``--precision`` applies its policy over the config's own
-dtypes, so the default ``f32`` trains the catalog's bfloat16 configs in
-float32, as the reference's launcher does.
+``phi4_mini_3_8b_swa``), ``xlstm_1_3b``, the frontends (``llava_next_34b``:
+a projected vision prefix; ``musicgen_large``: four codebooks) and the MoE
+``mixtral_8x22b``; a full config's depth must divide into ``--stages``. A
+pattern of mixed block kinds (xLSTM's mLSTM and sLSTM blocks) runs on the
+sim backend only: the reference's SPMD runtime stacks homogeneous layers,
+and ``--backend spmd`` refuses it before any work. So does it refuse the
+frontend configs, on which the reference's SPMD engine is wrong, and the
+sim backend refuses ``--no-stash`` with a frontend prefix, which the
+reference's two-version loss drops (see ``_refuse_unported``).
+``--precision`` applies its policy over the config's own dtypes, so the
+default ``f32`` trains the catalog's bfloat16 configs in float32, as the
+reference's launcher does.
 
 On the sim backend ``--weight-prediction`` (PipeMare) and ``--no-stash``
 select the other staleness modes. ``--precision bf16`` (the
@@ -127,7 +132,9 @@ def data_delay_of(args) -> int:
     return data_delay
 
 
-def _refuse_unported(args) -> None:
+def _refuse_unported(args, cfg) -> None:
+    """Exit, naming why, on what the port does not run: what the reference
+    refuses or gets wrong, and what is not ported yet."""
     if args.backend == "spmd":
         if args.coordinator is not None or args.num_processes > 1 or args.process_id != 0:
             raise SystemExit(
@@ -137,6 +144,12 @@ def _refuse_unported(args) -> None:
                 "--weight-prediction / --no-stash are sim-backend modes; the spmd "
                 "backend imposes weight-stashing staleness physically"
             )
+        from repro_torch.engine.spmd import check_spmd_config
+
+        try:
+            check_spmd_config(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
         return
     # the sim backend refuses what the reference's does (repro/launch/train.py
     # main) and, like it, ignores --microbatches and --process-id
@@ -172,6 +185,14 @@ def _refuse_unported(args) -> None:
             "the reference's predict_weights (repro/pipeline/simulate.py:49-79) "
             "fails on it (its second moment is a scalar, not a tree of leaves)"
         )
+    # the reference's two-version loss embeds batch["tokens"] alone
+    # (repro/pipeline/simulate.py:126-135): the frontend prefix is dropped
+    if args.no_stash and cfg.frontend is not None and cfg.frontend_tokens:
+        raise SystemExit(
+            f"--no-stash with {cfg.name}'s {cfg.frontend} frontend prefix is not supported: "
+            "the reference's two-version loss (repro/pipeline/simulate.py:126-135) "
+            "silently drops the prefix"
+        )
 
 
 def resolve_device(name: str) -> torch.device:
@@ -190,26 +211,21 @@ def resolve_device(name: str) -> torch.device:
 
 def build(args):
     """The trainer that ``args`` describe: (engine, data iterator, loop config)."""
+    from repro_torch.configs import PRECISION_POLICIES, OptimizerConfig, get_config
+
     data_delay = data_delay_of(args)
-    _refuse_unported(args)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    _refuse_unported(args, cfg)
     device = resolve_device(args.device)
 
-    from repro_torch.configs import PRECISION_POLICIES, OptimizerConfig, get_config
     from repro_torch.data import batches
     from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine
     from repro_torch.launch.topology import Topology
     from repro_torch.models import Transformer, init_model, param_count, param_leaves
-    from repro_torch.models.transformer import check_homogeneous
     from repro_torch.optim.base import make_schedule
     from repro_torch.optim.factory import build_optimizer
     from repro_torch.pipeline.partition import delay_tree
 
-    cfg = get_config(args.arch, smoke=args.smoke)
-    if args.backend == "spmd":
-        try:
-            check_homogeneous(cfg)
-        except ValueError as e:
-            raise SystemExit(str(e)) from None
     # the precision policy owns every dtype knob; the spmd engine applies it
     cfg = cfg.replace(scan_layers=False)
     policy = PRECISION_POLICIES[args.precision]

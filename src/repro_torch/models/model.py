@@ -1,7 +1,14 @@
 """Whole-model API: init, training forward and loss, and single-token decode.
 Port of ``repro/models/model.py`` for per-layer (``scan_layers=False``)
-models: dense attention blocks, and xLSTM's mLSTM and sLSTM blocks in a
-pattern of mixed kinds (layer l is ``cfg.pattern[l % len(cfg.pattern)]``).
+models: dense and MoE attention blocks, and xLSTM's mLSTM and sLSTM blocks
+in a pattern of mixed kinds (layer l is ``cfg.pattern[l % len(cfg.pattern)]``).
+
+The modality frontends are stubs, as in the reference: the batch carries
+precomputed embeddings (``batch["frontend"]``, (B, P, frontend_dim)),
+which ``frontend_proj`` maps into d_model and which run as a prefix before
+the text; the logits cover the text positions only. With ``K =
+cfg.num_codebooks > 1`` tokens are (B, S, K): the embedding (K, V, d) sums
+the codebooks' rows and the head (d, K V) gives (B, S, K, V) logits.
 ``embed`` and ``head_logits`` (the reference's
 ``_embed`` and ``_logits`` with the final norm) take the shared weights as a
 ``{path: tensor}`` dict, so that the SPMD schedules run the same code on
@@ -9,7 +16,8 @@ their own copies of those weights.
 
 The module tree mirrors the reference's parameter tree, so that
 ``named_parameters`` names map onto its leaf paths (``blocks/3/mixer/w_q``,
-``embed/embedding``, ``lm_head``, ``pos_emb``, ``final_norm/scale``).
+``blocks/0/mlp/w_gate_e``, ``embed/embedding``, ``lm_head``, ``pos_emb``,
+``frontend_proj``, ``final_norm/scale``).
 Parameters are float32 masters. Where the compute dtype differs from them
 (the catalog's bfloat16 configs, the ``bf16`` precision policy),
 ``forward_train``, ``forward_decode`` and the SPMD schedules run on
@@ -40,9 +48,9 @@ IGNORE_INDEX = -100
 
 
 class Embedding(nn.Module):
-    def __init__(self, vocab: int, d_model: int, dtype, device, generator):
+    def __init__(self, shape: Tuple[int, ...], dtype, device, generator):
         super().__init__()
-        self.embedding = param(embed_init((vocab, d_model), generator), dtype, device)
+        self.embedding = param(embed_init(shape, generator), dtype, device)
 
 
 class Transformer(nn.Module):
@@ -62,20 +70,27 @@ class Transformer(nn.Module):
         gen = None if seed is None else torch.Generator().manual_seed(seed)
         dtype = cfg.params_dtype
         self.cfg = cfg
-        V, d = cfg.vocab_size, cfg.d_model
-        self.embed = Embedding(V, d, dtype, device, gen)
-        if not cfg.tie_embeddings:
-            self.lm_head = param(dense_init((d, V), gen), dtype, device)
+        V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
+        if K > 1:
+            self.embed = Embedding((K, V, d), dtype, device, gen)
+            self.lm_head = param(dense_init((d, K * V), gen), dtype, device)
+        else:
+            self.embed = Embedding((V, d), dtype, device, gen)
+            if not cfg.tie_embeddings:
+                self.lm_head = param(dense_init((d, V), gen), dtype, device)
         if cfg.learnable_pos_emb:
             self.pos_emb = param(embed_init((cfg.max_seq_len, d), gen), dtype, device)
+        if cfg.frontend is not None and cfg.frontend_dim:
+            self.frontend_proj = param(dense_init((cfg.frontend_dim, d), gen), dtype, device)
         self.blocks = nn.ModuleList(
             Block(cfg, cfg.pattern[l % len(cfg.pattern)], device, gen)
             for l in range(cfg.num_layers)
         )
         self.final_norm = Norm(cfg.norm, d, dtype, device)
 
-    def forward(self, tokens: Tensor) -> Tuple[Tensor, Tensor]:
-        return forward_train(self, tokens)
+    def forward(self, tokens: Tensor, frontend_embeds: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
+        return forward_train(self, tokens, frontend_embeds)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device: torch.device | str = "cuda") -> Transformer:
@@ -106,29 +121,48 @@ def shared_leaves(model: Transformer) -> Dict[str, Tensor]:
 
 
 def embed(shared: Mapping[str, Tensor], cfg: ModelConfig, tokens: Tensor,
-          start: int = 0) -> Tensor:
-    """Token (and learnable position) embedding of (..., S) tokens at
-    positions start .. start + S - 1."""
-    x = shared["embed/embedding"][tokens].to(cfg.compute_dtype)
+          start: int = 0, frontend_embeds: Optional[Tensor] = None) -> Tensor:
+    """Token embedding of (..., S) tokens, or (..., S, K) with K codebooks
+    (their rows summed), after the projected frontend prefix (B, P,
+    frontend_dim) when one is given; then the learnable position embedding
+    of positions start .. start + P + S - 1."""
+    emb = shared["embed/embedding"]
+    if cfg.num_codebooks > 1:
+        x = sum(emb[k][tokens[..., k]] for k in range(cfg.num_codebooks))
+    else:
+        x = emb[tokens]
+    x = x.to(cfg.compute_dtype)
+    if frontend_embeds is not None:
+        pref = frontend_embeds.to(cfg.compute_dtype)
+        if "frontend_proj" in shared:
+            pref = pref @ shared["frontend_proj"]
+        x = torch.cat([pref, x], dim=1)
     if cfg.learnable_pos_emb:
-        x = x + shared["pos_emb"][start: start + tokens.shape[-1]].to(x.dtype)
+        x = x + shared["pos_emb"][start: start + x.shape[-2]].to(x.dtype)
     return x
 
 
 def head_logits(shared: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor) -> Tensor:
-    """Final norm, then the LM head (float32 logits unless told otherwise)."""
+    """Final norm, then the LM head (float32 logits unless told otherwise):
+    (..., V), or (..., K, V) with K codebooks."""
     x = apply_norm(shared["final_norm/scale"], shared.get("final_norm/bias"), x)
     dt = torch.float32 if cfg.logits_fp32 else cfg.compute_dtype
+    if cfg.num_codebooks > 1:
+        out = x.to(dt) @ shared["lm_head"].to(dt)
+        return out.reshape(*x.shape[:-1], cfg.num_codebooks, cfg.vocab_size)
     head = shared["embed/embedding"].T if cfg.tie_embeddings else shared["lm_head"]
     return x.to(dt) @ head.to(dt)
 
 
-def forward_train(model: Transformer, tokens: Tensor) -> Tuple[Tensor, Tensor]:
-    """Returns (logits, aux_loss). tokens: (B, S) int64."""
+def forward_train(model: Transformer, tokens: Tensor,
+                  frontend_embeds: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Returns (logits, aux_loss). tokens: (B, S) int64, or (B, S, K) with
+    K codebooks; ``frontend_embeds`` (B, P, frontend_dim) run as a prefix,
+    and the logits cover the S text positions only."""
     cfg = model.cfg
     dtype = cfg.compute_dtype
     shared = cast_params(shared_leaves(model), dtype)
-    x = embed(shared, cfg, tokens)
+    x = embed(shared, cfg, tokens, frontend_embeds=frontend_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
         if dtype == cfg.params_dtype:
@@ -137,6 +171,8 @@ def forward_train(model: Transformer, tokens: Tensor) -> Tuple[Tensor, Tensor]:
             x, a = functional_call(block, cast_params(dict(block.named_parameters()), dtype),
                                    (x,))
         aux = aux + a
+    if frontend_embeds is not None:
+        x = x[:, frontend_embeds.shape[1]:]  # logits over the text positions only
     return head_logits(shared, cfg, x), aux
 
 
@@ -152,8 +188,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def forward_decode(model: Transformer, token: Tensor, cache: Tuple[Dict[str, Tensor], ...],
                    pos: int) -> Tuple[Tensor, Tuple[Dict[str, Tensor], ...]]:
-    """token: (B, 1) int64 at position ``pos``. Returns (logits (B, 1, V),
-    cache): the K/V caches written in place, the recurrent states new.
+    """token: (B, 1) int64 at position ``pos``, or (B, 1, K) with K
+    codebooks. Returns (logits (B, 1, V) or (B, 1, K, V), cache): the K/V
+    caches written in place, the recurrent states new.
     Runs on compute-dtype copies of the masters, as the reference casts
     them at use."""
     cfg = model.cfg
@@ -185,6 +222,8 @@ def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
 
 
 def loss_fn(model: Transformer, batch: Dict[str, Tensor]) -> Tuple[Tensor, Dict[str, Tensor]]:
-    logits, aux = forward_train(model, batch["tokens"])
+    """Cross-entropy plus the MoE auxiliary loss; the batch's ``frontend``
+    prefix, if any, runs before its tokens."""
+    logits, aux = forward_train(model, batch["tokens"], batch.get("frontend"))
     ce = cross_entropy(logits, batch["labels"])
     return ce + aux, {"ce": ce, "aux": aux}

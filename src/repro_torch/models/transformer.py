@@ -1,16 +1,19 @@
 """One decoder block: norm -> mixer -> norm -> MLP, where the mixer is
-attention, mLSTM or sLSTM and the MLP is dense or absent (xLSTM blocks
+attention, mLSTM or sLSTM and the MLP is dense, MoE or absent (xLSTM blocks
 integrate their own feed-forward: no ``norm2`` and no ``mlp`` leaves).
 Port of ``repro/models/transformer.py`` (``block_train``,
-``init_block_cache``, ``block_decode``); the Mamba mixer and MoE MLPs come
-with their families.
+``init_block_cache``, ``block_decode``); the Mamba mixer comes with its
+family. A MoE block returns its load-balance auxiliary loss from
+``block_train``; its decode drops it, as the reference's does.
 
 ``stage_apply`` runs a pipeline stage's blocks on weights sliced from
 stage-stacked ``(K, per, ...)`` tensors (the reference's ``_stage_apply_fn``
 in ``engine/schedules.py``), through this same ``Block`` code: a weightless
 template block is called with each layer's weights by
 ``torch.func.functional_call``. Like the reference's, it applies one block
-kind to every layer, so the SPMD path takes homogeneous patterns only.
+kind to every layer, so the SPMD path takes homogeneous patterns only, and
+it drops a MoE block's auxiliary loss, as the reference's stage apply does
+(``repro/engine/schedules.py:95-106``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch.func import functional_call
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models.attention import Attention, gqa_decode, init_gqa_cache
 from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm
+from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.xlstm import (
     MLSTM,
     SLSTM,
@@ -49,21 +53,28 @@ class Block(nn.Module):
             self.mixer = SLSTM(cfg.d_model, cfg.ssm, dtype, device, generator)
         if spec.mlp != "none":
             self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype, device, generator)
+            if spec.mlp == "moe":
+                self.mlp = MoE(cfg.d_model, cfg.d_ff, cfg.moe, cfg.mlp_act, dtype, device,
+                               generator)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype, device, generator)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return block_train(self, x, self.cfg)
 
 
 def block_train(p: Block, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y, aux_loss); without MoE there is no auxiliary loss."""
+    """Returns (y, aux_loss): a MoE block's load-balance loss, else zero."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = p.norm1(x)
     if p.spec.mixer == "attn":
         x = x + p.mixer(h, use_kernels=cfg.use_kernels)
     else:
         x = x + p.mixer(h)
-    if p.spec.mlp != "none":
+    if p.spec.mlp == "moe":
+        h, aux = p.mlp(p.norm2(x))
+        x = x + h
+    elif p.spec.mlp != "none":
         x = x + p.mlp(p.norm2(x))
     return x, aux
 
@@ -71,9 +82,7 @@ def block_train(p: Block, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tens
 def _check_ported(spec: BlockSpec) -> None:
     if spec.mixer == "mamba":
         raise NotImplementedError("not yet ported: the Mamba mixer (models/mamba.py)")
-    if spec.mlp == "moe":
-        raise NotImplementedError("not yet ported: the MoE MLP (models/moe.py)")
-    if spec.mixer not in ("attn", "mlstm", "slstm") or spec.mlp not in ("dense", "none"):
+    if spec.mixer not in ("attn", "mlstm", "slstm") or spec.mlp not in ("dense", "moe", "none"):
         raise ValueError(f"unknown block {spec.mixer!r} mixer with {spec.mlp!r} MLP")
 
 
@@ -94,7 +103,9 @@ def block_decode(w: Mapping[str, torch.Tensor], x: torch.Tensor, cache: Dict[str
                  spec: BlockSpec) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One block on one new token. ``w`` maps the block's leaf paths
     (``norm1/scale``, ``mixer/w_q``, ``mlp/w_up``) to its weights. The K/V
-    cache is written in place; a recurrent mixer returns a new state."""
+    cache is written in place; a recurrent mixer returns a new state. A MoE
+    MLP routes the batch's tokens as one group and drops its auxiliary
+    loss."""
     _check_ported(spec)
     sub = {}
     for path, t in w.items():
@@ -111,6 +122,8 @@ def block_decode(w: Mapping[str, torch.Tensor], x: torch.Tensor, cache: Dict[str
     if spec.mlp == "none":
         return x, cache
     h = apply_norm(sub["norm2"]["scale"], sub["norm2"].get("bias"), x)
+    if spec.mlp == "moe":
+        return x + apply_moe(sub["mlp"], h, cfg.moe)[0], cache
     return x + apply_mlp(sub["mlp"], h), cache
 
 

@@ -109,17 +109,15 @@ def test_configs_match_reference(arch, smoke):
 
 
 def test_catalog_ids_and_refusals():
-    assert ARCH_IDS == ["stablelm_1_6b", "qwen3_0_6b", "qwen1_5_0_5b", "phi4_mini_3_8b",
-                        "xlstm_1_3b"]
+    assert ARCH_IDS == ["llava_next_34b", "mixtral_8x22b", "stablelm_1_6b", "qwen3_0_6b",
+                        "qwen1_5_0_5b", "phi4_mini_3_8b", "xlstm_1_3b", "musicgen_large"]
     assert tget_config("phi4-mini-3-8b-swa").attention.window == 8192
     assert tget_config("qwen3_0_6b_swa", smoke=True).name == "qwen3_0_6b_smoke"
     with pytest.raises(ValueError, match="sliding-window"):
         tget_config("qwen3_0_6b_swa")
     with pytest.raises(ValueError, match="unknown"):
         tget_config("gpt5")
-    for arch, needs in (("mixtral_8x22b", "MoE"), ("deepseek_v2_236b", "MLA"),
-                        ("jamba_v0_1_52b", "Mamba"), ("llava_next_34b", "vision"),
-                        ("musicgen_large", "audio")):
+    for arch, needs in (("deepseek_v2_236b", "MLA"), ("jamba_v0_1_52b", "Mamba")):
         with pytest.raises(NotImplementedError, match=needs):
             tget_config(arch)
         with pytest.raises(NotImplementedError, match="not yet ported"):

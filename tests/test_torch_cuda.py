@@ -593,3 +593,115 @@ def test_rotation_products_on_full_width_xlstm_leaves_match_cpu(cuda):
         assert tmm.matmul.launches == before + 2
         for g, w in zip(got, want):
             torch.testing.assert_close(g.cpu(), w, rtol=ROT_RTOL, atol=ROT_ATOL)
+
+
+def _path_operands(cuda, problems, seed):
+    """Random operands on the card for (batch, M, K, N, trans_a, trans_b)
+    problems, A scaled by 1/sqrt(K) so that outputs are O(1)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    As, Bs = [], []
+    for b, M, K, N, ta, tb in problems:
+        As.append(torch.randn((b, K, M) if ta else (b, M, K), device=cuda, generator=gen)
+                  / K ** 0.5)
+        Bs.append(torch.randn((b, N, K) if tb else (b, K, N), device=cuda, generator=gen))
+    return As, Bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(7168, 20480), (20480, 7168), (2048, 8192), (8192, 2048)])
+def test_rotation_products_at_the_frontend_paths_widest_leaves_on_card(cuda, m, n):
+    """B4 at llava_next_34b's MLP leaves (7168 x 20480 and its transpose:
+    the contraction reaches K = 20480) and musicgen_large's (2048 x 8192):
+    the four products a rotated leaf takes (U^T G, G V, U S, S V^T), each
+    its own grouped launch as on the sim path, against the plain version
+    on the card within the rotation parity tolerance."""
+    for i, (problems, ta, tb) in enumerate((
+            ([(1, m, m, n, True, False)], True, False), ([(1, m, n, n, False, False)], False,
+                                                         False),
+            ([(1, m, m, n, False, False)], False, False), ([(1, m, n, n, False, True)], False,
+                                                           True))):
+        As, Bs = _path_operands(cuda, problems, seed=i)
+        before = tmm.matmul.launches
+        got = tmm.matmul_grouped(As, Bs, trans_a=ta, trans_b=tb)
+        assert tmm.matmul.launches == before + 1
+        want = tmm.matmul_grouped_plain(As, Bs, trans_a=ta, trans_b=tb)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=ROT_RTOL, atol=ROT_ATOL)
+        del As, Bs, got, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_rotation_products_on_batched_expert_stacks_match_cpu(cuda):
+    """B4's grouped products on expert stacks (E, d, f) with orthogonal
+    bases, as the sim path (batch E) and the SPMD path ((K, per, E, ...)
+    stacked: batch K per E) give them, both directions, against the CPU's
+    plain versions; two launches a direction."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(8, 256, 640), (8, 640, 256), (2, 1, 4, 256, 640)]
+
+    def basis(batch, n):
+        return torch.linalg.qr(torch.randn(batch + (n, n), generator=gen))[0]
+
+    xs = [torch.randn(s, generator=gen) for s in shapes]
+    Us = [basis(s[:-2], s[-2]) for s in shapes]
+    Vs = [basis(s[:-2], s[-1]) for s in shapes]
+    for transpose in (True, False):
+        want = ops.two_sided_rotate_grouped(xs, Us, Vs, transpose=transpose)
+        before = tmm.matmul.launches
+        got = ops.two_sided_rotate_grouped([x.to(cuda) for x in xs], [u.to(cuda) for u in Us],
+                                           [v.to(cuda) for v in Vs], transpose=transpose)
+        assert tmm.matmul.launches == before + 2
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            torch.testing.assert_close(g.cpu(), w, rtol=ROT_RTOL, atol=ROT_ATOL)
+
+
+@pytest.mark.cuda
+def test_adam_grouped_at_llava_leaves_on_card(cuda):
+    """B5's grouped in-place launch over one llava_next_34b layer's seven
+    rotated leaves (558 M floats: the 7168 x 20480 MLP leaves beside the
+    attention's) against its plain version on the card."""
+    shapes = [(7168, 1024), (7168, 7168), (7168, 7168), (7168, 1024), (20480, 7168),
+              (7168, 20480), (7168, 20480)]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    gs = [torch.randn(s, device=cuda, generator=gen) * 1e-3 for s in shapes]
+    ms = [torch.randn(s, device=cuda, generator=gen) * 1e-3 for s in shapes]
+    vs = [torch.rand(s, device=cuda, generator=gen) * 1e-6 + 1e-8 for s in shapes]
+    scalars = (0.999, 1e-8, 1 - 0.9 ** 4, 1 - 0.999 ** 4)
+    want = [tadam.adam_scale_plain(g, m, v, *scalars) for g, m, v in zip(gs, ms, vs)]
+    before = tadam.adam_scale.launches
+    steps, v_new = tadam.adam_scale_grouped(gs, ms, vs, *scalars, inplace=True)
+    assert tadam.adam_scale.launches == before + 1
+    assert all(a is b for a, b in zip(v_new, vs))
+    for s, v, (s_w, v_w) in zip(steps, v_new, want):
+        torch.testing.assert_close(s, s_w, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+        torch.testing.assert_close(v, v_w, rtol=ADAM_RTOL, atol=ADAM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+def test_moe_on_card_matches_cpu(cuda, capacity_factor):
+    """The MoE MLP (routing, capacity, dispatch and combine einsums, aux
+    loss) and its gradients on the card against the CPU, float32, within
+    1e-4; at a capacity factor of 0.25 tokens overflow."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe
+
+    cfg = MoEConfig(num_experts=8, top_k=2, num_shared=1, capacity_factor=capacity_factor,
+                    group_size=96)
+    gen = torch.Generator().manual_seed(0)
+    layer = moe.MoE(128, 256, cfg, "swiglu", torch.float32, "cpu", gen)
+    w = {k.replace(".", "/"): p.detach() for k, p in layer.named_parameters()}
+    x = torch.randn((4, 48, 128), generator=gen)
+    outs = []
+    for dev in ("cpu", cuda):
+        wd = {k: v.to(dev).requires_grad_() for k, v in w.items()}
+        xd = x.to(dev).requires_grad_()
+        y, aux = moe.apply_moe(wd, xd, cfg)
+        grads = torch.autograd.grad(y.square().mean() + aux, [xd, *wd.values()])
+        outs.append([y.detach().cpu(), aux.detach().cpu()] + [g.cpu() for g in grads])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

@@ -122,3 +122,9 @@ def test_unported_model_options_raise():
     mla = dataclasses.replace(ct.attention, kind="mla")
     with pytest.raises(NotImplementedError, match="MLA"):
         Transformer(ct.replace(attention=mla, scan_layers=False), device="meta")
+    # the block check refuses the Mamba mixer alone (the MoE MLP is ported)
+    from repro_torch.configs.base import BlockSpec
+
+    with pytest.raises(NotImplementedError, match="Mamba"):
+        Transformer(ct.replace(pattern=(BlockSpec("mamba", "dense"),), scan_layers=False),
+                    device="meta")
