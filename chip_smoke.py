@@ -54,7 +54,7 @@
    microbatches, basis rotation and ``--use-kernels``, under the 1F1B
    schedule and the fill-drain schedule for 4 steps each. Checks finite losses and the exact launch counts of all
    five kernels. ``spmd_bf16`` trains the 1F1B path under ``--precision
-   bf16`` for 4 steps: B1-B3 through their bf16 entry points only (2 M L and
+   bf16`` for 2 steps: B1-B3 through their bf16 entry points only (2 M L and
    M L launches a step), B4 and B5 as in float32; then one more step under
    the dtype check (``analysis.dtype``: bfloat16 and float32 only, bfloat16
    present, masters and optimizer state float32).
@@ -73,23 +73,23 @@
    checks finite losses and the launch counts of the steps it ran, and
    reports the snapshot, write, load and fast-forward seconds, the
    checkpoint's bytes and the peak memory.
-   ``data_async`` drives the asynchronous data axis on one list of four
-   16-row batches sampled once: the sim path for 4 steps on their first 8
+   ``data_async`` drives the asynchronous data axis on one list of three
+   16-row batches sampled once: the sim path for 3 steps on their first 8
    rows without the flags and with ``--data-async --data-delay`` 0, 1 and
    2 (finite losses, B4 4 and B5 1 launches a step, D = 0 bit for bit the
    losses without the flags, the delay rings' bytes by leaf kind as
    allocated equal to ``expected_rings_by_kind``'s (tau + D) x numel x 4
    from the shapes alone), and the 1F1B path with ``--batch 16 --data-par
-   2 --data-async --data-delay 2`` for 4 steps (two data replicas in one
+   2 --data-async --data-delay 2`` for 3 steps (two data replicas in one
    process, one row of every microbatch each: per step B1 2 R M L = 1,024,
    B2 and B3 R M L = 512, B4 4, B5 1; its stage rings equal to the
    formula's, K-1 slots a stacked leaf whatever D), its peak beside the
    state, the FIFO's D and the local gradients' R float32 copies of the
    parameters (``reckon_sim(replicas=)``), and split at the local
    gradients (``peak_probe``: the peak inside them and outside them).
-   ``baselines`` trains the paper's baseline optimizers on one list of three
-   batches sampled once: each of the seven on the sim path for 3 steps, and
-   delay compensation, pipedream_lr and muon on the SPMD 1F1B path for 3.
+   ``baselines`` trains the paper's baseline optimizers on one list of two
+   batches sampled once: each of the seven on the sim path for 2 steps, and
+   delay compensation, pipedream_lr and muon on the SPMD 1F1B path for 2.
    Each run's first loss must equal phase 3's (sim) or phase 4's 1F1B one
    within 1e-6; B4 and B5 (basis rotation's) launch 0 times, B1-B3 as the
    1F1B path launches them. It reports each run's losses, step times, peak
@@ -109,7 +109,7 @@
    through the launcher on the sim path (8 stages, basis rotation,
    ``--use-kernels``) for 4 steps: finite losses, per step four B4 launches
    and one B5 launch over its 39 rotated leaves, B1-B3 none; then
-   ``profile_step`` breaks down two of its steps. ``serve_decode_xlstm``
+   ``profile_step`` breaks down one of its steps. ``serve_decode_xlstm``
    serves the same cut like qwen3_0_6b, its float32 prompt logits within the
    reference's xLSTM consistency tolerance (1e-3) of ``forward_train``'s.
    ``paper_1b_sim`` trains the paper's 1B model (24 layers, d_model 1728,
@@ -135,9 +135,29 @@
    printed beside: it does not fit); llava and mixtral at lr 1e-4. Finite
    losses, per step B4 4 and B5 1 launches
    (mixtral: none), step, data and refresh times, the peak
-   beside the reckoning. Phase 2 holds and times B4 and B5 at llava's and
-   musicgen's groups (B4's contraction up to K = 20480), and the kernel
-   line has a row for each. ``peaks`` prints the peaks of phases 3-4, ``catalog_1f1b``
+   beside the reckoning. ``jamba_sim`` trains jamba_v0_1_52b (d_model
+   4096, the Mamba mixer's d_inner 8192 and d_state 16, d_ff 14336, vocab
+   65,536) the same way, cut by ``fit_sim`` to one layer (its Mamba mixer
+   and a dense SwiGLU MLP), on one stage one step stale, basis rotation,
+   lr 1e-4, batch 8: its reckoning (``jamba_reckoning``, the scan's
+   activations counted) first, then B4 4 and B5 1 launches a step, finite
+   losses and the peak beside the reckoning; ``jamba_profile`` splits one
+   of its steps (``profile_step``: the Mamba scan's profiler ranges give
+   its share of device time and of host time); ``serve_decode_jamba``
+   serves the same cut, its float32 prompt logits within the reference's
+   Mamba tolerance (1e-3) of ``forward_train``'s, then in bf16.
+   ``deepseek_forward_backward`` draws one of deepseek_v2_236b's 60 layers
+   (d_model 5120, MLA with 128 heads, 160 routed experts top-6 and 2
+   shared, vocab 102,400: 5.02 G parameters) on the card and runs the
+   training step's forward and backward on one batch of 8 x 256: the loss
+   finite and within 1.0 of ln(vocab), every gradient finite, the peak
+   beside a reckoning (no optimizer step: under Adam the layer alone would
+   hold 80.3 GB); ``serve_decode_deepseek`` decodes from the same weights at
+   a capacity factor where no expert drops a token, its float32 prompt
+   logits within 2e-4 of ``forward_train``'s, then in bf16. Phase 2 holds
+   and times B4 and B5 at llava's, musicgen's and jamba's groups (B4's
+   contraction up to K = 20480), and the kernel line has a row for each.
+   ``peaks`` prints the peaks of phases 3-4, ``catalog_1f1b``
    and ``xlstm_sim`` beside theirs before the optimizer state was updated
    in place, and fails if any grew. Every training path updates its
    optimizer state in place on the card (the sim engine always, the SPMD
@@ -154,9 +174,11 @@
    bf16 (first loss within 1e-2, all within 5e-2), and the asynchronous
    data axis: sim ``--data-async --data-delay 2`` with Adam, and 1F1B
    ``--data-par 2 --data-async --data-delay 1`` with Adam and with basis
-   rotation; and llava_next_34b, musicgen_large and mixtral_8x22b on the
-   sim path and mixtral on 1F1B with a window of 16, each with Adam and
-   with basis rotation through the kernels.
+   rotation; and llava_next_34b, musicgen_large, mixtral_8x22b and
+   jamba_v0_1_52b on the sim path, mixtral on 1F1B with a window of 16 and
+   deepseek_v2_236b on the sim and 1F1B paths, each with Adam and with basis
+   rotation through the kernels; and musicgen_large's codebook decode, its
+   prompt logits card against CPU within 1e-4.
 
 Each phase prints one JSON line; then the kernel table, the card's line
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -187,7 +209,9 @@ OUT_DIR = ROOT / "chiprun_out"
 MAIN_ARGS = ["--arch", "paper_95m", "--backend", "sim", "--stages", "8",
              "--optimizer", "basis_rotation", "--use-kernels", "--steps", "12",
              "--batch", "8", "--seq", "256", "--log-every", "1"]
-SMOKE_ARGS = ["--smoke", "--stages", "2", "--steps", "4", "--batch", "4",
+# card against CPU at smoke size: 3 steps, enough for the first-two and
+# every-loss gates
+SMOKE_ARGS = ["--smoke", "--stages", "2", "--steps", "3", "--batch", "4",
               "--seq", "32", "--log-every", "0"]
 SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
              "--microbatches", "8", "--optimizer", "basis_rotation", "--use-kernels",
@@ -195,14 +219,14 @@ SPMD_ARGS = ["--arch", "paper_95m", "--backend", "spmd", "--stages", "8",
 # 4 steps each, the first a refresh: enough for launch counts and step
 # times, and short enough to leave the script's time to the later paths
 SPMD_STEPS = {"1f1b": 4, "fill_drain": 4}
-BF16_STEPS = 4  # steps of the 1F1B path under --precision bf16
+BF16_STEPS = 2  # steps of the 1F1B path under --precision bf16
 RESUME_CUT = {"sim": 6, "spmd": 2}  # the step each resume check checkpoints at
 MODE_STEPS = 2  # steps of each sim staleness mode
 # the asynchronous data axis: the sim path with each data delay (and without
 # the flags), and the 1F1B path with two data replicas in one process, each
 # DATA_ASYNC_STEPS steps on one list of 16-row batches sampled once (the sim
 # runs take the first 8 rows of each)
-DATA_ASYNC_STEPS = 4
+DATA_ASYNC_STEPS = 3
 DATA_ASYNC_SIM_DELAYS = (0, 1, 2)
 DATA_ASYNC_SPMD = {"replicas": 2, "delay": 2, "batch": 16}
 # the paper's baselines: each on the sim path, and three on the SPMD 1F1B path
@@ -210,7 +234,7 @@ DATA_ASYNC_SPMD = {"replicas": 2, "delay": 2, "batch": 16}
 BASELINES_SIM = ("adasgd", "nesterov", "nesterov_pp", "pipedream_lr", "delay_compensation",
                  "muon", "scion")
 BASELINES_SPMD = ("delay_compensation", "pipedream_lr", "muon")
-BASELINE_STEPS = {"sim": 3, "spmd": 3}
+BASELINE_STEPS = {"sim": 2, "spmd": 2}
 FIRST_LOSS_TOL = 1e-6  # a first loss against phase 3's or 4's: same weights and batch, no update
 # card against CPU at smoke size: the elementwise baselines differ by float32
 # summation order, as Adam does; Newton-Schulz's quintic steps amplify that in
@@ -267,6 +291,24 @@ MUSICGEN_ARGS = ["--arch", "musicgen_large", "--backend", "sim", "--stages", "8"
 MIXTRAL_ARGS = ["--arch", "mixtral_8x22b", "--backend", "sim", "--stages", "1", "--data-async",
                 "--data-delay", "1", "--optimizer", "adam", "--steps", "4", "--seq", "256",
                 "--lr", "1e-4", "--log-every", "1"]
+# jamba_v0_1_52b at full width on the sim path, run as llava's is: one stage,
+# every leaf one step stale through the data axis, basis rotation, lr 1e-4,
+# batch 8, cut in depth by fit_sim: one layer, its Mamba mixer with a dense
+# SwiGLU MLP (the second layer's rotated (16, 4096, 14336) expert stacks alone
+# would add ~85 GB of bases and grams). Then its decode, held to the
+# reference's Mamba tolerance (tests/test_models.py:74-81)
+JAMBA_ARGS = ["--arch", "jamba_v0_1_52b", "--backend", "sim", "--stages", "1", "--data-async",
+              "--data-delay", "1", "--optimizer", "basis_rotation", "--use-kernels",
+              "--steps", "4", "--seq", "256", "--lr", "1e-4", "--log-every", "1"]
+JAMBA_DECODE_TOL = 1e-3
+# deepseek_v2_236b at full width: one of its 60 layers, 5.02 G parameters
+# (20.1 GB float32), drawn once on the card. Its optimizer state does not fit
+# beside it (under Adam the layer holds 80.3 GB of masters, gradients, m and
+# v), so the phase runs the training step's forward and backward on one batch
+# of (batch, seq) and then decodes from the same weights
+DEEPSEEK_LAYERS = 1
+DEEPSEEK_BATCH = (8, 256)
+DEEPSEEK_LOSS_TOL = 1.0  # random weights: the first loss within this of ln(vocab)
 FIT_SHARE = 0.9  # of the card's memory a path's reckoned peak may take
 # peak device memory (GB) of the earlier paths before the optimizer state was
 # updated in place (chip_smoke.py on one H100 80GB HBM3 at 700 W, PERF.md §5):
@@ -286,8 +328,11 @@ TF32_PASSES = 3  # the 3xTF32 split: three tensor-core products per float32 prod
 LONG_GROUP_FLOPS = 2e12  # a B4 group timed over 3 launches, not 10 (xlstm_1_3b's, paper_1b's)
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 2 GHz: longer than the host takes to enqueue a timing run
-# ~0.2 s at 2 GHz: longer than the host takes to enqueue one step's B5 work leaf by leaf
-STEP_SLEEP_CYCLES = 400_000_000
+# ~0.1 s at 2 GHz: five times what the host took to enqueue the longest of one
+# step's B5 work leaf by leaf (19.4 ms for the paper_95m sim path's 192 leaves on
+# the host of one NVIDIA H100 80GB HBM3 machine);
+# ``time_step_ms`` checks every run against it
+STEP_SLEEP_CYCLES = 200_000_000
 ADAM_SCALARS = (0.999, 1e-8, 1 - 0.9 ** 4, 1 - 0.999 ** 4)  # beta2, eps, bc1, bc2 at step 4
 # leaves per timed run of B5's plain version: its seven kernels a leaf must all wait
 # in the launch queue behind one sleep
@@ -996,38 +1041,51 @@ def check_bf16_dtypes(train, args, batch=None):
     return res.to_json()
 
 
-def check_serve_decode(torch, cfg, tol=DECODE_TOL):
+def cpu_copy(model):
+    """The model's weights in a model of its own on the CPU, copied straight
+    from the card (no second copy on the card)."""
+    from repro_torch.models import Transformer
+
+    twin = Transformer(model.cfg, device="cpu", seed=None)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def check_serve_decode(torch, cfg, tol=DECODE_TOL, model=None):
     """Full-width decode on the card in float32 compute: the logits decoded
     at the prompt's positions against ``forward_train``'s on the prompt,
     within the reference's consistency tolerance ``tol``. Beside it, the
     same ``forward_train`` on the CPU against the card's: the size of
     float32 roundoff between two summation orders at this width and depth.
-    Then the same serving run in the config's own compute dtype. Reports
-    tokens per second of both."""
-    import copy
-
+    Then the same serving run in the config's own compute dtype, on the
+    same weights (``model``, or drawn once from the seed). Reports tokens
+    per second of both."""
     from repro_torch.launch.serve_decode import serve
-    from repro_torch.models import forward_train
+    from repro_torch.models import forward_train, init_model
 
+    if model is None:
+        model = init_model(cfg.replace(scan_layers=False), seed=0, device=torch.device("cuda"))
     out = {}
     for dtype in ("float32", cfg.dtype):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = serve(cfg.replace(dtype=dtype), SERVE["batch"], SERVE["prompt_len"],
-                    SERVE["gen_len"], torch.device("cuda"))
+                    SERVE["gen_len"], torch.device("cuda"), model=model)
         row = {"dtype": dtype, "wall_s": time.perf_counter() - t0,
                "tokens_per_s": res["tokens_per_s"], "decode_s": res["seconds"],
                "generated_shape": list(res["generated"].shape),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         if dtype == "float32":
             with torch.no_grad():
-                full, _ = forward_train(res["model"], res["prompt"])
-                on_cpu, _ = forward_train(copy.deepcopy(res["model"]).cpu(), res["prompt"].cpu())
+                full, _ = forward_train(model, res["prompt"])
+                on_cpu, _ = forward_train(cpu_copy(model), res["prompt"].cpu())
             got = res["prompt_logits"]
             row["forward_train_card_vs_cpu_max_abs_err"] = float(
                 (full.cpu() - on_cpu).abs().max())
             err = row["prefill_vs_forward_train_max_abs_err"] = float((got - full).abs().max())
+            row["logits_max_abs"] = float(full.abs().max())
+            del on_cpu
             if not torch.allclose(got, full, rtol=tol, atol=tol):
                 raise AssertionError(f"serve_decode: decoded prompt logits differ from "
                                      f"forward_train by {err}")
@@ -1037,6 +1095,73 @@ def check_serve_decode(torch, cfg, tol=DECODE_TOL):
         out[dtype] = row
         del res
     return out
+
+
+def check_deepseek(torch, get_config):
+    """deepseek_v2_236b at full width, ``DEEPSEEK_LAYERS`` of its 60 layers,
+    drawn once on the card from the seed. First the training step's forward
+    and backward (``loss_fn``, ``.backward()``) in float32 on one batch of
+    the synthetic stream: the loss finite and within ``DEEPSEEK_LOSS_TOL``
+    of ln(vocab), every gradient finite, and the peak beside a reckoning of
+    the masters, their gradients, the MLA scores (each layer's (B, H, S, S)
+    float32 probabilities and three more such tensors while one layer's are
+    formed or differentiated) and the logits (three float32 copies). No
+    optimizer step: its state would not fit beside the layer. Then decode
+    from the same weights (``check_serve_decode``), at a capacity factor of
+    experts over top-k, where an expert takes every token of its group, so
+    that training's groups and decode's drop none. Emits one line for each
+    (``deepseek_forward_backward``, ``serve_decode_deepseek``)."""
+    from repro_torch.data import batches
+    from repro_torch.models import Transformer, loss_fn, param_count
+
+    full = get_config("deepseek_v2_236b")
+    cfg = full.replace(num_layers=DEEPSEEK_LAYERS, scan_layers=False, dtype="float32")
+    B, S = DEEPSEEK_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=0, draw_device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = next(batches(cfg, B, S, seed=0, device="cuda"))
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss, metrics = loss_fn(model, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n = param_count(model)
+    reckon = {"masters": 4 * n, "gradients": 4 * n,
+              "scores": 4 * B * cfg.attention.num_heads * S * S * (DEEPSEEK_LAYERS + 3),
+              "logits": 3 * 4 * B * S * cfg.vocab_size}
+    peak = torch.cuda.max_memory_allocated()
+    grads_finite = bool(torch.stack([torch.isfinite(p.grad).all()
+                                     for p in model.parameters()]).all())
+    ln_v = math.log(cfg.vocab_size)
+    train = {"phase": "deepseek_forward_backward", "arch": cfg.name, "layers": DEEPSEEK_LAYERS,
+             "layers_full": full.num_layers, "params": n, "batch": B, "seq": S,
+             "loss": loss.item(), "ce": metrics["ce"].item(), "aux": metrics["aux"].item(),
+             "ln_vocab": ln_v, "grads_finite": grads_finite, "draw_on_card_s": draw_s,
+             "data_s": data_s, "forward_backward_s": step_s, "peak_mem_gb": peak / 1e9,
+             "reckoned_gb": {k: v / 1e9 for k, v in reckon.items()},
+             "reckoned_peak_gb": sum(reckon.values()) / 1e9,
+             "peak_minus_reckoned_gb": (peak - sum(reckon.values())) / 1e9,
+             "adam_state_gb": 16 * n / 1e9}
+    emit(train)
+    if not (math.isfinite(train["loss"]) and abs(train["loss"] - ln_v) < DEEPSEEK_LOSS_TOL
+            and grads_finite):
+        raise AssertionError(f"deepseek: loss {train['loss']} (ln V {ln_v}), "
+                             f"gradients finite {grads_finite}")
+    del loss, metrics, batch
+    model.zero_grad(set_to_none=True)
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    serving = check_serve_decode(torch, cfg.replace(moe=moe, dtype=full.dtype), DECODE_TOL,
+                                 model=model)
+    emit({"phase": "serve_decode_deepseek", "arch": cfg.name, "layers": DEEPSEEK_LAYERS,
+          "capacity_factor": moe.capacity_factor, **SERVE, **serving})
+    del model
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1254,8 +1379,11 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotati
     that outgrow the rest at long sequences: the sim path's dense attention
     keeps each layer's (B, H, S, S) float32 probabilities for the backward,
     and three more such tensors live while one layer's are formed or
-    differentiated, S being the text plus the frontend prefix; and the
-    float32 logits, their log-softmax and its gradient over the text. The
+    differentiated, S being the text plus the frontend prefix; the Mamba
+    scan keeps two (B, S, d_inner, d_state) float32 tensors a Mamba layer
+    (dA and the states, ``models/mamba.py``), and two more (the states'
+    and dA's gradients) live while one layer's scan is differentiated; and
+    the float32 logits, their log-softmax and its gradient over the text. The
     peak is the state plus the larger of the update's transients and the
     activations; nothing else (the MLP's activations, the allocator's
     blocks) is counted. ``data_delay`` D deepens every ring by D slots
@@ -1307,11 +1435,14 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotati
     activations = {}
     if batch:
         S = seq + cfg.frontend_tokens
-        attn_layers = sum(cfg.pattern[l % len(cfg.pattern)].mixer == "attn"
-                          for l in range(cfg.num_layers))
+        mixers = Counter(cfg.pattern[l % len(cfg.pattern)].mixer for l in range(cfg.num_layers))
+        attn_layers, mamba_layers = mixers["attn"], mixers["mamba"]
+        scan = (4 * batch * S * cfg.ssm.expand * cfg.d_model * cfg.ssm.d_state
+                if mamba_layers else 0)
         activations = {
             "dense_attention": (4 * batch * cfg.attention.num_heads * S * S * (attn_layers + 3)
                                 if attn_layers else 0),
+            "mamba_scan": scan * (2 * mamba_layers + 2),
             "logits": 3 * 4 * batch * seq * cfg.num_codebooks * cfg.vocab_size}
     held = sum(out.values())
     return {"layers": cfg.num_layers, "params": nparams, "rotated_params": rotated,
@@ -1363,26 +1494,29 @@ def fit_sim(cfg, args, card_bytes, batches=(0,)):
             return layers, batch, r
 
 
-# (key, arch, launcher args, batches fit_sim may choose from)
+# (key, arch, launcher args, batches fit_sim may choose from): the catalog's
+# wide configs on the sim path
 FRONTEND_MOE = (("llava", "llava_next_34b", LLAVA_ARGS, LLAVA_BATCHES),
                 ("musicgen", "musicgen_large", MUSICGEN_ARGS, (8,)),
-                ("mixtral", "mixtral_8x22b", MIXTRAL_ARGS, (8,)))
+                ("mixtral", "mixtral_8x22b", MIXTRAL_ARGS, (8,)),
+                ("jamba", "jamba_v0_1_52b", JAMBA_ARGS, (8,)))
 
 
 def frontend_moe_fits(get_config, total):
-    """``fit_sim`` of each of the three paths on a card of ``total`` bytes:
+    """``fit_sim`` of each of the four paths on a card of ``total`` bytes:
     {key: (layers, batch, reckoning)}."""
     return {key: fit_sim(get_config(arch), args, total, batches)
             for key, arch, args, batches in FRONTEND_MOE}
 
 
 def frontend_moe_paths(train, torch, kernels, fits, paths, total):
-    """The frontends and the MoE MLP at full width on the sim path, each
-    through the launcher, cut as ``fits`` says, with its reckoning printed
-    before its run and beside its peak after: per step four B4 launches
-    and one B5 launch on basis rotation's leaves (``paths[key]``: the
-    step's B4 groups and B5 leaves), none for mixtral's Adam, whose
-    basis-rotation reckoning is printed beside its own. Returns {key: run}."""
+    """The frontends, the MoE MLP and the Mamba hybrid at full width on the
+    sim path, each through the launcher, cut as ``fits`` says, with its
+    reckoning printed before its run and beside its peak after (and the
+    peak's distance from it): per step four B4 launches and one B5 launch
+    on basis rotation's leaves (``paths[key]``: the step's B4 groups and B5
+    leaves), none for mixtral's Adam, whose basis-rotation reckoning is
+    printed beside its own. Returns {key: run}."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import adam_step as kadam
 
@@ -1412,6 +1546,7 @@ def frontend_moe_paths(train, torch, kernels, fits, paths, total):
                    launches_per_step={k: v / n for k, v in run["launches"].items()},
                    peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
                    reckoned_peak_gb=reckon["reckoned_peak_bytes"] / 1e9,
+                   peak_minus_reckoned_gb=run["peak_mem_gb"] - reckon["reckoned_peak_bytes"] / 1e9,
                    reckoned_gb={k: v / 1e9 for k, v in reckon["bytes"].items()},
                    reckoned_activation_gb={k: v / 1e9
                                            for k, v in reckon["activation_bytes"].items()},
@@ -1764,6 +1899,10 @@ def main() -> int:
         num_layers=fits["llava"][0]))
     mgroups, madam_leaves = path_groups(get_config("musicgen_large").replace(
         num_layers=fits["musicgen"][0]))
+    # jamba's sim path: the Mamba projections' 288- and 256-sided bases and
+    # in_proj's 16384-sided one beside the MLP's 14336-sided ones
+    jcfg = get_config("jamba_v0_1_52b").replace(num_layers=fits["jamba"][0])
+    jgroups, jadam_leaves = path_groups(jcfg)
     mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
     check_s = {}  # host seconds of each of phase 2's checks
 
@@ -1776,13 +1915,13 @@ def main() -> int:
     mm_rows, mm_err = timed("matmul", check_matmul, torch, kmm, peaks)
     grp_rows, grp_err = timed("matmul_grouped", check_matmul_groups, torch, kmm, {
         "sim": groups, "spmd": sgroups, "xlstm_sim": xgroups, "paper_1b_sim": pgroups,
-        "llava_sim": lgroups, "musicgen_sim": mgroups}, peaks)
+        "llava_sim": lgroups, "musicgen_sim": mgroups, "jamba_sim": jgroups}, peaks)
     mm_err = max(mm_err, grp_err)
     adam_rows, adam_err = timed("adam", check_adam, torch, kadam)
     agrp_rows, agrp_err = timed("adam_grouped", check_adam_groups, torch, kadam, {
         "sim": adam_leaves, "spmd": sadam_leaves, "xlstm_sim": xadam_leaves,
         "paper_1b_sim": padam_leaves, "llava_sim": ladam_leaves,
-        "musicgen_sim": madam_leaves}, peaks)
+        "musicgen_sim": madam_leaves, "jamba_sim": jadam_leaves}, peaks)
     adam_err = max(adam_err, agrp_err)
     flash_rows, flash_errs, flash_t = timed("flash", check_flash, torch, kflash, peaks)
     bf16_rows, bf16_errs, bf16_t = timed("flash_bf16", check_flash_bf16, torch, kflash, peaks)
@@ -2037,7 +2176,7 @@ def main() -> int:
 
     # xlstm_1_3b at full width, one superblock deep, on the sim path: B4 and B5
     # on its 39 rotated leaves, B1-B3 never (no attention); then where the
-    # step's time goes (profile_step over two steps after a refresh step)
+    # step's time goes (profile_step over one step after a refresh step)
     n = int(XLSTM_ARGS[XLSTM_ARGS.index("--steps") + 1])
     torch.cuda.empty_cache()
     with xlstm_cut():
@@ -2046,7 +2185,7 @@ def main() -> int:
             "adam_scale": n * -(-len(xadam_leaves) // kadam.MAX_LEAVES)})
         emit({"phase": "xlstm_sim", "layers": XLSTM_LAYERS, **xsim})
         torch.cuda.empty_cache()
-        profile_step.main(XLSTM_ARGS + ["--warmup", "1", "--profile-steps", "2"])
+        profile_step.main(XLSTM_ARGS + ["--warmup", "1", "--profile-steps", "1"])
     torch.cuda.empty_cache()
     xserving = check_serve_decode(torch, xcfg, XLSTM_DECODE_TOL)
     emit({"phase": "serve_decode_xlstm", "arch": xcfg.name, "layers": XLSTM_LAYERS, **SERVE,
@@ -2075,9 +2214,31 @@ def main() -> int:
     p1b["launches_per_step"] = {k: v / n for k, v in p1b["launches"].items()}
     emit({"phase": "paper_1b_sim", "layers": layers, **p1b})
 
-    # the frontends and the MoE MLP at full width on the sim path
+    # the frontends, the MoE MLP and the Mamba hybrid at full width on the sim path
     frontend_moe = frontend_moe_paths(train, torch, kernels, fits, {
-        "llava": (lgroups, ladam_leaves), "musicgen": (mgroups, madam_leaves)}, total)
+        "llava": (lgroups, ladam_leaves), "musicgen": (mgroups, madam_leaves),
+        "jamba": (jgroups, jadam_leaves)}, total)
+    # where jamba's step goes: the Mamba scan's share of device time and of
+    # host dispatch (its profiler ranges), one step after a refresh step
+    torch.cuda.empty_cache()
+    with swapped_config("jamba_v0_1_52b", lambda c: c.replace(num_layers=jcfg.num_layers)):
+        jprof = profile_step.main(JAMBA_ARGS + ["--batch", str(fits["jamba"][1]), "--warmup",
+                                                "1", "--profile-steps", "1"])
+    scan = {k: jprof["ranges"].get(k, {}) for k in ("mamba_scan", "mamba_scan_backward")}
+    scan_device = sum(r.get("kernel_ms_in_spans", 0.0) for r in scan.values())
+    scan_host = sum(r.get("host_ms", 0.0) for r in scan.values())
+    emit({"phase": "jamba_profile", "layers": jcfg.num_layers, "wall_ms": jprof["wall_ms"],
+          "device_busy_ms": jprof["device_busy_ms"], "groups_ms": jprof["groups_ms"],
+          "ranges": jprof["ranges"], "scan_device_ms": scan_device,
+          "scan_device_share": scan_device / jprof["device_busy_ms"],
+          "scan_host_ms": scan_host, "scan_host_share": scan_host / jprof["wall_ms"]})
+    torch.cuda.empty_cache()
+    jserving = check_serve_decode(torch, jcfg, JAMBA_DECODE_TOL)
+    emit({"phase": "serve_decode_jamba", "arch": jcfg.name, "layers": jcfg.num_layers,
+          **SERVE, **jserving})
+    # deepseek_v2_236b at full width, one layer: the training step's forward
+    # and backward, then decode, from one draw of the weights
+    check_deepseek(torch, get_config)
 
     # the earlier paths' peaks against theirs before the state was updated in place
     peaks_now = {"main_path": sim["peak_mem_gb"], "spmd_1f1b": spmd["1f1b"]["peak_mem_gb"],
@@ -2130,7 +2291,9 @@ def main() -> int:
     # (a 4-token prefix), musicgen (four codebooks and a prefix) and mixtral
     # (B4 on its batched expert stacks) on the sim path, and mixtral on 1F1B
     # with a window of 16 (B1-B3 windowed, B4 over the stacked layers and
-    # experts)
+    # experts); jamba (a Mamba block and an attention block) on the sim path,
+    # deepseek (MLA, which no kernel serves, and a shared expert) on the sim
+    # and 1F1B paths
     for arch, backend, change in (
             ("qwen3_0_6b", ["--backend", "spmd", "--schedule", "1f1b"], {"head_dim": 128}),
             ("qwen1_5_0_5b", ["--backend", "sim"], {}),
@@ -2140,7 +2303,10 @@ def main() -> int:
             ("llava_next_34b", ["--backend", "sim"], {}),
             ("musicgen_large", ["--backend", "sim"], {}),
             ("mixtral_8x22b", ["--backend", "sim"], {}),
-            ("mixtral_8x22b", ["--backend", "spmd", "--schedule", "1f1b"], {"window": 16})):
+            ("mixtral_8x22b", ["--backend", "spmd", "--schedule", "1f1b"], {"window": 16}),
+            ("jamba_v0_1_52b", ["--backend", "sim"], {}),
+            ("deepseek_v2_236b", ["--backend", "sim"], {}),
+            ("deepseek_v2_236b", ["--backend", "spmd", "--schedule", "1f1b"], {})):
         for opt, first2_tol, all_tol in ((["--optimizer", "adam"], 1e-4, 1e-4),
                                          (["--use-kernels"], 2e-3, 5e-2)):
             args = SMOKE_ARGS + ["--arch", arch] + backend + opt
@@ -2155,6 +2321,21 @@ def main() -> int:
             emit({"phase": "cuda_vs_cpu", "args": " ".join(args), "attention": change,
                   "cuda": gpu, "cpu": cpu, "max_diff_first2": max(diffs[:2]),
                   "max_diff": max(diffs)})
+    # musicgen's codebook decode at smoke size in float32: the teacher-forced
+    # prompt logits card against CPU within float32 roundoff, every codebook
+    # generated a step
+    from repro_torch.launch.serve_decode import serve
+
+    mcfg = get_config("musicgen_large", smoke=True).replace(dtype="float32")
+    on = {dev: serve(mcfg, 2, 4, 6, torch.device(dev)) for dev in ("cuda", "cpu")}
+    err = float((on["cuda"]["prompt_logits"].cpu() - on["cpu"]["prompt_logits"]).abs().max())
+    shapes = {dev: list(r["generated"].shape) for dev, r in on.items()}
+    emit({"phase": "cuda_vs_cpu", "decode": mcfg.name, "prompt_logits_max_abs_err": err,
+          "generated_shape": shapes["cuda"], "tokens_equal": bool(torch.equal(
+              on["cuda"]["generated"].cpu(), on["cpu"]["generated"]))})
+    if err > 1e-4 or any(v != [2, 6, mcfg.num_codebooks] for v in shapes.values()):
+        raise AssertionError(f"musicgen decode: card vs CPU {err}, shapes {shapes}")
+    del on
     # bf16: the card's cuBLAS and the CPU's products round to bf16 at other
     # places, as two implementations of a bf16 step do (the CPU tests hold the
     # port to the reference at 1e-2 on the first loss, 3e-2 on all)
@@ -2182,7 +2363,7 @@ def main() -> int:
     grouped = {path: {f: sum(r[f] for r in grp_rows if r["group"].startswith(path + "/"))
                       for f in ("ms", "plain_ms", "library_ms")}
                for path in ("sim", "spmd", "xlstm_sim", "paper_1b_sim", "llava_sim",
-                            "musicgen_sim")}
+                            "musicgen_sim", "jamba_sim")}
     b5_step = {r["group"]: r for r in agrp_rows}
     mm_bound, mm_bound_f32, mm_by = bounds(*mm_work([p for g in groups for p in g]), peaks,
                                            TF32_PASSES)
@@ -2234,10 +2415,11 @@ def main() -> int:
         "paper_1b_plain_ms": b5_step["paper_1b_sim"]["plain_ms"],
         "paper_1b_bound_ms": adam_bound(padam_leaves)[0],
     }]
-    # B4 and B5 per step of the frontend paths, at the groups phase 2 timed
+    # B4 and B5 per step of the frontend and jamba paths, at the groups phase 2 timed
     for key, path, arch, (pgrp, pleaves) in (
             ("llava", "llava_sim", "llava_next_34b", (lgroups, ladam_leaves)),
-            ("musicgen", "musicgen_sim", "musicgen_large", (mgroups, madam_leaves))):
+            ("musicgen", "musicgen_sim", "musicgen_large", (mgroups, madam_leaves)),
+            ("jamba", "jamba_sim", "jamba_v0_1_52b", (jgroups, jadam_leaves))):
         run = frontend_moe[key]
         bound_ms, _, bound_by = bounds(*mm_work([p for g in pgrp for p in g]), peaks,
                                        TF32_PASSES)
@@ -2351,9 +2533,9 @@ def main() -> int:
          "paper_1b_* keys of B4 and B5 are per step of paper_1b's sim path (paper_1b_sim: "
          "its launches, its four B4 groups and one B5 group over its 144 rotated leaves). "
          "The matmul_<arch> and adam_scale_<arch> rows are B4 and B5 per step of the "
-         "llava_next_34b and musicgen_large sim paths, cut to their layers (phases "
-         "llava_sim, musicgen_sim: launches of their 4-step runs); library_ms is torch.matmul "
-         "on contiguous operands of each of the step's products. "
+         "llava_next_34b, musicgen_large and jamba_v0_1_52b sim paths, cut to their layers "
+         "(phases llava_sim, musicgen_sim, jamba_sim: launches of their 4-step runs); "
+         "library_ms is torch.matmul on contiguous operands of each of the step's products. "
          "Every training path calls B5's in-place entry (v' written over v); adam_scale's "
          "max_abs_err covers both entries, and the in-place entry's time is "
          "adam_grouped's inplace_ms on phase 2's line",

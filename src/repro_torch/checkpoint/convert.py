@@ -10,7 +10,11 @@ engine's stage-stacked ``(stacked, shared)`` pair (the reference's
 ``stack_stage_params`` output). Every leaf crosses by its path, whatever
 its rank: the MoE's router and ``(E, d, d_ff)`` expert stacks (``(K, per,
 E, d, d_ff)`` stage-stacked), a ``(K, V, d)`` codebook embedding,
-``frontend_proj``, and the optimizer state over them.
+``frontend_proj``, the Mamba mixer's ``in_proj``, ``conv_w``, ``conv_b``,
+``x_proj``, ``dt_proj``, ``out_proj`` and float32 ``A_log`` (d_inner,
+d_state), ``dt_bias`` and ``D``, MLA's ``kv_a``, ``kv_a_norm``, ``kv_b``,
+``w_o`` and ``q_a``, ``q_a_norm``, ``q_b`` (or ``w_q``), and the optimizer
+state over them.
 
 ``opt_state_to_numpy`` and ``opt_state_from_numpy`` carry optimizer state:
 moments kept per leaf (adam, nesterov, nesterov_pp, pipedream_lr,

@@ -1,10 +1,10 @@
 """Configuration dataclasses for the model and the optimizer.
 
-Port of ``repro/configs/base.py``, cut to what the dense attention models
-(the paper's nanoGPT family and the dense public architectures), the
-xLSTM family (``SSMConfig``, mLSTM and sLSTM blocks), the MoE MLP
+Port of ``repro/configs/base.py``, cut to what the model configs use:
+grouped-query and MLA attention (``AttentionConfig``), the recurrent
+mixers (``SSMConfig``: Mamba, mLSTM and sLSTM blocks), the MoE MLP
 (``MoEConfig``) and the modality frontends (a projected prefix of frontend
-embeddings, several codebooks) use.
+embeddings, several codebooks).
 Defaults are the reference's; dtype properties return torch dtypes. Both
 of the reference's precision policies exist: ``f32`` and ``bf16``
 (``bf16_compute``, the SPMD backend's).
@@ -20,9 +20,9 @@ import torch
 
 @dataclass(frozen=True)
 class AttentionConfig:
-    """Grouped-query attention mixer configuration."""
+    """Attention mixer configuration (GQA or MLA)."""
 
-    kind: str = "gqa"
+    kind: str = "gqa"  # "gqa" | "mla"
     num_heads: int = 8
     num_kv_heads: int = 8
     head_dim: int = 64
@@ -30,9 +30,17 @@ class AttentionConfig:
     qkv_bias: bool = False
     window: Optional[int] = None  # sliding-window size (None = full causal)
     rope_theta: float = 10_000.0
+    # MLA-only fields (DeepSeek-V2 style latent attention)
+    q_lora_rank: int = 0  # 0 = no query compression
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
     @property
     def q_dim(self) -> int:
+        if self.kind == "mla":
+            return self.num_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
         return self.num_heads * self.head_dim
 
     @property
@@ -42,9 +50,9 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """State-space / recurrent mixer configuration. The port runs the mLSTM
-    and sLSTM mixers (``num_heads``, ``proj_factor``); the Mamba fields are
-    kept so that configs convert field for field."""
+    """State-space / recurrent mixer configuration: the Mamba mixer
+    (``d_state``, ``d_conv``, ``expand``, ``dt_rank``) and the mLSTM and
+    sLSTM mixers (``num_heads``, ``proj_factor``)."""
 
     kind: str = "mamba"  # "mamba" | "mlstm" | "slstm"
     d_state: int = 16

@@ -24,7 +24,11 @@ copy intervals) and its share of the wall time, the device time by kernel
 group (each of this port's CUDA kernels, B1-B3's bf16 entry points apart,
 cuBLAS products, QR, everything else), the
 top kernels by device time and the top host operations by their own host
-time. Needs CUDA.
+time. For each profiler range the model opens (``RANGES``: the Mamba
+scan's forward and backward), its calls, host time and device time: from
+``key_averages`` and, where the trace has the range's device-side spans,
+the kernels that ran inside them (those spans are left out of the busy
+time and the groups). Needs CUDA.
 """
 from __future__ import annotations
 
@@ -54,6 +58,10 @@ GROUPS = (  # first match wins; names are the kernels' symbol names
     # cuBLAS's products: its bf16 ones run as nvjet kernels
     ("library gemm", ("gemm", "xmma", "cutlass", "sm90", "dot_kernel", "nvjet")),
 )
+
+
+# torch.profiler ranges opened by the model (models/mamba.py)
+RANGES = ("mamba_scan", "mamba_scan_backward")
 
 
 def _group(name: str) -> str:
@@ -98,12 +106,29 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     # device activity only: kernels and copies, each counted once
     by_kernel: Dict[str, float] = {}
     spans = []
+    range_spans: Dict[str, list] = {name: [] for name in RANGES}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         start, end = evt.time_range.start, evt.time_range.end
+        if evt.name in range_spans:  # a range's span on the device, not a kernel
+            range_spans[evt.name].append((start, end))
+            continue
         by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + (end - start) / 1e3
         spans.append((start, end))
+    # a range averages into a host entry and, where the trace has its
+    # device-side spans, a device entry of the same name
+    host_ranges = {e.key: e for e in prof.key_averages()
+                   if e.key in range_spans and e.device_type == DeviceType.CPU}
+    ranges = {}
+    for name, e in host_ranges.items():
+        inside = [(s, t) for s, t in spans if any(a <= s and t <= b for a, b in range_spans[name])]
+        ranges[name] = {
+            "calls": e.count, "host_ms": e.cpu_time_total / 1e3,
+            "device_ms": getattr(e, "device_time_total", 0.0) / 1e3,
+            "device_span_ms": sum(b - a for a, b in range_spans[name]) / 1e3,
+            "kernels_in_spans": len(inside),
+            "kernel_ms_in_spans": sum(t - s for s, t in inside) / 1e3}
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(spans):  # union of the device intervals
         if end > reach:
@@ -117,7 +142,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "phase": "profile", "steps": ours.profile_steps, "first_step": ours.warmup,
         "data_ms_per_step": data_ms, "wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e3 / (1e3 * wall),
-        "groups_ms": groups, "top_kernels_ms": top, "top_host_ops_self_ms": host,
+        "groups_ms": groups, "ranges": ranges, "top_kernels_ms": top,
+        "top_host_ops_self_ms": host,
         "final_loss": float(loss),
         "device": torch.cuda.get_device_name(0), "backend": args.backend,
         "precision": args.precision,

@@ -1,16 +1,17 @@
 """Batched greedy decoding through ``forward_decode``, with the model's
-decode caches (a KV cache per attention layer, the recurrent state of an
-mLSTM or sLSTM layer). Port of ``examples/serve_decode.py``. It decodes
-the dense, MoE (``mixtral_8x22b``) and xLSTM configs; a config with
-several codebooks (``musicgen_large``) is refused: its generation, one
-token per codebook a step, is not ported yet. Decoding takes no frontend
+decode caches (a KV cache per GQA layer, the latent and roped-key caches of
+an MLA layer, the recurrent state of a Mamba, mLSTM or sLSTM layer). Port
+of ``examples/serve_decode.py``. It decodes every catalog config. With K
+codebooks (``musicgen_large``) each token is (B, 1, K) and every codebook
+is generated greedily at each step (``argmax`` over the last axis of the
+(B, 1, K, V) logits), as the reference does. Decoding takes no frontend
 prefix, as the reference's ``forward_decode`` takes none.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch qwen3_0_6b
     PYTHONPATH=src python -m repro_torch.launch.serve_decode \\
         --arch phi4_mini_3_8b_swa --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_decode \\
-        --arch xlstm_1_3b --smoke --device cpu
+        --arch deepseek_v2_236b --smoke --device cpu
 
 Draws the model from ``--seed`` (random weights: nothing is downloaded) and
 a random prompt of ``--prompt-len`` tokens for each of ``--batch``
@@ -34,20 +35,23 @@ from repro_torch.configs.base import ModelConfig
 
 
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen_len: int,
-          device: torch.device, seed: int = 0) -> Dict:
-    """Prefill ``prompt_len`` random tokens, then generate. Returns the model,
-    the prompt, the logits at the prompt's positions, the generated tokens
-    (B, gen_len) and the generation's tokens per second."""
-    from repro_torch.models import forward_decode, init_cache, init_model
+          device: torch.device, seed: int = 0, model=None) -> Dict:
+    """Prefill ``prompt_len`` random tokens, then generate. ``model``, if
+    given, is a built model of ``cfg``'s leaves, run under ``cfg`` (its
+    compute dtype, its MoE capacity): one draw of the weights then serves
+    several runs. Returns the model, the prompt (B, prompt_len) or (B,
+    prompt_len, K), the logits at the prompt's positions, the generated
+    tokens (B, gen_len) or (B, gen_len, K) and the generation's tokens per
+    second."""
+    from repro_torch.models import forward_decode, init_cache, init_model, use_config
 
-    if cfg.num_codebooks > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: decoding {cfg.num_codebooks} codebooks is not yet ported "
-            "(greedy generation of one token per codebook a step)")
     cfg = cfg.replace(scan_layers=False)
-    model = init_model(cfg, seed=seed, device=device)
+    model = init_model(cfg, seed=seed, device=device) if model is None else use_config(model, cfg)
+    K = cfg.num_codebooks
+    tok_shape = (batch, 1, K) if K > 1 else (batch, 1)
     rng = np.random.RandomState(seed)
-    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(batch, prompt_len)))
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(batch, prompt_len)
+                                          + ((K,) if K > 1 else ())))
     prompt = prompt.to(device=device, dtype=torch.int64)
     max_len = prompt_len + gen_len
     cache = init_cache(cfg, batch, max_len, device=device)
@@ -57,13 +61,14 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen_len: int,
         for t in range(prompt_len):  # prefill by teacher forcing
             logits, cache = forward_decode(model, prompt[:, t: t + 1], cache, t)
             prompt_logits.append(logits[:, 0])
-        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        # greedy over the last axis: every codebook's next token at once
+        tok = logits[:, -1].argmax(dim=-1).reshape(tok_shape)
         out: List[torch.Tensor] = [tok]
         sync()
         t0 = time.perf_counter()
         for t in range(prompt_len, max_len - 1):
             logits, cache = forward_decode(model, tok, cache, t)
-            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+            tok = logits[:, -1].argmax(dim=-1).reshape(tok_shape)
             out.append(tok)
         sync()
         seconds = time.perf_counter() - t0

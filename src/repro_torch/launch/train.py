@@ -20,11 +20,13 @@ and on the spmd backend attention runs in the flash-attention kernels too.
 ``--arch`` takes the paper's models, the dense public architectures
 (``qwen3_0_6b``, ``qwen1_5_0_5b``, ``stablelm_1_6b``, ``phi4_mini_3_8b``,
 ``phi4_mini_3_8b_swa``), ``xlstm_1_3b``, the frontends (``llava_next_34b``:
-a projected vision prefix; ``musicgen_large``: four codebooks) and the MoE
-``mixtral_8x22b``; a full config's depth must divide into ``--stages``. A
-pattern of mixed block kinds (xLSTM's mLSTM and sLSTM blocks) runs on the
-sim backend only: the reference's SPMD runtime stacks homogeneous layers,
-and ``--backend spmd`` refuses it before any work. So does it refuse the
+a projected vision prefix; ``musicgen_large``: four codebooks), the MoE
+``mixtral_8x22b``, the Mamba hybrid ``jamba_v0_1_52b`` and the MLA and MoE
+``deepseek_v2_236b``; a full config's depth must divide into ``--stages``. A
+pattern of mixed block kinds (xLSTM's mLSTM and sLSTM blocks, jamba's Mamba
+and attention blocks) runs on the sim backend only: the reference's SPMD
+runtime stacks homogeneous layers, and ``--backend spmd`` refuses it before
+any work. So does it refuse the
 frontend configs, on which the reference's SPMD engine is wrong, and the
 sim backend refuses ``--no-stash`` with a frontend prefix, which the
 reference's two-version loss drops (see ``_refuse_unported``).

@@ -17,12 +17,17 @@ from torch import nn
 Tensor = torch.Tensor
 
 
+def _draw_device(generator: Optional[torch.Generator]):
+    return "cpu" if generator is None else generator.device
+
+
 def dense_init(shape: Tuple[int, ...], generator: Optional[torch.Generator],
                scale: Optional[float] = None) -> Tensor:
-    """Truncated-normal fan-in initialiser, on the CPU."""
+    """Truncated-normal fan-in initialiser, drawn on the generator's device
+    (the CPU unless the caller asks for another)."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32)
+    w = torch.empty(shape, dtype=torch.float32, device=_draw_device(generator))
     if generator is not None:
         nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
         w.mul_(std)
@@ -30,7 +35,7 @@ def dense_init(shape: Tuple[int, ...], generator: Optional[torch.Generator],
 
 
 def embed_init(shape: Tuple[int, ...], generator: Optional[torch.Generator]) -> Tensor:
-    w = torch.empty(shape, dtype=torch.float32)
+    w = torch.empty(shape, dtype=torch.float32, device=_draw_device(generator))
     if generator is not None:
         w.normal_(0.0, 0.02, generator=generator)
     return w

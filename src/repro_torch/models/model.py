@@ -1,7 +1,8 @@
 """Whole-model API: init, training forward and loss, and single-token decode.
 Port of ``repro/models/model.py`` for per-layer (``scan_layers=False``)
-models: dense and MoE attention blocks, and xLSTM's mLSTM and sLSTM blocks
-in a pattern of mixed kinds (layer l is ``cfg.pattern[l % len(cfg.pattern)]``).
+models: GQA and MLA attention, Mamba, mLSTM and sLSTM blocks with dense,
+MoE or no MLPs, in a pattern of mixed kinds (layer l is
+``cfg.pattern[l % len(cfg.pattern)]``).
 
 The modality frontends are stubs, as in the reference: the batch carries
 precomputed embeddings (``batch["frontend"]``, (B, P, frontend_dim)),
@@ -26,7 +27,9 @@ masters at use.
 Weights are drawn from an explicit CPU ``torch.Generator`` and then moved to
 the device, so a seed gives the same weights on every device; they do not
 reproduce ``jax.random`` (the tests carry weights across with
-``repro_torch.checkpoint.convert``).
+``repro_torch.checkpoint.convert``). ``draw_device="cuda"`` draws them on
+the card instead, from a generator of its own: other weights for the same
+seed, in a fraction of the host's time at billions of parameters.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.core.layout import path_str, tree_order_key
 from repro_torch.models.layers import Norm, apply_norm, dense_init, embed_init, param
 from repro_torch.models.transformer import Block, block_decode, init_block_cache
@@ -55,10 +58,11 @@ class Embedding(nn.Module):
 
 class Transformer(nn.Module):
     """Decoder-only transformer. ``seed=None`` leaves the weights
-    uninitialised, for callers that load them."""
+    uninitialised, for callers that load them; ``draw_device`` is where the
+    seed's generator draws them (the CPU by default)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda",
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0, draw_device: torch.device | str = "cpu"):
         super().__init__()
         if cfg.scan_layers:
             raise NotImplementedError(
@@ -67,7 +71,7 @@ class Transformer(nn.Module):
             )
         if cfg.loss_chunk:
             raise NotImplementedError("not yet ported: chunked cross-entropy")
-        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        gen = None if seed is None else torch.Generator(draw_device).manual_seed(seed)
         dtype = cfg.params_dtype
         self.cfg = cfg
         V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
@@ -95,6 +99,25 @@ class Transformer(nn.Module):
 
 def init_model(cfg: ModelConfig, seed: int = 0, device: torch.device | str = "cuda") -> Transformer:
     return Transformer(cfg, device=device, seed=seed)
+
+
+def use_config(model: Transformer, cfg: ModelConfig) -> Transformer:
+    """Point a built model and its modules at ``cfg``, a config of the same
+    leaves that differs in what runs (the compute dtype, the MoE's capacity
+    factor), so that one draw of the weights serves several runs. Returns
+    the model."""
+    want = {k: tuple(p.shape) for k, p in
+            param_leaves(Transformer(cfg.replace(scan_layers=False), "meta", None)).items()}
+    have = {k: tuple(p.shape) for k, p in param_leaves(model).items()}
+    if want != have:
+        raise ValueError(f"{cfg.name}: its leaves differ from the model's")
+    parts = {AttentionConfig: cfg.attention, MoEConfig: cfg.moe, SSMConfig: cfg.ssm}
+    for m in model.modules():
+        if isinstance(m, (Transformer, Block)):
+            m.cfg = cfg
+        elif type(getattr(m, "cfg", None)) in parts:
+            m.cfg = parts[type(m.cfg)]
+    return model
 
 
 def param_leaves(model: nn.Module) -> Dict[str, nn.Parameter]:
@@ -178,9 +201,11 @@ def forward_train(model: Transformer, tokens: Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: torch.device | str = "cuda") -> Tuple[Dict[str, Tensor], ...]:
-    """One zeroed decode cache per layer: the K/V cache of an attention
-    block in the compute dtype, the recurrent state of an mLSTM or sLSTM
-    block (the sLSTM's h in the compute dtype, the rest float32)."""
+    """One zeroed decode cache per layer, in the compute dtype unless said:
+    the K/V cache of a GQA block, the latent and roped-key caches of an MLA
+    block, the recurrent state of a Mamba block (the convolution's last
+    inputs; the SSM state float32), an mLSTM block (float32) or an sLSTM
+    block (its h in the compute dtype, the rest float32)."""
     return tuple(init_block_cache(cfg, cfg.pattern[l % len(cfg.pattern)], batch, seq_len,
                                   cfg.compute_dtype, device)
                  for l in range(cfg.num_layers))
@@ -189,8 +214,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 def forward_decode(model: Transformer, token: Tensor, cache: Tuple[Dict[str, Tensor], ...],
                    pos: int) -> Tuple[Tensor, Tuple[Dict[str, Tensor], ...]]:
     """token: (B, 1) int64 at position ``pos``, or (B, 1, K) with K
-    codebooks. Returns (logits (B, 1, V) or (B, 1, K, V), cache): the K/V
-    caches written in place, the recurrent states new.
+    codebooks. Returns (logits (B, 1, V) or (B, 1, K, V), cache): the
+    attention caches written in place, the recurrent states new.
     Runs on compute-dtype copies of the masters, as the reference casts
     them at use."""
     cfg = model.cfg

@@ -1,19 +1,20 @@
 """One decoder block: norm -> mixer -> norm -> MLP, where the mixer is
-attention, mLSTM or sLSTM and the MLP is dense, MoE or absent (xLSTM blocks
-integrate their own feed-forward: no ``norm2`` and no ``mlp`` leaves).
-Port of ``repro/models/transformer.py`` (``block_train``,
-``init_block_cache``, ``block_decode``); the Mamba mixer comes with its
-family. A MoE block returns its load-balance auxiliary loss from
-``block_train``; its decode drops it, as the reference's does.
+attention (GQA or MLA), Mamba, mLSTM or sLSTM and the MLP is dense, MoE or
+absent (xLSTM blocks integrate their own feed-forward: no ``norm2`` and no
+``mlp`` leaves). Port of ``repro/models/transformer.py`` (``block_train``,
+``init_block_cache``, ``block_decode``). A MoE block returns its
+load-balance auxiliary loss from ``block_train``; its decode drops it, as
+the reference's does. ``use_kernels`` reaches GQA attention only.
 
 ``stage_apply`` runs a pipeline stage's blocks on weights sliced from
 stage-stacked ``(K, per, ...)`` tensors (the reference's ``_stage_apply_fn``
 in ``engine/schedules.py``), through this same ``Block`` code: a weightless
 template block is called with each layer's weights by
 ``torch.func.functional_call``. Like the reference's, it applies one block
-kind to every layer, so the SPMD path takes homogeneous patterns only, and
-it drops a MoE block's auxiliary loss, as the reference's stage apply does
-(``repro/engine/schedules.py:95-106``).
+kind to every layer, so the SPMD path takes homogeneous patterns only
+(deepseek_v2_236b's MLA/MoE blocks, not jamba_v0_1_52b's mix of Mamba and
+attention), and it drops a MoE block's auxiliary loss, as the reference's
+stage apply does (``repro/engine/schedules.py:95-106``).
 """
 from __future__ import annotations
 
@@ -24,8 +25,15 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.models.attention import Attention, gqa_decode, init_gqa_cache
+from repro_torch.models.attention import (
+    Attention,
+    gqa_decode,
+    init_gqa_cache,
+    init_mla_cache,
+    mla_decode,
+)
 from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm
+from repro_torch.models.mamba import Mamba, init_mamba_cache, mamba_decode
 from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.xlstm import (
     MLSTM,
@@ -41,12 +49,14 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, device,
                  generator: Optional[torch.Generator]):
         super().__init__()
-        _check_ported(spec)
+        _check_known(spec)
         dtype = cfg.params_dtype
         self.cfg, self.spec = cfg, spec
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
         if spec.mixer == "attn":
             self.mixer = Attention(cfg.d_model, cfg.attention, dtype, device, generator)
+        elif spec.mixer == "mamba":
+            self.mixer = Mamba(cfg.d_model, cfg.ssm, dtype, device, generator)
         elif spec.mixer == "mlstm":
             self.mixer = MLSTM(cfg.d_model, cfg.ssm, dtype, device, generator)
         else:
@@ -79,22 +89,26 @@ def block_train(p: Block, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tens
     return x, aux
 
 
-def _check_ported(spec: BlockSpec) -> None:
-    if spec.mixer == "mamba":
-        raise NotImplementedError("not yet ported: the Mamba mixer (models/mamba.py)")
-    if spec.mixer not in ("attn", "mlstm", "slstm") or spec.mlp not in ("dense", "moe", "none"):
+def _check_known(spec: BlockSpec) -> None:
+    if (spec.mixer not in ("attn", "mamba", "mlstm", "slstm")
+            or spec.mlp not in ("dense", "moe", "none")):
         raise ValueError(f"unknown block {spec.mixer!r} mixer with {spec.mlp!r} MLP")
 
 
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, seq_len: int, dtype,
                      device) -> Dict[str, torch.Tensor]:
-    """A zeroed decode cache: the K/V cache of an attention block, the
-    recurrent state of an mLSTM or sLSTM block."""
-    _check_ported(spec)
+    """A zeroed decode cache: the K/V cache of a GQA block, the latent and
+    roped-key caches of an MLA block, the recurrent state of a Mamba, mLSTM
+    or sLSTM block."""
+    _check_known(spec)
+    if spec.mixer == "mamba":
+        return init_mamba_cache(batch, cfg.d_model, cfg.ssm, dtype, device)
     if spec.mixer == "mlstm":
         return init_mlstm_cache(batch, cfg.d_model, cfg.ssm, device)
     if spec.mixer == "slstm":
         return init_slstm_cache(batch, cfg.d_model, cfg.ssm, dtype, device)
+    if cfg.attention.kind == "mla":
+        return init_mla_cache(batch, seq_len, cfg.attention, dtype, device)
     return init_gqa_cache(batch, seq_len, cfg.attention, dtype, device)
 
 
@@ -102,18 +116,21 @@ def block_decode(w: Mapping[str, torch.Tensor], x: torch.Tensor, cache: Dict[str
                  pos: int, cfg: ModelConfig,
                  spec: BlockSpec) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One block on one new token. ``w`` maps the block's leaf paths
-    (``norm1/scale``, ``mixer/w_q``, ``mlp/w_up``) to its weights. The K/V
-    cache is written in place; a recurrent mixer returns a new state. A MoE
-    MLP routes the batch's tokens as one group and drops its auxiliary
-    loss."""
-    _check_ported(spec)
+    (``norm1/scale``, ``mixer/w_q``, ``mlp/w_up``) to its weights. An
+    attention cache (K/V, or MLA's latent and roped key) is written in
+    place; a recurrent mixer returns a new state. A MoE MLP routes the
+    batch's tokens as one group and drops its auxiliary loss."""
+    _check_known(spec)
     sub = {}
     for path, t in w.items():
         head, name = path.split("/", 1)
         sub.setdefault(head, {})[name] = t
     h = apply_norm(sub["norm1"]["scale"], sub["norm1"].get("bias"), x)
     if spec.mixer == "attn":
-        h, cache = gqa_decode(sub["mixer"], h, cache, pos, cfg.attention)
+        decode = mla_decode if cfg.attention.kind == "mla" else gqa_decode
+        h, cache = decode(sub["mixer"], h, cache, pos, cfg.attention)
+    elif spec.mixer == "mamba":
+        h, cache = mamba_decode(sub["mixer"], h, cache, cfg.ssm)
     elif spec.mixer == "mlstm":
         h, cache = mlstm_decode(sub["mixer"], h, cache, cfg.ssm)
     else:
@@ -135,9 +152,9 @@ def check_homogeneous(cfg: ModelConfig) -> None:
     kinds = sorted({f"{s.mixer}/{s.mlp}" for s in cfg.pattern})
     if len(kinds) != 1:
         raise ValueError(
-            f"a pattern of mixed block kinds ({', '.join(kinds)}) cannot run on the spmd "
-            "backend: the reference's pipeline runtime stacks whole layer trees and applies "
-            "cfg.pattern[0] to every layer, so it takes homogeneous stacks only; use "
+            f"{cfg.name}: a pattern of mixed block kinds ({', '.join(kinds)}) cannot run on "
+            "the spmd backend: the reference's pipeline runtime stacks whole layer trees and "
+            "applies cfg.pattern[0] to every layer, so it takes homogeneous stacks only; use "
             "--backend sim")
 
 

@@ -109,19 +109,26 @@ def test_configs_match_reference(arch, smoke):
 
 
 def test_catalog_ids_and_refusals():
-    assert ARCH_IDS == ["llava_next_34b", "mixtral_8x22b", "stablelm_1_6b", "qwen3_0_6b",
-                        "qwen1_5_0_5b", "phi4_mini_3_8b", "xlstm_1_3b", "musicgen_large"]
+    """Every id of the reference's catalog, in its order, is ported:
+    jamba_v0_1_52b (Mamba) and deepseek_v2_236b (MLA) build under the
+    launcher; the sliding-window ids resolve, and an unknown id raises."""
+    from repro.configs.catalog import ARCH_IDS as JARCH_IDS
+
+    assert ARCH_IDS == JARCH_IDS == [
+        "llava_next_34b", "mixtral_8x22b", "stablelm_1_6b", "qwen3_0_6b", "qwen1_5_0_5b",
+        "phi4_mini_3_8b", "jamba_v0_1_52b", "deepseek_v2_236b", "xlstm_1_3b", "musicgen_large"]
     assert tget_config("phi4-mini-3-8b-swa").attention.window == 8192
     assert tget_config("qwen3_0_6b_swa", smoke=True).name == "qwen3_0_6b_smoke"
     with pytest.raises(ValueError, match="sliding-window"):
         tget_config("qwen3_0_6b_swa")
     with pytest.raises(ValueError, match="unknown"):
         tget_config("gpt5")
-    for arch, needs in (("deepseek_v2_236b", "MLA"), ("jamba_v0_1_52b", "Mamba")):
-        with pytest.raises(NotImplementedError, match=needs):
-            tget_config(arch)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.build(train.parse_args(["--arch", arch, "--smoke", "--device", "cpu"]))
+    for arch, mixer in (("deepseek_v2_236b", "attn"), ("jamba_v0_1_52b", "mamba")):
+        assert tget_config(arch).name == arch
+        engine, _, _ = train.build(train.parse_args(["--arch", arch, "--smoke", "--stages",
+                                                     "2", "--device", "cpu"]))
+        assert engine.model.cfg.name == f"{arch}_smoke"
+        assert engine.model.blocks[0].spec.mixer == mixer
 
 
 @pytest.mark.parametrize("arch,smoke", [(a, True) for a in ARCHS] + [("qwen3_0_6b", False)])

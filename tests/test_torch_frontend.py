@@ -97,7 +97,7 @@ def test_configs_match_reference_field_for_field(arch, smoke):
             continue
         r, p = getattr(ref, f.name), getattr(port, f.name)
         if f.name == "attention":
-            assert dataclasses.astuple(r)[:8] == dataclasses.astuple(p), (arch, f.name)
+            assert dataclasses.astuple(r) == dataclasses.astuple(p), (arch, f.name)
         elif f.name == "pattern":
             assert [(s.mixer, s.mlp) for s in r] == [(s.mixer, s.mlp) for s in p]
         else:
@@ -330,10 +330,49 @@ def test_spmd_and_no_stash_refusals_name_the_reference(arch):
 
 
 def test_launcher_trains_both_on_the_sim_backend_and_decode_refuses_codebooks():
+    """Both frontends train through the launcher on the sim backend; the
+    serving launcher, which refused several codebooks until they were
+    ported, now decodes musicgen's four a step in its own bf16."""
     for arch in ARCHS:
         res = train.main(["--arch", arch, "--smoke", "--stages", "2", "--steps", "2",
                           "--batch", "2", "--seq", "8", "--use-kernels", "--log-every", "0",
                           "--device", "cpu"])
         assert len(res["losses"]) == 2 and all(np.isfinite(res["losses"]))
-    with pytest.raises(NotImplementedError, match="codebooks is not yet ported"):
-        serve_decode.main(["--arch", "musicgen_large", "--smoke", "--device", "cpu"])
+    out = serve_decode.main(["--arch", "musicgen_large", "--smoke", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "3", "--gen-len", "3"])
+    assert out["model"].cfg.compute_dtype == torch.bfloat16
+    assert tuple(out["generated"].shape) == (2, 3, 4)
+
+
+def test_serve_decode_generates_every_codebook_as_the_reference_loop_does():
+    """Greedy codebook decode (examples/serve_decode.py:35-53): musicgen's
+    reduced config in float32, the reference's weights carried across.
+    ``serve`` teacher-forces a (B, P, K) prompt and then takes the argmax
+    over the last axis of the (B, 1, K, V) logits for every codebook at
+    once; the reference's ``forward_decode`` loop, run here on the same
+    prompt, generates the same (B, gen_len, K) tokens, and the prompt's
+    logits agree within 2e-5."""
+    cj, ct = _configs("musicgen_large", dtype="float32")
+    tree = _perturbed_tree(cj, seed=4)
+    params = jax.tree.map(jnp.asarray, tree)
+    B, P, G, Kc = 2, 4, 6, ct.num_codebooks
+    res = serve_decode.serve(ct, B, P, G, torch.device("cpu"),
+                             model=params_from_numpy(tree, ct, "cpu"))
+    prompt = jnp.asarray(res["prompt"].numpy())
+    assert prompt.shape == (B, P, Kc)
+    step = jax.jit(jforward_decode, static_argnums=1)
+    cache, logits = jinit_cache(cj, B, P + G), []
+    for t in range(P):
+        lg, cache = step(params, cj, prompt[:, t][:, None], cache, jnp.int32(t))
+        logits.append(np.asarray(lg[:, 0]))
+    tok = jnp.argmax(lg[:, -1], axis=-1).reshape(B, 1, Kc)
+    out = [tok]
+    for t in range(P, P + G - 1):
+        lg, cache = step(params, cj, tok, cache, jnp.int32(t))
+        tok = jnp.argmax(lg[:, -1], axis=-1).reshape(B, 1, Kc)
+        out.append(tok)
+    want = np.asarray(jnp.concatenate(out, axis=1))
+    np.testing.assert_allclose(res["prompt_logits"].numpy(), np.stack(logits, 1), rtol=2e-5,
+                               atol=2e-5)
+    assert tuple(res["generated"].shape) == (B, G, Kc)
+    np.testing.assert_array_equal(res["generated"].numpy(), want)

@@ -114,17 +114,22 @@ def test_cross_entropy_ignores_masked_labels():
 
 
 def test_unported_model_options_raise():
+    """Only stacked parameters and the chunked cross-entropy still raise: MLA
+    attention and the Mamba mixer build, and an unknown mixer is refused as
+    unknown."""
     _, ct = _configs()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="scan_layers"):
         Transformer(ct.replace(scan_layers=True), device="meta")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="chunked cross-entropy"):
         Transformer(ct.replace(loss_chunk=64), device="meta")
-    mla = dataclasses.replace(ct.attention, kind="mla")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        Transformer(ct.replace(attention=mla, scan_layers=False), device="meta")
-    # the block check refuses the Mamba mixer alone (the MoE MLP is ported)
-    from repro_torch.configs.base import BlockSpec
+    from repro_torch.configs.base import BlockSpec, SSMConfig
 
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        Transformer(ct.replace(pattern=(BlockSpec("mamba", "dense"),), scan_layers=False),
+    mla = dataclasses.replace(ct.attention, kind="mla")
+    model = Transformer(ct.replace(attention=mla, scan_layers=False), device="meta")
+    assert "blocks/0/mixer/kv_b" in param_leaves(model)
+    model = Transformer(ct.replace(pattern=(BlockSpec("mamba", "dense"),), ssm=SSMConfig(),
+                                   scan_layers=False), device="meta")
+    assert "blocks/0/mixer/A_log" in param_leaves(model)
+    with pytest.raises(ValueError, match="unknown block"):
+        Transformer(ct.replace(pattern=(BlockSpec("rwkv", "dense"),), scan_layers=False),
                     device="meta")
