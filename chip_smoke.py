@@ -84,9 +84,31 @@
    process, one row of every microbatch each: per step B1 2 R M L = 1,024,
    B2 and B3 R M L = 512, B4 4, B5 1; its stage rings equal to the
    formula's, K-1 slots a stacked leaf whatever D), its peak beside the
-   state, the FIFO's D and the local gradients' R float32 copies of the
-   parameters (``reckon_sim(replicas=)``), and split at the local
-   gradients (``peak_probe``: the peak inside them and outside them).
+   state, the FIFO's D float32 copies of the parameters and the running
+   sum of the replicas' local gradients, one more (``reckon_sim(replicas=)``),
+   and split at the local gradients (``peak_probe``: the peak inside them
+   and outside them).
+   ``spawn_spmd`` runs the multi-process SPMD path: phase 4's 1F1B run
+   over two ranks of ``repro_torch.launch.spawn`` sharing the card over
+   gloo (host-staged transfers; rank 0 stages 0-3, rank 1 stages 4-7).
+   (a) and (b) are one launch: 3 steps checkpointing every step, rank 1
+   killed once step 1 commits and the run resumed on two ranks; the merged
+   series within 1e-6 of phase 4's first 3 losses. Per rank of the resumed
+   launch (steps 1-2, uninterrupted): its launches a step, B1-B3 summing
+   to 512 / 256 / 256, B4 and B5 a whole step's each; step and data times
+   (each rank samples its batches), peak memory beside its slab's reckoning
+   (``reckon_sim(stage_slab=)``), bytes sent a step, barrier waits. (c)
+   ``--pods 2 --data-par 1`` at batch 16 over the two ranks (every stage of
+   one data replica each) within 1e-6 of the one-process ``--pods 2`` run
+   of the same batches (``data_async``'s, sampled once; run in this process
+   while (c) runs), killed after the step-1 checkpoint and resumed as one
+   process on (stages=8), 2 steps in all: finite and within 1e-4 of the
+   one-process run's losses. (c) runs first and (a)/(b) starts when (c)'s
+   first launch ends. With two or more cards (a) runs again over NCCL, one
+   rank a card; with one card a line says why it was not run. Phase 3
+   samples its batches and keeps them (``stream_tape``); phase 4's runs,
+   the resume paths and ``sim_modes`` replay them, and their lines say so
+   (``"data": "replayed"``): their data times are copies.
    ``baselines`` trains the paper's baseline optimizers on one list of two
    batches sampled once: each of the seven on the sim path for 2 steps, and
    delay compensation, pipedream_lr and muon on the SPMD 1F1B path for 2.
@@ -193,8 +215,10 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -242,6 +266,23 @@ FIRST_LOSS_TOL = 1e-6  # a first loss against phase 3's or 4's: same weights and
 # its momentum is within roundoff of zero
 NEWTON_SCHULZ = ("muon", "scion")
 RESUME_TOL = 1e-6  # resumed losses against the uninterrupted run's, same card and code
+# the multi-process SPMD path (``spawn_spmd``): two ranks of repro_torch.launch.spawn
+# sharing the card over gloo, on phase 4's 1F1B path (rank 0 stages 0-3, rank 1
+# stages 4-7). SPAWN_STEPS of phase 4's steps: the schedule's learning rate at
+# steps 0 and 1 does not depend on --steps, so 3 steps give phase 4's first 3
+# losses; rank 1 is killed after SPAWN_CUT steps and the run resumed on two
+# ranks. (c) runs the data axis over the two ranks at batch 16 (one row of
+# each microbatch a rank) for SPAWN_PODS_STEPS steps against the one-process
+# --pods 2 run, cut after SPAWN_PODS_CUT steps and resumed as one process on
+# (stages=8)
+SPAWN_STEPS, SPAWN_CUT = 3, 1
+SPAWN_PODS_STEPS, SPAWN_PODS_CUT = 2, 1
+SPAWN_TOL = 1e-6  # multi-process losses against the one-process run's, same card
+# (c)'s resumed (stages=8) losses against the one-process --pods 2 run's: the
+# same mean gradient (two replicas of one row, or one of two rows) summed in
+# another order
+SPAWN_CONTINUITY_TOL = 1e-4
+SPAWN_TIMEOUT = 300  # seconds each spawn may take
 # qwen3_0_6b at full width on the SPMD 1F1B path: 4 stages of 7 layers (its
 # 28 layers fix the stage counts that divide them), 8 microbatches of one
 # sequence; CATALOG_STEPS steps in float32 and then in bf16 on one list of
@@ -390,9 +431,12 @@ T_START = time.perf_counter()
 
 def emit(obj) -> None:
     """One JSON line; a phase's line also says when it ended, in seconds
-    since the script started."""
+    since the script started, and is kept in chiprun_out/chip_smoke_phases.jsonl
+    (the end of the standard output alone reaches back only so far)."""
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
+        with open(OUT_DIR / "chip_smoke_phases.jsonl", "a") as f:
+            f.write(json.dumps(obj) + "\n")
     print(json.dumps(obj), flush=True)
 
 
@@ -1220,6 +1264,48 @@ def read_counts(kernels):
     return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
 
 
+TAPES = {}  # a stream's key -> the host batches that its recorded run sampled
+
+
+def stream_key(cfg, batch_size, seq_len, seed):
+    return (cfg.vocab_size, cfg.num_codebooks, cfg.frontend, cfg.frontend_tokens,
+            cfg.frontend_dim or cfg.d_model, batch_size, seq_len, seed)
+
+
+@contextlib.contextmanager
+def stream_tape(mode):
+    """``"record"``: within, every draw of ``repro_torch.data.batches`` is
+    the sampler's (a run's ``data_s`` is sampling and the copy to its
+    device) and each batch is kept on the host. ``"replay"``: within, a run
+    of a recorded stream draws the kept batches in order, each copied to its
+    device (its ``data_s`` is the copy), and a draw past them raises. The
+    values are the sampler's either way; each run's line says which it got
+    (``data``). Only paths whose data time nothing reads replay."""
+    from repro_torch import data as rdata
+
+    sample = rdata.batches
+
+    def recorded(cfg, batch_size, seq_len, seed=0, device="cuda"):
+        tape = TAPES.setdefault(stream_key(cfg, batch_size, seq_len, seed), [])
+        for i, b in enumerate(sample(cfg, batch_size, seq_len, seed=seed, device="cpu")):
+            if i == len(tape):
+                tape.append(b)
+            yield {k: v.to(device) for k, v in b.items()}
+
+    def replayed(cfg, batch_size, seq_len, seed=0, device="cuda"):
+        key = stream_key(cfg, batch_size, seq_len, seed)
+        for b in TAPES.get(key, []):
+            yield {k: v.to(device) for k, v in b.items()}
+        raise AssertionError(f"stream {key}: a replayed run read past the "
+                             f"{len(TAPES.get(key, []))} recorded batches")
+
+    rdata.batches = recorded if mode == "record" else replayed
+    try:
+        yield
+    finally:
+        rdata.batches = sample
+
+
 @contextlib.contextmanager
 def b5_in_place(calls):
     """Within: every call of B5's grouped entry must write each v' over its v
@@ -1342,8 +1428,8 @@ def peak_probe(torch, engine) -> list:
     gradients: wraps ``engine.local_grad_fn`` so that the peak counter is
     read and reset just before it (the peak of the previous step's reduce,
     FIFO, clip and optimizer update; at the first step, of the run's start)
-    and just after it (the peak inside the replicas' schedules and their
-    stacked gradients). Returns the list each step's reading joins."""
+    and just after it (the peak inside the replicas' schedules and the
+    sum of their gradients). Returns the list each step's reading joins."""
     marks, real = [], engine.local_grad_fn
 
     def local_grad_fn(*a):
@@ -1364,7 +1450,7 @@ def peak_probe(torch, engine) -> list:
 
 
 def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotation",
-               batch=0, seq=0):
+               batch=0, seq=0, stage_slab=None):
     """What a sim step of ``cfg`` on ``stages`` stages must hold, in bytes
     by kind, from the optimizer that the launcher builds for ``optimizer``
     (basis rotation with the launcher's defaults and the kernels' grouped
@@ -1390,12 +1476,20 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotati
     (``--data-async --data-delay D``). With ``replicas`` R, the SPMD
     engine's step instead (stacked leaves, stage rings, weight queues D
     deeper for delay compensation), and beside its state the D deferred
-    reductions of its FIFO and the R replicas' local gradients, each a
-    float32 copy of the parameters."""
+    reductions of its FIFO and, for R > 1, the running sum of the
+    replicas' local gradients, each a float32 copy of the parameters. ``stage_slab=(k0, k1)`` (with
+    ``replicas``) reckons one process of a multi-process SPMD run that
+    holds those stages: its slab of the stacked leaves and every shared
+    leaf (``engine.spmd.slab_optimizer``), the R being its own replicas."""
     from repro_torch.analysis import state_leaves
     from repro_torch.configs import OptimizerConfig
     from repro_torch.core.layout import build_layout
-    from repro_torch.engine.spmd import SpmdEngine, opt_leaves, stack_stage_params
+    from repro_torch.engine.spmd import (
+        SpmdEngine,
+        opt_leaves,
+        slab_optimizer,
+        stack_stage_params,
+    )
     from repro_torch.launch.topology import Topology
     from repro_torch.models import Transformer, param_leaves
     from repro_torch.optim.factory import build_optimizer
@@ -1406,6 +1500,10 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotati
     if replicas is None:
         opt = build_optimizer(ocfg, params, cfg, num_stages=stages, use_kernels=True,
                               data_delay=data_delay)
+    elif stage_slab is not None:
+        opt, st, sh = slab_optimizer(cfg, ocfg, stages, stage_slab, data_delay=data_delay,
+                                     use_kernels=True)
+        params = opt_leaves(st, sh)
     else:
         opt = SpmdEngine(cfg, ocfg, stages, device="meta", use_kernels=True,
                          topology=Topology(stages=stages, data=replicas),
@@ -1425,7 +1523,9 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotati
     out["masters"] = out["gradients"] = 4 * nparams
     if replicas is not None:
         out["data_fifo"] = 4 * nparams * data_delay
-        out["local_gradients"] = 4 * nparams * replicas if replicas > 1 else 0
+        # the running sum of the replicas' local gradients beside the one
+        # being computed (counted under gradients)
+        out["local_gradients"] = 4 * nparams if replicas > 1 else 0
     rotated = sum(math.prod(pl.shape) for pl in build_layout(params, "bilateral") if pl.rotate)
     if optimizer == "basis_rotation":
         transient = 16 * rotated
@@ -1447,6 +1547,7 @@ def reckon_sim(cfg, stages, data_delay=0, replicas=None, optimizer="basis_rotati
     held = sum(out.values())
     return {"layers": cfg.num_layers, "params": nparams, "rotated_params": rotated,
             "optimizer": optimizer, "data_delay": data_delay, "replicas": replicas,
+            "stage_slab": stage_slab,
             "batch": batch, "seq": seq, "bytes": dict(out),
             "delay_rings_by_kind": rings_by_kind(state, list(params)),
             "held_bytes": held, "update_transient_bytes": transient,
@@ -1729,7 +1830,8 @@ def check_data_async(train, torch, kernels, cfg, sim_per_step, sgroups, sadam_pe
     launch R times as often) and a reduction D = 2 steps old; its rings
     against the formula, its peak beside the state, the FIFO and the local
     gradients reckoned, and split at the local gradients. One list of
-    batches sampled once, the sim runs on the first 8 rows of each."""
+    batches sampled once, the sim runs on the first 8 rows of each; returns
+    the phase's line and that list."""
     from itertools import islice
 
     from repro_torch.data import batches as data_batches
@@ -1782,7 +1884,222 @@ def check_data_async(train, torch, kernels, cfg, sim_per_step, sgroups, sadam_pe
     run["launches_per_step"] = {k: v / n for k, v in run["launches"].items() if v}
     data_async["spmd_1f1b"] = run
     data_async["phase_s"] = time.perf_counter() - t_phase
-    return data_async
+    return data_async, big
+
+
+def spawn_start(tag, extra, train_args):
+    """Start ``python -m repro_torch.launch.spawn`` with ``extra`` and
+    ``train_args`` from the checkout's root, its output going to
+    ``chiprun_out/spawn_<tag>.log``; ``spawn_wait`` ends it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.spawn", "--timeout", str(SPAWN_TIMEOUT),
+           *extra, "--", *train_args]
+    log = OUT_DIR / f"spawn_{tag}.log"
+    with open(log, "w") as f:
+        f.write(" ".join(cmd) + "\n")
+        f.flush()
+        # a session of its own, so that ``spawn_stop`` can end its workers too
+        proc = subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                                stdout=f, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+    return tag, proc, log, time.perf_counter()
+
+
+def spawn_stop(run):
+    """Kill a ``spawn_start``'s launcher and its workers if still running."""
+    proc = run[1]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def spawn_wait(run):
+    """(output, wall seconds) of a ``spawn_start``; raises unless it exits 0.
+    A spawn past its own timeout is killed."""
+    tag, proc, log, t0 = run
+    try:
+        rc = proc.wait(timeout=SPAWN_TIMEOUT + 60)
+    except subprocess.TimeoutExpired:
+        spawn_stop(run)
+        rc = proc.returncode
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    if rc != 0:
+        raise AssertionError(f"spawn {tag} exited {rc}: {text[-4500:]}")
+    return text, wall
+
+
+def rank_lines(stats_dir, reckon):
+    """Per rank of a spawned run: launches a step, step and data times, peak
+    memory beside the reckoning of its slab, bytes sent a step, barrier waits."""
+    out = []
+    for f in sorted(Path(stats_dir).glob("rank*.json")):
+        st = json.loads(f.read_text())
+        n = max(st["steps"], 1)
+        r = reckon(tuple(st["stages"]), tuple(st["data_shards"]))
+        out.append({"rank": st["rank"], "stages": st["stages"],
+                    "data_shards": st["data_shards"], "transport": st["transport"],
+                    "launches_per_step": {k: v / n for k, v in st["launches"].items() if v},
+                    "setup_s": st["setup_s"], "step_s": st["step_s"], "data_s": st["data_s"],
+                    "median_step_s": statistics.median(st["step_s"]),
+                    "median_data_s": statistics.median(st["data_s"]),
+                    "peak_mem_gb": st["peak_mem_bytes"] / 1e9,
+                    "reckoned_peak_gb": r["reckoned_peak_bytes"] / 1e9,
+                    "reckoned_held_gb": r["held_bytes"] / 1e9,
+                    "bytes_sent_per_step": None if st["bytes_sent"] is None
+                    else st["bytes_sent"] / n,
+                    "barrier_s": st["barrier_s"], "start_step": st["start_step"]})
+    return out
+
+
+def check_spawn_spmd(train, torch, kernels, cfg, phase4_1f1b, sgroups, sadam_per_step,
+                     pods_batches):
+    """The multi-process SPMD path: phase 4's full-width 1F1B run over two
+    ranks of ``repro_torch.launch.spawn`` that share the card over gloo
+    (rank 0 stages 0-3, rank 1 stages 4-7). (a) and (b) in one launch:
+    SPAWN_STEPS steps checkpointing every step, rank 1 killed once step
+    SPAWN_CUT commits, resumed on 2 ranks: the merged series within
+    SPAWN_TOL of phase 4's uninterrupted one-process losses; per rank of the
+    resumed launch (uninterrupted from step SPAWN_CUT on) its launches a
+    step, B1-B3 summing to phase 4's 2 M L / M L / M L, step and data times,
+    peak beside its slab's reckoning, bytes sent, barrier waits. (c) --pods
+    2 --data-par 1 at batch 16 over the two ranks (each rank every stage of
+    one data replica) against the one-process --pods 2 run of the same
+    batches (``pods_batches``, sampled once by ``data_async``; the
+    in-process data axis, run here while (c) runs) within SPAWN_TOL, killed
+    after the step-SPAWN_PODS_CUT checkpoint and resumed as one process on
+    (stages=8): finite, and within SPAWN_CONTINUITY_TOL of the one-process
+    run's losses; only its wall time is reported. (c) runs first; (a)/(b)
+    starts when (c)'s first launch ends, so that (c)'s one resumed process
+    shares the card with (a)/(b)'s first launch, whose times nothing reads
+    (``c.ended_s`` and ``a_b.started_s`` say how far they overlapped). With
+    two or more cards,
+    (a) again with one rank a card over NCCL; with one, a line says it was
+    not run."""
+    t_phase = time.perf_counter()
+    M, L = 8, cfg.num_layers
+    base = SPMD_ARGS + ["--schedule", "1f1b", "--steps", str(SPAWN_STEPS)]
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_spawn_"))
+    full = reckon_sim(cfg, 8, replicas=1)
+    disk = shutil.disk_usage(work)
+    print(json.dumps({"disk_usage": {"path": str(work), "free": disk.free,
+                                     "state_bytes": full["held_bytes"]}}), flush=True)
+    # (b) and (c) may overlap, each keeping up to two checkpoints of the state
+    if disk.free < 4 * full["held_bytes"]:
+        raise AssertionError(f"{work}: {disk.free} bytes free; the spawned checkpoints need "
+                             f"four times the state's {full['held_bytes']}")
+
+    reckoned = {}
+
+    def reckon(stages, shards):  # the rank's slab: its stages, its data replicas
+        key = (stages, shards[1] - shards[0])
+        if key not in reckoned:
+            reckoned[key] = reckon_sim(cfg, 8, replicas=key[1], stage_slab=stages)
+        return reckoned[key]
+
+    out, runs = {"work_dir": str(work)}, []
+    try:
+        # (c) first: the data axis over the ranks, then one process on
+        # (stages=8). Its one-process reference runs here meanwhile, and
+        # (a)/(b) starts once (c)'s first launch has ended
+        c_base = list(base)
+        c_base[c_base.index("--batch") + 1] = "16"
+        c_base[c_base.index("--steps") + 1] = str(SPAWN_PODS_STEPS)
+        pods = ["--pods", "2", "--data-par", "1"]
+        tail = ["--ckpt-dir", str(work / "ckpt_c"), "--ckpt-every", str(SPAWN_PODS_CUT),
+                "--out", str(work / "c.json")]
+        c2 = c_base + tail + ["--rank-stats", str(work / "c_resumed")]
+        run_c = spawn_start("c", ["--procs", "2", "--kill-pod-at", str(SPAWN_PODS_CUT),
+                                  "--grace", "5", "--resume-procs", "1", "--resume-with",
+                                  " ".join(c2)], c_base + pods + tail)
+        runs.append(run_c)
+        R, n = 2, SPAWN_PODS_STEPS
+        one = run_baseline(train, torch, kernels, c_base + pods, pods_batches[:n], {
+            **{k: 0 for k in kernels}, "flash_fwd": n * 2 * R * M * L,
+            "flash_bwd_dq": n * R * M * L, "flash_bwd_dkv": n * R * M * L,
+            "matmul": n * sum(1 for g in sgroups if g), "adam_scale": n * sadam_per_step})
+        torch.cuda.empty_cache()
+        deadline = time.perf_counter() + SPAWN_TIMEOUT
+        while (run_c[1].poll() is None and time.perf_counter() < deadline
+               and "[spawn] phase 2" not in run_c[2].read_text()):
+            time.sleep(0.5)
+
+        # (a) and (b): the stage split, killed after step SPAWN_CUT's
+        # checkpoint and resumed on 2 ranks
+        b_args = base + ["--ckpt-dir", str(work / "ckpt_b"), "--ckpt-every", "1",
+                         "--out", str(work / "b.json"), "--rank-stats", str(work / "b")]
+        run_b = spawn_start("b", ["--procs", "2", "--kill-pod-at", str(SPAWN_CUT), "--grace",
+                                  "5", "--resume-procs", "2", "--resume-with", " ".join(b_args)],
+                            b_args)
+        runs.append(run_b)
+        b_started = time.perf_counter() - t_phase
+
+        stdout, wall = spawn_wait(run_c)
+        merged = json.loads((work / "c.json").read_text())["losses"]
+        start = json.loads((work / "c_resumed" / "rank0.json").read_text())["start_step"]
+        cdiff = max(abs(x - y) for x, y in zip(merged[:start], one["losses"]))
+        cont = max(abs(x - y) for x, y in zip(merged[start:], one["losses"][start:]))
+        if ("resumed from" not in stdout or len(merged) != SPAWN_PODS_STEPS or start < 1
+                or cdiff > SPAWN_TOL or not all(math.isfinite(x) for x in merged)
+                or cont > SPAWN_CONTINUITY_TOL):
+            raise AssertionError(f"spawn (c): merged {merged} (resumed at {start}) against the "
+                                 f"one-process --pods 2 run's {one['losses']}")
+        out["c"] = {"losses": merged, "one_process_losses": one["losses"],
+                    "max_abs_diff_before_kill": cdiff, "resumed_at": start,
+                    "resumed_max_abs_diff_to_one_process": cont, "wall_s": wall,
+                    "ended_s": time.perf_counter() - t_phase}
+        shutil.rmtree(work / "ckpt_c", ignore_errors=True)
+
+        stdout, wall = spawn_wait(run_b)
+        losses = json.loads((work / "b.json").read_text())["losses"]
+        diff = max(abs(x - y) for x, y in zip(losses, phase4_1f1b))
+        ranks = rank_lines(work / "b", reckon)
+        sums = {k: sum(r["launches_per_step"].get(k, 0) for r in ranks)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        want = {"flash_fwd": 2 * M * L, "flash_bwd_dq": M * L, "flash_bwd_dkv": M * L}
+        if ("resumed from" not in stdout or len(losses) != SPAWN_STEPS or diff > SPAWN_TOL
+                or sums != want or len(ranks) != 2
+                or any(r["start_step"] != SPAWN_CUT for r in ranks)):
+            raise AssertionError(f"spawn (a)/(b): merged losses {losses} against phase 4's "
+                                 f"{phase4_1f1b} (max abs diff {diff}), B1-B3 a step {sums} "
+                                 f"!= {want}, ranks {ranks}")
+        for r in ranks:
+            k = r["launches_per_step"]
+            if k.get("matmul") != sum(1 for g in sgroups if g) or \
+                    k.get("adam_scale") != sadam_per_step:
+                raise AssertionError(f"spawn (a) rank {r['rank']}: launches {k}")
+        out["a_b"] = {"args": " ".join(b_args), "cut": SPAWN_CUT, "losses": losses,
+                      "phase4_losses": phase4_1f1b, "max_abs_diff": diff,
+                      "b1_b3_per_step_sum": sums, "wall_s": wall, "started_s": b_started,
+                      "ranks": ranks,
+                      "transport_lines": [ln for ln in stdout.splitlines()
+                                          if "transport=" in ln]}
+        shutil.rmtree(work / "ckpt_b", ignore_errors=True)
+
+        # NCCL, one rank a card, where there are cards for it
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            n_args = base + ["--transport", "nccl", "--out", str(work / "n.json"),
+                             "--rank-stats", str(work / "n")]
+            _, wall = spawn_wait(spawn_start("nccl", ["--procs", "2"], n_args))
+            nl = json.loads((work / "n.json").read_text())["losses"]
+            ndiff = max(abs(x - y) for x, y in zip(nl, phase4_1f1b))
+            if ndiff > SPAWN_TOL:
+                raise AssertionError(f"spawn nccl: losses {nl} against {phase4_1f1b}")
+            out["nccl"] = {"losses": nl, "max_abs_diff": ndiff, "wall_s": wall,
+                           "ranks": rank_lines(work / "n", reckon)}
+        else:
+            out["nccl"] = None
+            print(json.dumps({"spawn_spmd_nccl": "not run", "why": f"{cards} card(s): the "
+                              "NCCL transport needs a card per rank"}), flush=True)
+    finally:
+        for run in runs:  # a check that failed leaves no spawn running
+            spawn_stop(run)
+        shutil.rmtree(work, ignore_errors=True)
+        # what was measured, also when a check failed
+        (OUT_DIR / "spawn_spmd.json").write_text(json.dumps(out, indent=1))
+    out["reckoned_whole_state_gb"] = full["held_bytes"] / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def data_async_cuda_vs_cpu(train):
@@ -2046,8 +2363,9 @@ def main() -> int:
     adam_per_step = -(-len(adam_leaves) // kadam.MAX_LEAVES)  # one grouped launch
     sadam_per_step = -(-len(sadam_leaves) // kadam.MAX_LEAVES)
     want.update(matmul=steps * sum(1 for g in groups if g), adam_scale=steps * adam_per_step)
-    sim = run_path(train, torch, kernels, MAIN_ARGS, want)
-    emit({"phase": "main_path", **sim})
+    with stream_tape("record"):  # phase 4's runs, the resumes and sim_modes replay it
+        sim = run_path(train, torch, kernels, MAIN_ARGS, want)
+    emit({"phase": "main_path", "data": "sampled", **sim})
 
     # phase 4: the SPMD path, both schedules; M microbatches over L layers
     emit(check_schedule_grads(torch, cfg, K, M))
@@ -2059,8 +2377,9 @@ def main() -> int:
         want = {**none, "flash_fwd": n * fwd * M * L, "flash_bwd_dq": n * M * L,
                 "flash_bwd_dkv": n * M * L, "matmul": n * sum(1 for g in sgroups if g),
                 "adam_scale": n * sadam_per_step}
-        spmd[schedule] = run_path(train, torch, kernels, args, want)
-        emit({"phase": f"spmd_{schedule}", **spmd[schedule]})
+        with stream_tape("replay"):
+            spmd[schedule] = run_path(train, torch, kernels, args, want)
+        emit({"phase": f"spmd_{schedule}", "data": "replayed", **spmd[schedule]})
 
     # phase 4, bf16: the 1F1B path under the bf16_compute policy; B1-B3 through
     # their bf16 entry points only, B4 and B5 on the float32 gradients and state
@@ -2068,43 +2387,57 @@ def main() -> int:
     bf16_args = SPMD_ARGS + ["--schedule", "1f1b", "--steps", str(BF16_STEPS),
                              "--precision", "bf16"]
     n = BF16_STEPS
-    spmd_bf16 = run_path(train, torch, kernels, bf16_args, {
-        **none, "flash_fwd_bf16": n * 2 * M * L, "flash_bwd_dq_bf16": n * M * L,
-        "flash_bwd_dkv_bf16": n * M * L, "matmul": n * sum(1 for g in sgroups if g),
-        "adam_scale": n * sadam_per_step})
-    torch.cuda.empty_cache()
-    spmd_bf16["dtype_check"] = check_bf16_dtypes(train, bf16_args)
-    emit({"phase": "spmd_bf16", **spmd_bf16})
+    with stream_tape("replay"):
+        spmd_bf16 = run_path(train, torch, kernels, bf16_args, {
+            **none, "flash_fwd_bf16": n * 2 * M * L, "flash_bwd_dq_bf16": n * M * L,
+            "flash_bwd_dkv_bf16": n * M * L, "matmul": n * sum(1 for g in sgroups if g),
+            "adam_scale": n * sadam_per_step})
+        torch.cuda.empty_cache()
+        spmd_bf16["dtype_check"] = check_bf16_dtypes(train, bf16_args)
+    emit({"phase": "spmd_bf16", "data": "replayed", **spmd_bf16})
 
     # phase 4, continued: the resume paths, then the sim staleness modes
     sim_per_step = {k: 0 for k in kernels}
     sim_per_step.update(matmul=sum(1 for g in groups if g), adam_scale=adam_per_step)
+    # (their data times and the resumed legs' fast-forwards are copies of
+    # main_path's batches: a fast-forward's sampling is main_path's data time
+    # a batch times the cut)
     torch.cuda.empty_cache()
-    resume_sim = check_resume(train, torch, kernels, MAIN_ARGS, RESUME_CUT["sim"], sim_per_step,
-                              sim["losses"])
-    emit({"phase": "resume_sim", **resume_sim})
+    with stream_tape("replay"):
+        resume_sim = check_resume(train, torch, kernels, MAIN_ARGS, RESUME_CUT["sim"],
+                                  sim_per_step, sim["losses"])
+    emit({"phase": "resume_sim", "data": "replayed", **resume_sim})
     torch.cuda.empty_cache()
     fd_args = SPMD_ARGS + ["--schedule", "fill_drain", "--steps", str(SPMD_STEPS["fill_drain"])]
     spmd_per_step = {**none, "flash_fwd": M * L, "flash_bwd_dq": M * L,
                      "flash_bwd_dkv": M * L, "matmul": sum(1 for g in sgroups if g),
                      "adam_scale": sadam_per_step}
-    resume_spmd = check_resume(train, torch, kernels, fd_args, RESUME_CUT["spmd"],
-                               spmd_per_step, spmd["fill_drain"]["losses"])
-    emit({"phase": "resume_spmd", **resume_spmd})
+    with stream_tape("replay"):
+        resume_spmd = check_resume(train, torch, kernels, fd_args, RESUME_CUT["spmd"],
+                                   spmd_per_step, spmd["fill_drain"]["losses"])
+    emit({"phase": "resume_spmd", "data": "replayed", **resume_spmd})
     modes = {}
     for mode in ("--no-stash", "--weight-prediction"):
         torch.cuda.empty_cache()
         args = list(MAIN_ARGS)
         args[args.index("--steps") + 1] = str(MODE_STEPS)
-        modes[mode] = run_path(train, torch, kernels, args + [mode],
-                               {k: MODE_STEPS * n for k, n in sim_per_step.items()})
-    emit({"phase": "sim_modes", **modes})
+        with stream_tape("replay"):
+            modes[mode] = run_path(train, torch, kernels, args + [mode],
+                                   {k: MODE_STEPS * n for k, n in sim_per_step.items()})
+    emit({"phase": "sim_modes", "data": "replayed", **modes})
 
     # the asynchronous data axis on both backends
     torch.cuda.empty_cache()
-    data_async = check_data_async(train, torch, kernels, cfg, sim_per_step, sgroups,
-                                  sadam_per_step)
+    data_async, pods_batches = check_data_async(train, torch, kernels, cfg, sim_per_step,
+                                                sgroups, sadam_per_step)
     emit({"phase": "data_async", **data_async})
+
+    # the multi-process SPMD path: two ranks through repro_torch.launch.spawn
+    torch.cuda.empty_cache()
+    spawn_spmd = check_spawn_spmd(train, torch, kernels, cfg, spmd["1f1b"]["losses"],
+                                  sgroups, sadam_per_step, pods_batches)
+    del pods_batches
+    emit({"phase": "spawn_spmd", **spawn_spmd})
 
     # the paper's baselines: one list of batches for every run (host sampling
     # costs seconds a batch), the sim path and the SPMD 1F1B path at full

@@ -21,12 +21,17 @@ axis's uniform extra staleness: refresh periods and delay scales read the
 total delay tau + data_delay, while the FIFO specs stay pipeline-only (the
 data delay is imposed by the engine's deferred-reduction FIFO, or, on the
 sim backend, by deepening every leaf's queue).
+
+A process of a multi-process SPMD run holds a slab of the stages:
+``StageContext.slab(k0, k1)`` keeps each stacked leaf's delays of global
+stages ``k0 .. k1-1``, and its refresh periods stay those of the whole
+layout (``full``), whose budget they are normalised over.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -84,6 +89,9 @@ class StageContext:
     delays: Tuple[DelaySpec, ...]
     repeats: Tuple[int, ...] = ()
     data_delay: int = 0
+    # the whole layout's context, for a slab of its stages (``slab``): the
+    # refresh budget is normalised over it
+    full: Optional["StageContext"] = None
 
     def __post_init__(self):
         if not self.repeats:
@@ -102,11 +110,24 @@ class StageContext:
                       reversed_allocation: bool = False) -> List[DelaySpec]:
         """Per-leaf refresh periods, shaped like ``delays``: the period of
         delay tau is the same whether tau is a scalar or a tuple's slot."""
-        expanded = self._expanded_delays()
+        expanded = (self.full or self)._expanded_delays()
         flat = freqs_for_delays(expanded, self.num_stages, base_freq, reversed_allocation)
         lut = dict(zip(expanded, flat))
         return [tuple(lut[int(t) + self.data_delay] for t in d) if isinstance(d, tuple)
                 else lut[int(d) + self.data_delay] for d in self.delays]
+
+    def slab(self, k0: int, k1: int) -> "StageContext":
+        """The context of the slab of global stages ``[k0, k1)``: each
+        stacked leaf's per-stage delays cut to those stages (stage k keeps
+        tau_k = K-1-k, not the delay of its position in the slab), scalar
+        delays as they are, refresh periods from this whole layout."""
+        if not 0 <= k0 < k1 <= self.num_stages:
+            raise ValueError(f"stage slab [{k0}, {k1}) outside [0, {self.num_stages})")
+        if self.full is not None:
+            raise ValueError("slab of a slab")
+        delays = tuple(d[k0:k1] if isinstance(d, tuple) else d for d in self.delays)
+        return StageContext(num_stages=self.num_stages, delays=delays, repeats=self.repeats,
+                            data_delay=self.data_delay, full=self)
 
     def delay_specs(self) -> List[Union[int, str]]:
         """Per-leaf specs for the delay FIFOs: ``"stage"`` for stage-stacked

@@ -8,7 +8,10 @@ config with several codebooks draws them one after another from the one
 stream; a frontend config's prefix embeddings come from a generator of
 their own, as in the reference. ``sharded_batches`` yields one host's
 contiguous row slice of that stream; the hosts' slices concatenated give
-the stream of ``batches`` back bit for bit.
+the stream of ``batches`` back bit for bit. ``process_local_batches`` yields
+one process's rows of every microbatch (a multi-process SPMD run); the
+processes' slices stacked over a partition of the data shards give the
+microbatched stream back bit for bit.
 """
 from __future__ import annotations
 
@@ -106,6 +109,45 @@ def sharded_batches(
     lo, hi = host_id * local, (host_id + 1) * local
     for batch in batches(cfg, batch_size, seq_len, seed=seed, device=device):
         yield {k: v[lo:hi] for k, v in batch.items()}
+
+
+def process_local_batches(
+    cfg: ModelConfig,
+    batch_size: int,
+    seq_len: int,
+    num_microbatches: int,
+    data_shards: int,
+    shard_lo: int,
+    shard_hi: int,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Process-local slice of the global microbatched stream (the
+    multi-process loading path).
+
+    The pipeline takes the global batch as ``(B, S) -> (M, B//M, S)`` with
+    each microbatch's rows split over the pod-major data shards. A process
+    that runs data shards ``[shard_lo, shard_hi)`` of ``data_shards``
+    (``Topology.process_data_shards``) gets, for every microbatch, the rows
+    of those shards: ``(M, (hi - lo) * B//M//shards, S)``. Like
+    ``sharded_batches`` it samples the whole global batch (on the host) and
+    keeps its slice, which alone goes to ``device``."""
+    M = num_microbatches
+    if batch_size % M:
+        raise ValueError(f"global batch {batch_size} must divide into {M} microbatches")
+    mb = batch_size // M
+    if mb % data_shards:
+        raise ValueError(f"microbatch size {mb} must divide over {data_shards} data shards")
+    if not 0 <= shard_lo < shard_hi <= data_shards:
+        raise ValueError(f"shard range [{shard_lo}, {shard_hi}) outside [0, {data_shards})")
+    w = mb // data_shards
+    for batch in batches(cfg, batch_size, seq_len, seed=seed, device="cpu"):
+        out = {}
+        for k, v in batch.items():
+            rest = tuple(v.shape[1:])
+            local = v.reshape((M, data_shards, w) + rest)[:, shard_lo:shard_hi]
+            out[k] = local.reshape((M, (shard_hi - shard_lo) * w) + rest).to(device)
+        yield out
 
 
 def eval_batches(

@@ -1,4 +1,4 @@
-"""The single training loop. Port of ``repro/engine/loop.py`` for one process.
+"""The single training loop. Port of ``repro/engine/loop.py``.
 
     engine = SimEngine(model, opt)
     state, losses, timings = run_loop(engine, data_iter, LoopConfig(steps=300))
@@ -20,6 +20,12 @@ the files are identical either way, the writer is drained before
 ``run_loop`` returns, and a writer exception re-raises on the loop thread.
 A checkpoint's layout is the reference's, so either package resumes the
 other's (``resume_if_present``).
+
+A multi-process run drives this loop on every process in lock-step: every
+process steps the engine and submits the checkpoint jobs (each writes its
+own shards, and the jobs' barriers need every process's serial writer to
+run them in submission order), while the log lines and the metrics file
+belong to the main process alone (``launch.distributed.is_main``).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from repro_torch.engine.base import EngineState, PipelineEngine
+from repro_torch.launch.distributed import is_main
 
 
 @dataclass
@@ -163,9 +170,11 @@ def run_loop(
 ) -> Tuple[EngineState, List[float], LoopTimings]:
     """Run ``cfg.steps`` engine steps (from ``start_step`` when resuming).
     Checkpoints after every ``ckpt_every``-th step and at ``cfg.steps``."""
+    main = is_main()
     if state is None:
         state = engine.init_state()
-    prefix, prefix_start = _read_metrics_prefix(cfg, start_step)
+    prefix, prefix_start = (_read_metrics_prefix(cfg, start_step) if main
+                            else ([], start_step))
     losses: List[float] = []
     pending: List[Any] = []
     timings = LoopTimings()
@@ -211,7 +220,7 @@ def run_loop(
             timings.data_s.append(t1 - t0)
             timings.step_s.append(t2 - t1)
             pending.append(loss)
-            if cfg.log_every and t % cfg.log_every == 0:
+            if main and cfg.log_every and t % cfg.log_every == 0:
                 flush_losses()
                 extra = f"  ce {float(metrics['ce']):.4f}" if "ce" in metrics else ""
                 print(f"step {t:5d}  loss {losses[-1]:.4f}{extra}"
@@ -221,13 +230,13 @@ def run_loop(
                 checkpoint(t + 1)
             # metrics are flushed at every checkpoint too, so the metrics
             # file never lags a checkpoint a later resume restarts from
-            if cfg.out_path and (wrote_ckpt or (t + 1) % max(cfg.log_every, 1) == 0):
+            if main and cfg.out_path and (wrote_ckpt or (t + 1) % max(cfg.log_every, 1) == 0):
                 flush_losses()
                 submit(metrics_job(t + 1))
         flush_losses()
         if cfg.ckpt_dir:
             checkpoint(cfg.steps)
-        if cfg.out_path:
+        if main and cfg.out_path:
             submit(metrics_job(cfg.steps))
     finally:
         if writer is not None:

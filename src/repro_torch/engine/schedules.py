@@ -32,12 +32,25 @@ exact: M x (layers) stage-layer forwards for fill-drain, twice that for
   ce_m / M from this tick's fresh output; stage 0's input gradient becomes
   the embedding gradient. Activations held: O(K) per stage, whatever M.
 
-``make_local_grad`` is the port's form of the reference's
-``reduce_data=False``: each data replica's local gradient, with no
-reduction over the replicas. On one card the replicas run one after
-another, each the schedule above on its rows of every microbatch, and their
-losses and gradients are stacked along a leading replica axis; the engine
-reduces them (``SpmdEngine._reduce``).
+Each process runs the tick loop only for its slab of the stages ``[k0,
+k1)`` (a ``StageSlab``); a single-process run is the slab ``(0, K)``. A
+handoff to a stage of the same process is the copy into its receive slot; a
+handoff across the slab's edge goes through the transport
+(``launch.distributed.Transport``) at the tick boundary: the activation of
+stage k1-1 forward to the next process, the gradient of stage k0's input
+back to the previous one. 1F1B takes explicit per-stage gradients, so only
+its sends and receives cross. Fill-drain's one backward through the whole
+graph breaks at each boundary: the process that holds the last stage
+differentiates the loss, and each process in reverse stage order
+differentiates its boundary outputs with the gradients it receives and
+sends back those of its received inputs. Each (stage, microbatch) runs
+once on one process, so the launches of all processes sum to the
+single-process counts.
+
+``make_local_grad`` runs a process's data replicas one after another, each
+the schedule above on its rows of every microbatch, and sums their losses
+and gradients; the engine sums those over the processes and divides by the
+replica count (``SpmdEngine._reduce``).
 
 Under the ``bf16`` precision policy both schedules run on compute-dtype
 copies of the float32 masters (``cast_params``) and return float32
@@ -142,51 +155,141 @@ class _SavedBytes:
 
 
 # ---------------------------------------------------------------------------
+# the stages one process runs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StageSlab:
+    """The stages ``[k0, k1)`` that this process runs, the processes that
+    run stage k0 - 1 and stage k1 for the same data shards (None at the
+    pipeline's ends) and the ``launch.distributed.Transport`` between them.
+    A single-process run is the slab ``(0, K)``, with no neighbours and no
+    transport."""
+
+    k0: int
+    k1: int
+    prev_rank: Optional[int] = None
+    next_rank: Optional[int] = None
+    transport: object = None
+
+    def exchange(self, sends, recvs) -> None:
+        """The transport's exchange; nothing crosses a slab with no edges."""
+        if sends or recvs:
+            self.transport.exchange(sends, recvs)
+
+
+def _zeros_for(leaves: Params, grads) -> Params:
+    """Float32 gradients of ``leaves``; zeros where the graph did not reach."""
+    return {p: (torch.zeros(w.shape, dtype=torch.float32, device=w.device) if g is None
+                else g.float()) for (p, w), g in zip(leaves.items(), grads)}
+
+
+# ---------------------------------------------------------------------------
 # fill-drain: forward ticks under autograd, one backward
 # ---------------------------------------------------------------------------
 
 
+def _fill_drain_forward(cfg: ModelConfig, block, K: int, M: int, slab: StageSlab,
+                        stacked: Params, shared: Params, batch: Dict[str, Tensor],
+                        stats: Optional[ScheduleStats]):
+    """Fill-drain's M + K - 1 forward ticks over the slab's stages, under
+    autograd: ``(loss, outs, x_in)``. ``loss`` is the mean cross-entropy
+    over all microbatches where the slab holds the last stage (else None),
+    ``outs`` stage k1 - 1's output of each microbatch, ``x_in`` the inputs
+    received for stage k0 by microbatch (leaves that require grad; none on
+    the first stage)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    _, mb, S = tokens.shape
+    k0, k1 = slab.k0, slab.k1
+    first, last = k0 == 0, k1 == K
+    saved = _SavedBytes(stats is not None)
+    if stats is not None:
+        stats.start()
+    cdt = cfg.compute_dtype
+    stage_w = [{p: w[j] for p, w in stacked.items()} for j in range(k1 - k0)]
+    x_in: Dict[int, Tensor] = {}
+    outs: List[Optional[Tensor]] = [None] * M
+    loss = None
+    with saved.hooks():
+        sh = cast_params(shared, cdt)  # each used once: embedding and head
+        emb = embed(sh, cfg, tokens) if first else None  # (M, mb, S, d): staged by stage 0
+        recv: Dict[int, Tensor] = {}
+        for t in range(M + K - 1):
+            sent: Dict[int, Tensor] = {}
+            for k in range(k0, k1):
+                m = t - k
+                if not 0 <= m < M:
+                    continue  # bubble: the reference computes zeros here
+                x = (emb[m] if first else x_in[m]) if k == k0 else recv[k]
+                h = stage_apply(block, cast_params(stage_w[k - k0], cdt), x)
+                if k == k1 - 1:
+                    outs[m] = h  # the slab's last stage collects microbatch m
+                else:
+                    sent[k + 1] = h  # ppermute to the next stage
+            recv = sent
+            # the tick boundary: stage k1 - 1's output out, stage k0's next input in
+            sends, recvs = [], []
+            m_out, m_in = t - (k1 - 1), t + 1 - k0
+            if not last and 0 <= m_out < M:
+                sends.append((outs[m_out], slab.next_rank))
+            if not first and 0 <= m_in < M:
+                x_in[m_in] = torch.empty((mb, S, cfg.d_model), dtype=cdt, device=tokens.device)
+                recvs.append((x_in[m_in], slab.prev_rank))
+            slab.exchange(sends, recvs)
+            if recvs:
+                x_in[m_in].requires_grad_(True)
+            if stats is not None:
+                stats.saved_bytes.append(saved.live)
+        if last:
+            loss = cross_entropy(head_logits(sh, cfg, torch.stack(outs)), labels)
+    if stats is not None:
+        # staged embeddings and collected outputs (M each) plus a receive slot
+        stats.held_bytes = _nbytes(emb) + (M + 1) * _nbytes(outs[0])
+    return loss, outs, x_in
+
+
 def make_fill_drain_loss(cfg: ModelConfig, num_stages: int, num_microbatches: int,
                          stats: Optional[ScheduleStats] = None):
-    """``loss_fn(stacked, shared, batch) -> scalar``, differentiable in both."""
+    """``loss_fn(stacked, shared, batch) -> scalar``, differentiable in both:
+    the forward ticks of one process that runs every stage."""
     K, M = num_stages, num_microbatches
-    block = template_block(cfg)
+    block, whole = template_block(cfg), StageSlab(0, num_stages)
 
     def loss_fn(stacked: Params, shared: Params, batch: Dict[str, Tensor]) -> Tensor:
-        tokens, labels = batch["tokens"], batch["labels"]
-        saved = _SavedBytes(stats is not None)
-        if stats is not None:
-            stats.start()
-        cdt = cfg.compute_dtype
-        stage_w = [{p: w[k] for p, w in stacked.items()} for k in range(K)]
-        with saved.hooks():
-            sh = cast_params(shared, cdt)  # each used once: embedding and head
-            emb = embed(sh, cfg, tokens)  # (M, mb, S, d): staged by stage 0
-            recv: Dict[int, Tensor] = {}
-            outs: List[Optional[Tensor]] = [None] * M
-            for t in range(M + K - 1):
-                sent: Dict[int, Tensor] = {}
-                for k in range(K):
-                    m = t - k
-                    if not 0 <= m < M:
-                        continue  # bubble: the reference computes zeros here
-                    h = stage_apply(block, cast_params(stage_w[k], cdt),
-                                    emb[m] if k == 0 else recv[k])
-                    if k == K - 1:
-                        outs[m] = h  # the last stage collects microbatch m
-                    else:
-                        sent[k + 1] = h  # ppermute to the next stage
-                recv = sent
-                if stats is not None:
-                    stats.saved_bytes.append(saved.live)
-            x = torch.stack(outs)  # (M, mb, S, d)
-            loss = cross_entropy(head_logits(sh, cfg, x), labels)
-        if stats is not None:
-            # staged embeddings and collected outputs (M each) plus a receive slot
-            stats.held_bytes = _nbytes(emb) + _nbytes(x) + _nbytes(x[0])
-        return loss
+        return _fill_drain_forward(cfg, block, K, M, whole, stacked, shared, batch, stats)[0]
 
     return loss_fn
+
+
+def _fill_drain_grad(cfg: ModelConfig, K: int, M: int, slab: StageSlab,
+                     stats: Optional[ScheduleStats]) -> GradFn:
+    """Fill-drain's gradient over the slab: its forward ticks, then one
+    backward. The process that holds the last stage differentiates the
+    loss; the others wait for the gradients of their outputs from the next
+    process. Each sends back those of its received inputs, so the
+    backwards run in reverse stage order."""
+    block = template_block(cfg)
+    first, last = slab.k0 == 0, slab.k1 == K
+
+    def grad_fn(stacked: Params, shared: Params, batch: Dict[str, Tensor]):
+        sl, hl = _leaves(stacked), _leaves(shared)
+        loss, outs, x_in = _fill_drain_forward(cfg, block, K, M, slab, sl, hl, batch, stats)
+        wrt = [*sl.values(), *hl.values(), *(x_in[m] for m in range(M) if not first)]
+        if last:
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+            loss = loss.detach()
+        else:
+            dy = [torch.empty_like(o) for o in outs]
+            slab.exchange([], [(g, slab.next_rank) for g in dy])
+            grads = torch.autograd.grad(outs, wrt, grad_outputs=dy, allow_unused=True)
+            loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        n_s, n_h = len(sl), len(hl)
+        if not first:
+            slab.exchange([(g, slab.prev_rank) for g in grads[n_s + n_h:]], [])
+        return loss, (_zeros_for(sl, grads[:n_s]), _zeros_for(hl, grads[n_s:n_s + n_h]))
+
+    return grad_fn
 
 
 # ---------------------------------------------------------------------------
@@ -194,13 +297,13 @@ def make_fill_drain_loss(cfg: ModelConfig, num_stages: int, num_microbatches: in
 # ---------------------------------------------------------------------------
 
 
-def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
-                   stats: Optional[ScheduleStats] = None) -> GradFn:
-    """``grad_fn(stacked, shared, batch) -> (loss, (g_stacked, g_shared))``
-    with the explicit-backward 1F1B timetable."""
-    K, M = num_stages, num_microbatches
+def _1f1b_grad(cfg: ModelConfig, K: int, M: int, slab: StageSlab,
+               stats: Optional[ScheduleStats]) -> GradFn:
+    """1F1B's explicit-backward timetable over the slab's stages."""
     Q = stash_slots(K)
     block = template_block(cfg)
+    k0, k1 = slab.k0, slab.k1
+    n = k1 - k0
 
     def grad_fn(stacked: Params, shared: Params, batch: Dict[str, Tensor]):
         tokens, labels = batch["tokens"], batch["labels"]
@@ -213,9 +316,10 @@ def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
                     for p, w in shared.items()}
         # every tick below runs on these compute-dtype copies
         stacked, shared = cast_params(stacked, cdt), cast_params(shared, cdt)
-        stash = [torch.zeros((Q,) + act, dtype=cdt, device=dev) for _ in range(K)]
-        fwd_recv = [torch.zeros(act, dtype=cdt, device=dev) for _ in range(K)]
-        bwd_recv = [torch.zeros(act, dtype=cdt, device=dev) for _ in range(K)]
+        # slot j of each per-stage buffer belongs to stage k0 + j
+        stash = [torch.zeros((Q,) + act, dtype=cdt, device=dev) for _ in range(n)]
+        fwd_recv = [torch.zeros(act, dtype=cdt, device=dev) for _ in range(n)]
+        bwd_recv = [torch.zeros(act, dtype=cdt, device=dev) for _ in range(n)]
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         saved = _SavedBytes(stats is not None)
         if stats is not None:
@@ -224,17 +328,21 @@ def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
         for t in range(M + 2 * (K - 1)):
             sent_f: Dict[int, Tensor] = {}
             sent_b: Dict[int, Tensor] = {}
-            for k in range(K):
+            sends = []
+            for k in range(k0, k1):
+                j = k - k0
                 # forward: stage k runs microbatch t - k
                 m_f = t - k
                 h = None
                 if 0 <= m_f < M:
                     with torch.no_grad():
-                        x_in = embed(shared, cfg, tokens[m_f]) if k == 0 else fwd_recv[k]
-                        stash[k][t % Q].copy_(x_in)
-                        h = stage_apply(block, {p: w[k] for p, w in stacked.items()}, x_in)
-                    if k < K - 1:
-                        sent_f[k + 1] = h
+                        x_in = embed(shared, cfg, tokens[m_f]) if k == 0 else fwd_recv[j]
+                        stash[j][t % Q].copy_(x_in)
+                        h = stage_apply(block, {p: w[j] for p, w in stacked.items()}, x_in)
+                    if k + 1 < k1:
+                        sent_f[k + 1] = h  # ppermute to the next stage
+                    elif k < K - 1:
+                        sends.append((h, slab.next_rank))  # across the slab's edge
                 # backward: stage k runs microbatch t - (2(K-1) - k)
                 m_b = t - (2 * (K - 1) - k)
                 if not 0 <= m_b < M:
@@ -252,17 +360,19 @@ def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
                         _accumulate(g_shared, sh, dsh)
                         loss += ce.detach() / M
                     else:
-                        dy = bwd_recv[k]
+                        dy = bwd_recv[j]
                     # recompute-backward from the stashed input
-                    wk = _leaves({p: w[k] for p, w in stacked.items()})
-                    x_saved = stash[k][(t - 2 * (K - 1 - k)) % Q].detach().requires_grad_(True)
+                    wk = _leaves({p: w[j] for p, w in stacked.items()})
+                    x_saved = stash[j][(t - 2 * (K - 1 - k)) % Q].detach().requires_grad_(True)
                     h_re = stage_apply(block, wk, x_saved)
                     dx, *dw = torch.autograd.grad(h_re, [x_saved, *wk.values()],
                                                   grad_outputs=dy)
                     for p, g in zip(wk, dw):
-                        g_stage[p][k] += g
-                    if k > 0:
+                        g_stage[p][j] += g
+                    if k > k0:
                         sent_b[k - 1] = dx  # ppermute back to the previous stage
+                    elif k > 0:
+                        sends.append((dx, slab.prev_rank))  # across the slab's edge
                     else:
                         # stage 0's input gradient is the embedding's
                         sh = _leaves(shared)
@@ -270,9 +380,17 @@ def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
                         _accumulate(g_shared, sh, torch.autograd.grad(
                             x0, list(sh.values()), grad_outputs=dx, allow_unused=True))
             for k, x in sent_f.items():
-                fwd_recv[k].copy_(x)
+                fwd_recv[k - k0].copy_(x)
             for k, x in sent_b.items():
-                bwd_recv[k].copy_(x)
+                bwd_recv[k - k0].copy_(x)
+            # what the neighbours sent this tick: stage k0's next input and
+            # stage k1 - 1's next output gradient
+            recvs = []
+            if k0 > 0 and 0 <= t + 1 - k0 < M:
+                recvs.append((fwd_recv[0], slab.prev_rank))
+            if k1 < K and 0 <= t + 1 - (2 * (K - 1) - (k1 - 1)) < M:
+                recvs.append((bwd_recv[n - 1], slab.next_rank))
+            slab.exchange(sends, recvs)
             if stats is not None:
                 stats.saved_bytes.append(saved.live)
 
@@ -284,60 +402,65 @@ def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
     return grad_fn
 
 
+def make_1f1b_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
+                   stats: Optional[ScheduleStats] = None) -> GradFn:
+    """``grad_fn(stacked, shared, batch) -> (loss, (g_stacked, g_shared))``
+    with the explicit-backward 1F1B timetable, every stage in one process."""
+    return _1f1b_grad(cfg, num_stages, num_microbatches, StageSlab(0, num_stages), stats)
+
+
 # ---------------------------------------------------------------------------
-# dispatch + memory model
+# dispatch, data replicas, memory model
 # ---------------------------------------------------------------------------
 
 
 def make_schedule_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
                        schedule: str = "fill_drain",
-                       stats: Optional[ScheduleStats] = None) -> GradFn:
-    """``grad_fn(stacked, shared, batch) -> (loss, (g_stacked, g_shared))``."""
+                       stats: Optional[ScheduleStats] = None,
+                       slab: Optional[StageSlab] = None) -> GradFn:
+    """``grad_fn(stacked, shared, batch) -> (loss, (g_stacked, g_shared))``
+    over ``slab``'s stages (default: every stage, in one process).
+    ``stacked`` holds the slab's stages ``(k1 - k0, per, ...)``, ``shared``
+    every shared leaf. In a slab of several processes ``loss`` is the
+    schedule's on the process that holds the last stage and zero elsewhere,
+    and ``g_shared`` this process's part of the shared gradients (the
+    embedding's on the first stage, the head's and final norm's on the
+    last, zeros elsewhere): summed over the processes, they are the whole."""
+    slab = slab if slab is not None else StageSlab(0, num_stages)
     if schedule == "fill_drain":
-        loss_fn = make_fill_drain_loss(cfg, num_stages, num_microbatches, stats)
-
-        def grad_fn(stacked: Params, shared: Params, batch: Dict[str, Tensor]):
-            sl, hl = _leaves(stacked), _leaves(shared)
-            loss = loss_fn(sl, hl, batch)
-            grads = torch.autograd.grad(loss, [*sl.values(), *hl.values()])
-            return loss.detach(), (dict(zip(sl, grads[:len(sl)])),
-                                   dict(zip(hl, grads[len(sl):])))
-
-        return grad_fn
+        return _fill_drain_grad(cfg, num_stages, num_microbatches, slab, stats)
     if schedule == "1f1b":
-        return make_1f1b_grad(cfg, num_stages, num_microbatches, stats)
+        return _1f1b_grad(cfg, num_stages, num_microbatches, slab, stats)
     raise ValueError(f"unknown pipeline schedule {schedule!r}; one of {SCHEDULES}")
 
 
-def make_local_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
-                    topology, schedule: str = "fill_drain"):
-    """``grad_fn(stacked, shared, batch) -> (loss_r, (gs_r, gsh_r))``: the
-    losses ``(R,)`` and local gradients ``{path: (R, K, per, ...)}`` and
-    ``{path: (R, ...)}`` of the R = ``topology.data_shards`` data replicas,
-    unreduced. Replica r takes its rows of each microbatch
-    (``topology.replica_rows``, the reference's pod-major split over the
-    flattened ``(pod, data)`` axes), and its loss and gradient are the
-    schedule's on those rows alone: the mean over its own tokens, as on the
-    reference's data replica."""
-    grad_fn = make_schedule_grad(cfg, num_stages, num_microbatches, schedule)
-    R = topology.data_shards
+def make_local_grad(grad_fn: GradFn, replicas: int):
+    """``local_grad_fn(stacked, shared, batch) -> (loss, (g_stacked,
+    g_shared))``: the sums over a process's ``replicas`` data replicas of
+    their losses and local gradients. Replica i takes the i-th of
+    ``replicas`` equal row blocks of every microbatch (over all processes,
+    the reference's pod-major split of the flattened ``(pod, data)`` axes),
+    and its loss and gradient are ``grad_fn``'s on those rows alone: the
+    mean over its own tokens, as on the reference's data replica. The
+    engine's ``_reduce`` sums them over the processes and divides by R."""
 
     def local_grad_fn(stacked: Params, shared: Params, batch: Dict[str, Tensor]):
-        mb = batch["tokens"].shape[1]
-        losses, out = [], None
-        for r in range(R):
-            lo, hi = topology.replica_rows(r, mb)
-            loss, grads = grad_fn(stacked, shared,
-                                  {k: v[:, lo:hi].contiguous() for k, v in batch.items()})
-            if out is None:
-                out = tuple({p: g.new_empty((R,) + tuple(g.shape)) for p, g in d.items()}
-                            for d in grads)
-            for acc, d in zip(out, grads):
-                for p, g in d.items():
-                    acc[p][r].copy_(g)
-            del grads
-            losses.append(loss)
-        return torch.stack(losses), out
+        if replicas == 1:
+            return grad_fn(stacked, shared, batch)
+        w = batch["tokens"].shape[1] // replicas
+        loss = gs = gsh = None
+        for i in range(replicas):
+            rows = {k: v[:, i * w:(i + 1) * w].contiguous() for k, v in batch.items()}
+            l, (a, b) = grad_fn(stacked, shared, rows)
+            if loss is None:
+                loss, gs, gsh = l, a, b
+                continue
+            loss = loss + l
+            for acc, d in ((gs, a), (gsh, b)):
+                for k, g in d.items():
+                    acc[k].add_(g)
+            del a, b
+        return loss, (gs, gsh)
 
     return local_grad_fn
 

@@ -12,17 +12,31 @@ built from the stacked layout's ``StageContext``, so stage-aware refresh
 periods act per stage slice and the basis-rotation products run batched
 over the stacked layers.
 
-On one card the stages run in one process (see ``engine.schedules``), and
-so do the data replicas of a ``launch.topology.Topology``: each takes its
-rows of every microbatch, one after another, and ``_reduce`` means their
-gradients, the one place where replicas combine. With ``data_async`` and
+Each process runs its slab of the (pod, stage, data) grid
+(``Topology.process_slab``); a single-process run's slab is the whole grid.
+In a multi-process run (``launch.distributed.init_distributed`` called
+before the engine is built) a process holds only its stages' stacked
+parameters, gradients, optimizer state and delay rings, runs only their
+ticks (``engine.schedules``) and takes only its data replicas' rows of each
+microbatch (``data.process_local_batches``). The shared leaves (embedding,
+position embedding, final norm, head) and their state are replicated on
+every process. A process's data replicas run one after another, each on
+its rows of every microbatch, and their sums meet in ``_reduce``, the one
+place where replicas combine: the stacked gradients are summed over the
+processes that hold the same stages, the loss and the shared gradients
+(each process's part, zeros off the first and last stage) over all of
+them, then divided by the replica count; in one process the sums over
+processes are the identity. The optimizer is
+built over the slab's leaves with their global stage indices
+(``StageContext.slab``, ``stage_delayed_optimizer(stage_offset=)``), and the
+clip reads the norm of the whole gradient. With ``data_async`` and
 ``data_delay=D > 0`` the data axis is asynchronous, as in the reference
 (DESIGN.md §12): each step computes the replicas' local gradients from the
 current weights, applies the reduction of D steps ago from a FIFO in the
 engine state, and enqueues this step's; the optimizer sees the total delay
-tau_k + D. One rank per stage over ``torch.distributed`` is not ported yet.
-Checkpoints use the reference's sharded format, one arrays file per stage,
-written by this one process.
+tau_k + D. Checkpoints use the reference's sharded format, one arrays file
+per stage, each written by its owner (``Topology.shard_owners``; one process
+owns them all in a single-process run), the manifest by the main process.
 
 MoE blocks stack like any other: expert stacks become ``(K, per, E, d,
 d_ff)`` leaves, each microbatch routes as its own GShard group, and the
@@ -34,8 +48,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import map_leaves
 from repro_torch.checkpoint.convert import (
     fifo_from_numpy,
     fifo_to_numpy,
@@ -52,11 +68,17 @@ from repro_torch.configs.base import (
     PrecisionPolicy,
 )
 from repro_torch.engine.base import EngineState, PipelineEngine
-from repro_torch.engine.schedules import SCHEDULES, make_local_grad, make_schedule_grad
+from repro_torch.engine.schedules import (
+    SCHEDULES,
+    StageSlab,
+    make_local_grad,
+    make_schedule_grad,
+)
 from repro_torch.core.layout import tree_order_key
 from repro_torch.launch.topology import Topology
 from repro_torch.models.model import Transformer, param_leaves
 from repro_torch.models.transformer import check_homogeneous
+from repro_torch.launch import distributed
 from repro_torch.optim.base import apply_updates, clip_by_global_norm
 from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.delay import stage_delayed_optimizer
@@ -112,6 +134,22 @@ def unstack_stage_params(stacked: Params, shared: Params) -> Params:
     return {p: out[p] for p in sorted(out, key=tree_order_key)}
 
 
+def make_pipeline_grad(cfg: ModelConfig, num_stages: int, num_microbatches: int,
+                       schedule: str = "fill_drain"):
+    """``grad_fn(stacked, shared, batch) -> (loss, (g_stacked, g_shared))``
+    under the chosen tick schedule (``"fill_drain"`` or ``"1f1b"``)."""
+    return make_schedule_grad(cfg, num_stages, num_microbatches, schedule)
+
+
+def make_pipeline_loss(cfg: ModelConfig, num_stages: int, num_microbatches: int):
+    """Fill-drain ``loss_fn(stacked, shared, batch) -> scalar``. Only
+    fill-drain has a standalone differentiable loss; 1F1B builds its
+    gradient explicitly (``make_pipeline_grad(schedule="1f1b")``)."""
+    from repro_torch.engine.schedules import make_fill_drain_loss
+
+    return make_fill_drain_loss(cfg, num_stages, num_microbatches)
+
+
 def opt_leaves(stacked: Params, shared: Params) -> Params:
     """The ``(stacked, shared)`` pair as one ``{path: tensor}`` dict in the
     order ``tree_flatten`` gives the reference's tuple: every stacked leaf,
@@ -123,6 +161,38 @@ def opt_leaves(stacked: Params, shared: Params) -> Params:
 def spmd_delay_specs(stacked: Params, shared: Params, num_stages: int):
     """Per-leaf delay specs of the stacked layout (``"stage"`` or an int)."""
     return stage_context_for_stacked(stacked, shared, num_stages).delay_specs()
+
+
+def slab_optimizer(cfg: ModelConfig, ocfg: OptimizerConfig, num_stages: int,
+                   stages: Tuple[int, int], data_delay: int = 0, use_kernels: bool = False,
+                   async_grads: bool = True):
+    """(optimizer, stacked meta leaves, shared meta leaves) of the SPMD step
+    over the stages ``[k0, k1)`` of ``num_stages`` (all of them in a
+    single-process run): a ``build_optimizer`` base from the stacked
+    layout's ``StageContext`` cut to those stages, wrapped in the per-stage
+    delay FIFO unless ``async_grads`` is off. The leaves are on the meta
+    device: the context comes from parameter shapes only."""
+    K, (k0, k1) = num_stages, stages
+    stacked_s, shared_s = stack_stage_params(
+        param_leaves(Transformer(cfg, device="meta", seed=None)), cfg, K)
+    # delay-aware bases see the total delay tau_k + D; a slab keeps its
+    # stages' global delays and the whole layout's refresh periods
+    ctx = stage_context_for_stacked(stacked_s, shared_s, K, data_delay=data_delay)
+    if (k0, k1) != (0, K):
+        stacked_s = {k: v[k0:k1] for k, v in stacked_s.items()}
+        ctx = ctx.slab(k0, k1)
+    base = build_optimizer(ocfg, opt_leaves(stacked_s, shared_s), cfg, num_stages=K,
+                           apply_delay=False, use_kernels=use_kernels, stage_context=ctx)
+    if not async_grads:
+        return base, stacked_s, shared_s
+    # delay compensation reads each stage's stale weights from the FIFO,
+    # D steps deeper under a deferred reduction. Per-stage factors of the
+    # delay-aware bases are built here from the meta shapes on the host and
+    # follow the state to its device at their first use
+    return (stage_delayed_optimizer(base, ctx.delay_specs(), K,
+                                    store_params=(ocfg.name == "delay_compensation"),
+                                    extra_param_delay=data_delay, stage_offset=k0),
+            stacked_s, shared_s)
 
 
 class SpmdEngine(PipelineEngine):
@@ -207,30 +277,52 @@ class SpmdEngine(PipelineEngine):
             raise ValueError("data_delay > 0 requires data_async=True")
         self._data_eff = self.data_async and self.data_delay > 0
         D = self.data_delay if self._data_eff else 0
-        self.grad_fn = make_schedule_grad(cfg, K, M, schedule)
-        # each replica's local gradient, when there is more than one replica
-        # (one replica's reduction is the identity)
-        self.local_grad_fn = (make_local_grad(cfg, K, M, topology, schedule)
-                              if topology.data_shards > 1 else None)
+        # the process grid: one process holds the whole grid unless
+        # init_distributed made this one of several
+        self.num_processes = P = distributed.process_count()
+        self.slab = topology.process_slab(P, distributed.process_index())
+        k0, k1 = self.slab.stages
+        self._setup_processes(P)
 
-        # the stage context from parameter shapes only: a weightless model
-        meta = Transformer(cfg, device="meta", seed=None)
-        stacked_s, shared_s = stack_stage_params(param_leaves(meta), cfg, K)
-        # delay-aware bases see the total delay tau_k + D
-        ctx = stage_context_for_stacked(stacked_s, shared_s, K, data_delay=D)
+        self.opt, stacked_s, shared_s = slab_optimizer(
+            cfg, ocfg, K, (k0, k1), data_delay=D, use_kernels=use_kernels,
+            async_grads=async_grads and (K > 1 or self._data_eff))
         self._stacked_shapes = {k: tuple(v.shape) for k, v in stacked_s.items()}
         self._shared_shapes = {k: tuple(v.shape) for k, v in shared_s.items()}
         self._leaf_shapes = {k: tuple(v.shape) for k, v in opt_leaves(stacked_s, shared_s).items()}
-        base = build_optimizer(ocfg, opt_leaves(stacked_s, shared_s), cfg, num_stages=K,
-                               apply_delay=False, use_kernels=use_kernels, stage_context=ctx)
-        # delay compensation reads each stage's stale weights from the FIFO,
-        # D steps deeper under a deferred reduction. Per-stage factors of the
-        # delay-aware bases are built here from the meta shapes on the host
-        # and follow the state to its device at their first use
-        self.opt = (stage_delayed_optimizer(base, ctx.delay_specs(), K,
-                                            store_params=(ocfg.name == "delay_compensation"),
-                                            extra_param_delay=D)
-                    if async_grads and (K > 1 or self._data_eff) else base)
+
+    def _setup_processes(self, P: int) -> None:
+        """This process's part of a P-process run (P = 1: the whole grid):
+        its neighbours across the slab's edges, the transport and the groups
+        its sums run over, its schedule and its data replicas' loop."""
+        topo, me = self.topology, distributed.process_index()
+        distributed.assert_process_slabs(topo, P)
+        slabs = [topo.process_slab(P, p) for p in range(P)]
+        k0, k1 = self.slab.stages
+
+        def holder(stage: int) -> Optional[int]:
+            return next((p for p, s in enumerate(slabs) if s.stages[0] <= stage < s.stages[1]
+                         and s.data_shards == self.slab.data_shards), None)
+
+        # one process sends nothing: its transport only counts zero bytes
+        tr = self.transport = (distributed.transport() if P > 1
+                               else distributed.Transport("none", self.device, staged=False))
+        # the processes that hold the same stages (their data replicas sum);
+        # new_group is collective, so every process makes every group
+        groups = sorted({tuple(p for p, s in enumerate(slabs) if s.stages == x.stages)
+                         for x in slabs})
+        for g in groups:
+            if len(g) > 1:
+                tr.group(g)
+        self._data_group = next(g for g in groups if me in g)
+        self._world = tuple(range(P))
+        self._slabs = slabs
+        self.grad_fn = make_schedule_grad(
+            self.cfg, self.num_stages, self.num_microbatches, self.schedule,
+            slab=StageSlab(k0, k1, holder(k0 - 1) if k0 > 0 else None,
+                           holder(k1) if k1 < self.num_stages else None, tr))
+        lo, hi = self.slab.data_shards
+        self.local_grad_fn = make_local_grad(self.grad_fn, hi - lo)
 
     def init_state(self, params: Any = None) -> EngineState:
         """``params``: None (a model drawn from the engine's seed), a
@@ -241,6 +333,9 @@ class SpmdEngine(PipelineEngine):
             stacked, shared = params
         else:
             stacked, shared = stack_stage_params(params, self.cfg, self.num_stages)
+        k0, k1 = self.slab.stages
+        if next(iter(stacked.values())).shape[0] != k1 - k0:
+            stacked = {k: v[k0:k1] for k, v in stacked.items()}  # this process's slab
         with torch.no_grad():
             stacked = {k: v.detach().to(self.device, torch.float32).clone()
                        for k, v in stacked.items()}
@@ -265,6 +360,8 @@ class SpmdEngine(PipelineEngine):
         ce_m / M equals fill-drain's joint mean. Each microbatch's rows must
         divide over the topology's data shards."""
         tokens = batch["tokens"]
+        if self.num_processes > 1:
+            return self._check_process_batch(batch)
         if tokens.ndim != 3:
             M = self.num_microbatches
             B, S = tokens.shape
@@ -277,19 +374,55 @@ class SpmdEngine(PipelineEngine):
                              f"of topology {self.topology.describe()}")
         return batch
 
-    def _reduce(self, loss_r: Tensor, local: Tuple[Params, Params]
+    def _check_process_batch(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """A multi-process batch arrives microbatched with this process's
+        data shards' rows alone (``data.process_local_batches``)."""
+        lo, hi = self.slab.data_shards
+        t = batch["tokens"]
+        if t.ndim != 3 or t.shape[0] != self.num_microbatches or t.shape[1] % (hi - lo):
+            raise ValueError(
+                f"multi-process batches must arrive microbatched "
+                f"(process_local_batches) with the rows of data shards [{lo}, {hi}); "
+                f"got tokens of shape {tuple(t.shape)}")
+        return batch
+
+    def _reduce(self, loss: Tensor, grads: Tuple[Params, Params]
                 ) -> Tuple[Tensor, Tuple[Params, Params]]:
-        """The mean over the leading replica axis of the replicas' losses and
-        local gradients: the only place where data replicas combine."""
+        """The mean over the R data replicas of their losses and local
+        gradients, from this process's sums of its own replicas'
+        (``local_grad_fn``): the only place where data replicas combine. The
+        stacked gradients are summed over the processes that hold the same
+        stages, the loss and the shared gradients over all processes."""
+        gs, gsh = grads
         with torch.no_grad():
-            return loss_r.mean(), tuple({k: v.mean(0) for k, v in d.items()} for d in local)
+            self.transport.sum_(list(gs.values()), self._data_group)
+            loss = loss.reshape(1)
+            self.transport.sum_([loss, *gsh.values()], self._world)
+            loss = loss[0]
+            R = self.topology.data_shards
+            if R > 1:
+                loss = loss / R
+                for d in (gs, gsh):
+                    for g in d.values():
+                        g.div_(R)
+        return loss, (gs, gsh)
+
+    def _global_norm(self, gs: Params, gsh: Params) -> Tensor:
+        """The norm of the whole gradient from this process's slab: each
+        stacked leaf's sum of squares over the processes (one process of
+        each data group counts its slab), the shared leaves' counted once,
+        added in the single-process leaf order (``optim.base.global_norm``'s
+        bits in one process)."""
+        sq = torch.stack([torch.sum(torch.square(g.float())) for g in gs.values()])
+        if distributed.process_index() != self._data_group[0]:
+            sq.zero_()
+        self.transport.sum_([sq], self._world)
+        terms = [*sq.unbind(), *(torch.sum(torch.square(g.float())) for g in gsh.values())]
+        return torch.sqrt(sum(terms))
 
     def _fresh_grads(self, stacked: Params, shared: Params, batch: Dict[str, Tensor]):
         """This step's loss and gradients, reduced over the data replicas."""
-        if self.local_grad_fn is None:
-            return self.grad_fn(stacked, shared, batch)
-        loss_r, local = self.local_grad_fn(stacked, shared, batch)
-        return self._reduce(loss_r, local)
+        return self._reduce(*self.local_grad_fn(stacked, shared, batch))
 
     def step(self, state: EngineState, batch: Dict, t: int) -> Tuple[EngineState, Any, Dict]:
         stacked, shared = state.params
@@ -304,7 +437,8 @@ class SpmdEngine(PipelineEngine):
         if self.grad_clip:
             # the step's own gradients are scaled where they lie; a popped
             # reduction out of place, so that no FIFO entry is ever written
-            grads = clip_by_global_norm(grads, self.grad_clip, inplace=not self._data_eff)
+            grads = clip_by_global_norm(grads, self.grad_clip, inplace=not self._data_eff,
+                                        norm=self._global_norm(gs, gsh))
         params = opt_leaves(stacked, shared)
         with torch.no_grad():
             updates, opt_state = self.opt.update(grads, state.opt_state, params, t,
@@ -316,9 +450,33 @@ class SpmdEngine(PipelineEngine):
             apply_updates(params, updates)  # in place: the step's stacked and shared tensors
         return EngineState((stacked, shared), opt_state, data_fifo=fifo), loss, {"ce": loss}
 
-    def canonical_params(self, state: EngineState) -> Params:
-        """Per-layer ``{path: tensor}``, e.g. for evaluation."""
-        return unstack_stage_params(*state.params)
+    def canonical_params(self, state: EngineState) -> Optional[Params]:
+        """Per-layer ``{path: tensor}``, e.g. for evaluation. In a
+        multi-process run every process must call it: the first process of
+        each stage range sends its slab to the main process, which returns
+        the whole model; the others return None."""
+        stacked, shared = state.params
+        if self.num_processes == 1:
+            return unstack_stage_params(stacked, shared)
+        me = distributed.process_index()
+        heads = {}  # stage range -> the first process that holds it
+        for p, s in enumerate(self._slabs):
+            heads.setdefault(s.stages, p)
+        if me != 0:
+            if heads[self.slab.stages] == me:
+                self.transport.exchange([(v, 0) for v in stacked.values()], [])
+            return None
+        parts = {self.slab.stages: stacked}
+        for rng, p in heads.items():
+            if p == 0:
+                continue
+            bufs = {k: torch.empty((rng[1] - rng[0],) + tuple(v.shape[1:]), dtype=v.dtype,
+                                   device=v.device) for k, v in stacked.items()}
+            self.transport.exchange([], [(b, p) for b in bufs.values()])
+            parts[rng] = bufs
+        order = sorted(parts)
+        whole = {k: torch.cat([parts[r][k] for r in order]) for k in stacked}
+        return unstack_stage_params(whole, shared)
 
     # -- checkpointing -----------------------------------------------------
 
@@ -339,11 +497,19 @@ class SpmdEngine(PipelineEngine):
         if self._data_eff and fifo_tree is not None and len(fifo_tree) != self.data_delay:
             raise ValueError(f"checkpoint FIFO depth {len(fifo_tree)} does not match "
                              f"data_delay={self.data_delay}")
+        k0, k1 = self.slab.stages
+        slabbed = (k0, k1) != (0, self.num_stages)
+        if slabbed:
+            # a checkpoint holds every stage: this process takes its slab
+            params_tree = (map_leaves(params_tree[0], lambda i, a: a[k0:k1]), params_tree[1])
         stacked, shared = stacked_from_numpy(params_tree, "cpu")
         got = {k: tuple(v.shape) for k, v in opt_leaves(stacked, shared).items()}
         if got != self._leaf_shapes:
             raise ValueError(f"checkpoint parameters {got} do not fit this engine's "
                              f"{self._leaf_shapes}")
+        if slabbed and self._data_eff and fifo_tree is not None:
+            fifo_tree = tuple((map_leaves(st, lambda i, a: a[k0:k1]), sh)
+                              for st, sh in fifo_tree)
         if self._data_eff and fifo_tree is not None:
             fifo = fifo_from_numpy(fifo_tree, self.device)
             for i, entry in enumerate(fifo):
@@ -352,6 +518,11 @@ class SpmdEngine(PipelineEngine):
                     raise ValueError(f"checkpoint FIFO entry {i}: {shapes} do not fit this "
                                      f"engine's {self._leaf_shapes}")
         state = self.init_state((stacked, shared))
+        if slabbed:
+            n = len(stacked) + len(shared)
+            axes = stage_shard_axes(stacked, shared, state.opt_state)[n:]
+            opt_tree = map_leaves(opt_tree, lambda i, a: a if axes[i] is None else np.take(
+                a, range(k0, k1), axis=axes[i]))
         opt_state_from_numpy(opt_tree, state.opt_state)
         if self._data_eff and fifo_tree is not None:
             state.data_fifo = fifo
@@ -363,17 +534,27 @@ class SpmdEngine(PipelineEngine):
         stacked parameters, their optimizer state and the FIFO's stacked
         gradients are sliced on axis 0, the stage delay queues on axis 1;
         the shared leaves go whole to shard 0. The host snapshot is taken
-        now, the returned closure only writes files."""
+        now, the returned closure only writes files. In a multi-process run
+        every process calls this at the same step and writes the shards
+        that ``Topology.shard_owners`` gives it; the barriers live in the
+        write, so every process's writer must run its jobs in order."""
         from repro_torch.checkpoint.ckpt import snapshot_sharded, write_sharded_checkpoint
 
         axes = stage_shard_axes(*state.params, state.opt_state,
                                 data_fifo=state.data_fifo if self._data_eff else None)
-        snapshot = snapshot_sharded(self.checkpoint_tree(state), self.num_stages, axes)
-        # one process holds every stage and data replica
+        kw, owned = {}, None
+        if self.num_processes > 1:
+            # this process writes the shards it owns; the main one the manifest
+            me = distributed.process_index()
+            owned = [s for s, p in enumerate(self.topology.shard_owners(self.num_processes))
+                     if p == me]
+            kw = dict(write_manifest=distributed.is_main(), barrier=distributed.barrier)
+        snapshot = snapshot_sharded(self.checkpoint_tree(state), self.num_stages, axes,
+                                    owned_shards=owned, held_shards=self.slab.stages)
         full_meta = {"topology": self.topology.describe(), "precision": self.precision,
-                     "num_processes": 1, **(meta or {})}
+                     "num_processes": self.num_processes, **(meta or {})}
 
         def write() -> None:
-            write_sharded_checkpoint(path, snapshot, step=step, meta=full_meta)
+            write_sharded_checkpoint(path, snapshot, step=step, meta=full_meta, **kw)
 
         return write

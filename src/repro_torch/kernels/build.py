@@ -5,12 +5,15 @@ started together, and the objects are linked into one shared library with a
 plain C interface, loaded through ``ctypes``. The build runs at first use,
 into ``kernels/_build/`` (listed in ``.gitignore``), under a name that
 hashes the sources, headers and flags, so an edited source never loads a
-stale library. Nothing here runs at import time: the CPU test suite imports
-every module on machines without ``nvcc`` or a GPU.
+stale library. Processes that start together (the ranks of a multi-process
+run) take a lock on the build directory: the first builds, the others wait
+and load its library. Nothing here runs at import time: the CPU test suite
+imports every module on machines without ``nvcc`` or a GPU.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -118,9 +121,12 @@ def load_library() -> KernelLibrary:
     build_seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        log = _compile_and_link(sources, out)
-        build_seconds = time.perf_counter() - t0
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # one builder; the others wait for it
+            if not out.exists():
+                t0 = time.perf_counter()
+                log = _compile_and_link(sources, out)
+                build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

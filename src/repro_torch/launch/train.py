@@ -54,16 +54,30 @@ rows of every microbatch, and ``--data-async`` applies their mean gradient
 D steps late (``--data-par 0``, the default, means one replica per pod).
 ``--data-delay 0`` is the synchronous data axis, bit for bit.
 
+On the spmd backend the run may span several processes, each running its
+slab of the (pod, stage, data) grid (``Topology.process_slab``):
+``--num-processes N --process-id I --coordinator HOST:PORT``, or the
+``REPRO_*`` environment that ``launch/spawn.py`` sets
+(``launch.distributed``). Rank I computes on ``cuda:(I % device_count)``
+(or the CPU under ``--device cpu``) and talks to the others over NCCL with
+a card per rank, gloo otherwise (``launch.devices``; ``--transport nccl``
+is refused where ranks share a card). Each process feeds only its
+data shards' rows (``data.process_local_batches``); logging and ``--out``
+belong to process 0, and every process writes its own checkpoint shards.
+``--rank-stats DIR`` writes each process's launches, step and data times,
+peak memory and bytes sent to ``DIR/rank<I>.json``.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
-asked for but absent. The reference's flags are accepted; those whose
-feature is not ported yet (the multi-process flags on the spmd backend)
-exit with a message that says so. On the sim backend ``--microbatches``
-and ``--process-id`` are ignored, as the reference ignores them there.
+asked for but absent. The reference's flags are accepted. On the sim
+backend ``--microbatches`` and ``--process-id`` are ignored, as the
+reference ignores them there, and the other multi-process flags are refused
+in the reference's words.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -110,6 +124,12 @@ def parse_args(argv=None):
     ap.add_argument("--num-processes", type=int, default=0)
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--transport", default="auto", choices=["auto", "nccl"],
+                    help="auto: the layout's transport (launch.devices); nccl: the same, "
+                         "refused unless every rank has a card of its own")
+    ap.add_argument("--rank-stats", default=None,
+                    help="directory for each process's rank<I>.json of launches, "
+                         "times, peak memory and bytes sent")
     return ap.parse_args(argv)
 
 
@@ -138,9 +158,6 @@ def _refuse_unported(args, cfg) -> None:
     """Exit, naming why, on what the port does not run: what the reference
     refuses or gets wrong, and what is not ported yet."""
     if args.backend == "spmd":
-        if args.coordinator is not None or args.num_processes > 1 or args.process_id != 0:
-            raise SystemExit(
-                "--coordinator / --num-processes / --process-id is not yet ported to repro_torch")
         if args.weight_prediction or args.no_stash:
             raise SystemExit(
                 "--weight-prediction / --no-stash are sim-backend modes; the spmd "
@@ -197,8 +214,10 @@ def _refuse_unported(args, cfg) -> None:
         )
 
 
-def resolve_device(name: str) -> torch.device:
-    """The device to run on; CUDA unless the caller asks for the CPU."""
+def resolve_device(name: str, process_index: Optional[int] = None) -> torch.device:
+    """The device to run on; CUDA unless the caller asks for the CPU. A rank
+    of a multi-process run (``process_index``) takes
+    ``devices.rank_device``'s card."""
     if name == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
@@ -207,8 +226,26 @@ def resolve_device(name: str) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        if process_index is not None:
+            from repro_torch.launch.devices import rank_device
+
+            torch.cuda.set_device(rank_device(name, process_index))
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def resolve_grid(args):
+    """The reference's process grid of an spmd run: from ``--num-processes``
+    / ``--process-id`` / ``--coordinator`` when ``--num-processes`` is
+    given, else from the ``REPRO_*`` environment, else one process."""
+    from repro_torch.launch.distributed import ProcessGrid, distributed_env
+
+    if args.backend != "spmd":
+        return ProcessGrid()
+    if args.num_processes:
+        return ProcessGrid(num_processes=args.num_processes, process_index=args.process_id,
+                           coordinator=args.coordinator)
+    return distributed_env() or ProcessGrid()
 
 
 def build(args):
@@ -218,9 +255,22 @@ def build(args):
     data_delay = data_delay_of(args)
     cfg = get_config(args.arch, smoke=args.smoke)
     _refuse_unported(args, cfg)
-    device = resolve_device(args.device)
+    grid = resolve_grid(args)
+    n_dev = args.pods * args.stages * max(args.data_par, 1)  # positions of the grid
+    if n_dev % grid.num_processes:
+        raise SystemExit(
+            f"{grid.num_processes} processes do not split the "
+            f"{n_dev}-device (pods={args.pods}, stages={args.stages}, "
+            f"data={args.data_par}) topology evenly"
+        )
+    device = resolve_device(args.device, grid.process_index if grid.distributed else None)
+    from repro_torch.launch.distributed import init_distributed, is_main
 
-    from repro_torch.data import batches
+    # join the process group before the engine is built: it reads its slab
+    init_distributed(grid, device, args.transport)
+    main_proc = is_main()
+
+    from repro_torch.data import batches, process_local_batches
     from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine
     from repro_torch.launch.topology import Topology
     from repro_torch.models import Transformer, init_model, param_count, param_leaves
@@ -238,8 +288,9 @@ def build(args):
             layers = math.lcm(len(cfg.pattern), args.stages)
             while layers < cfg.num_layers:
                 layers += math.lcm(len(cfg.pattern), args.stages)
-            print(f"smoke: padding {cfg.num_layers} layers -> {layers} "
-                  f"to divide {args.stages} stages")
+            if main_proc:
+                print(f"smoke: padding {cfg.num_layers} layers -> {layers} "
+                      f"to divide {args.stages} stages")
             cfg = cfg.replace(num_layers=layers)
         else:
             raise SystemExit(f"--stages {args.stages} must divide {cfg.num_layers} layers")
@@ -252,9 +303,11 @@ def build(args):
     )
     topology = None
     if args.backend == "spmd":
-        # one card holds every (pod, stage, data) position, so --data-par 0
-        # (fill the data axis from the devices) means one replica a pod
-        topology = Topology(stages=args.stages, data=max(args.data_par, 1), pods=args.pods)
+        # every process runs an equal slab of the grid; --data-par 0 (fill
+        # the data axis from the devices) means one replica a pod
+        topology = Topology.from_process_grid(args.stages, grid.num_processes,
+                                              n_dev // grid.num_processes, pods=args.pods,
+                                              data=args.data_par)
         M = args.microbatches or args.stages
         shards = topology.data_shards
         if args.batch % M or (args.batch // M) % shards:
@@ -287,12 +340,22 @@ def build(args):
                            schedule=sched, no_stash=args.no_stash)
         n_params = param_count(model)
     topo_str = topology.describe() if topology is not None else None
-    print(f"arch={cfg.name} params={n_params:,} stages={args.stages} "
-          f"optimizer={args.optimizer} backend={args.backend} precision={policy.name} "
-          f"device={device}" + (f" topology={topo_str}" if topo_str else ""))
-    # one process samples the global stream whatever the pods: the
-    # reference's per-host assembly of it gives the same bits
-    data = batches(cfg, args.batch, args.seq, seed=args.seed, device=device)
+    if main_proc:
+        print(f"arch={cfg.name} params={n_params:,} stages={args.stages} "
+              f"optimizer={args.optimizer} backend={args.backend} precision={policy.name} "
+              f"device={device}" + (f" topology={topo_str}" if topo_str else "")
+              + (f" {grid.describe()}" if grid.distributed else ""))
+    if grid.distributed:
+        # each process takes its data shards' rows of every microbatch;
+        # stacked over the processes they are the single-process stream
+        lo, hi = topology.process_data_shards(grid.num_processes, grid.process_index)
+        data = process_local_batches(cfg, args.batch, args.seq, num_microbatches=M,
+                                     data_shards=topology.data_shards, shard_lo=lo,
+                                     shard_hi=hi, seed=args.seed, device=device)
+    else:
+        # one process samples the global stream whatever the pods: the
+        # reference's per-host assembly of it gives the same bits
+        data = batches(cfg, args.batch, args.seq, seed=args.seed, device=device)
     loop_cfg = LoopConfig(
         steps=args.steps, log_every=args.log_every,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, out_path=args.out,
@@ -302,36 +365,101 @@ def build(args):
                   "topology": topo_str, "precision": args.precision,
                   "use_kernels": args.use_kernels,
                   "data_async": args.data_async, "data_delay": data_delay,
-                  "device": str(device)},
+                  "device": str(device), "num_processes": grid.num_processes},
     )
     return engine, data, loop_cfg
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Every kernel wrapper's launch count in this process (B1-B3 by entry
+    point, float32 and bf16)."""
+    from repro_torch.kernels import adam_step, flash, matmul
+
+    fns = {"flash_fwd": flash.flash_fwd, "flash_bwd_dq": flash.flash_bwd_dq,
+           "flash_bwd_dkv": flash.flash_bwd_dkv, "matmul": matmul.matmul,
+           "adam_scale": adam_step.adam_scale}
+    out = {}
+    for name, fn in fns.items():
+        out[name] = getattr(fn, "launches", 0)
+        if name.startswith("flash"):
+            out[name + "_bf16"] = getattr(fn, "launches_bf16", 0)
+    return out
+
+
+def write_rank_stats(path: str, engine, result: Dict, launches: Dict[str, int]) -> None:
+    """This process's ``rank<I>.json`` under ``path``: its slab, the kernel
+    launches of this run, the seconds to build (and resume) the trainer,
+    step and data times, peak device memory, bytes it sent, and how long
+    its barriers waited."""
+    import json
+    import os
+
+    from repro_torch.launch.distributed import barrier_waits, process_index
+
+    tr = getattr(engine, "transport", None)
+    slab = getattr(engine, "slab", None)
+    dev = engine.device
+    stats = {"rank": process_index(), "device": str(dev),
+             "stages": list(slab.stages) if slab else None,
+             "data_shards": list(slab.data_shards) if slab else None,
+             "transport": None if tr is None else {"backend": tr.backend, "staged": tr.staged},
+             "launches": launches, "steps": len(result["losses"]),
+             "start_step": result["start_step"], "setup_s": result["setup_s"],
+             "step_s": result["step_s"],
+             "data_s": result["data_s"], "ckpt_s": result["ckpt_s"],
+             "write_s": result["write_s"], "bytes_sent": None if tr is None else tr.bytes_sent,
+             "barrier_s": barrier_waits(),
+             "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                                if dev.type == "cuda" else None)}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, f"rank{stats['rank']}.json"), "w") as f:
+        json.dump(stats, f)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Train; returns the losses (of the steps this run took), the step it
     started from, and the per-step data and step times and the checkpoint
     snapshot and write times."""
-    from repro_torch.engine import resume_if_present, run_loop
+    from repro_torch.launch.distributed import shutdown
 
     args = parse_args(argv)
+    try:
+        return _train(args)
+    finally:
+        shutdown()  # leave the process group, if this run joined one
+
+
+def _train(args) -> Dict:
+    from repro_torch.engine import resume_if_present, run_loop
+    from repro_torch.launch.distributed import is_main
+
+    t0 = time.perf_counter()
+    launches0 = kernel_launches() if args.rank_stats else None
     engine, data, loop_cfg = build(args)
+    main_proc = is_main()
     # resume_if_present fast-forwards `data` past the consumed batches, so
     # that a resumed run continues the uninterrupted stream
     state, start_step = resume_if_present(engine, None, args.ckpt_dir, data)
-    if start_step:
+    if start_step and main_proc:
         print(f"resumed from {args.ckpt_dir} at step {start_step}", flush=True)
     # run_loop builds the initial state itself when there is none, and is
     # handed the resumed one as its only holder, so that nothing here keeps
     # the first state (and its optimizer state) alive for the whole run
     held = [state]
     del state
+    setup_s = time.perf_counter() - t0  # the trainer built, resumed and fast-forwarded
     _, losses, timings = run_loop(engine, data, loop_cfg, state=held.pop(),
                                   start_step=start_step)
-    if losses:
+    if losses and main_proc:
         print(f"final loss {losses[-1]:.4f}")
-    return {"losses": losses, "start_step": start_step, "data_s": timings.data_s,
-            "step_s": timings.step_s, "ckpt_s": timings.ckpt_s, "write_s": timings.write_s,
-            "tokens_per_step": args.batch * args.seq}
+    result = {"losses": losses, "start_step": start_step, "data_s": timings.data_s,
+              "step_s": timings.step_s, "ckpt_s": timings.ckpt_s, "write_s": timings.write_s,
+              "setup_s": setup_s, "tokens_per_step": args.batch * args.seq}
+    if args.rank_stats:
+        now = kernel_launches()
+        write_rank_stats(args.rank_stats, engine, result,
+                         {k: now[k] - launches0[k] for k in now})
+    return result
 
 
 if __name__ == "__main__":

@@ -28,7 +28,7 @@ read back on the hot path.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,12 +56,16 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float, inplace: bool = True) -> Params:
+def clip_by_global_norm(grads: Params, max_norm: float, inplace: bool = True,
+                        norm: Optional[torch.Tensor] = None) -> Params:
     """Scale ``grads`` so their global norm is at most ``max_norm``, in
     their own tensors (the caller's step owns them: no copy of the
     gradients is made) and the same dict returned; or, without ``inplace``,
-    into new tensors (the same bits), leaving ``grads`` as they were."""
-    norm = global_norm(grads)
+    into new tensors (the same bits), leaving ``grads`` as they were.
+    ``norm`` is the global norm when ``grads`` are only part of the
+    gradient (one process's slab); by default that of ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     if not inplace:
         return {k: g * scale for k, g in grads.items()}

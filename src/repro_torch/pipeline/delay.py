@@ -112,7 +112,7 @@ def delayed_optimizer(inner: Optimizer, delays: Sequence[int],
 
 def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
                             num_stages: int, store_params: bool = False,
-                            extra_param_delay: int = 0) -> Optimizer:
+                            extra_param_delay: int = 0, stage_offset: int = 0) -> Optimizer:
     """Delay wrapper for the stage-stacked layout.
 
     ``specs`` is per leaf: an int delay (shared leaves, as in
@@ -136,11 +136,20 @@ def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
     that stage k reads w_{t-(tau_k+E)}: logical row k of its ring, for
     every stage once E >= 1 (even the last reads a queued snapshot). The
     gradient queues keep pipeline depth.
+
+    ``stage_offset=k0`` is a process's slab of the stages (a multi-process
+    run): its ``"stage"`` leaves are ``(n, ...)`` for global stages
+    ``k0 .. k0+n-1``, and slab position j reads what global stage k0 + j
+    reads, logical row k0 + j of a ring of the same depth K-1, the
+    reference's per-device slice ``(K-1, 1, ...)`` of its stage queues.
     """
     K = int(num_stages)
     E = int(extra_param_delay)
+    k0 = int(stage_offset)
     if E < 0:
         raise ValueError(f"extra_param_delay must be >= 0, got {E}")
+    if not 0 <= k0 < K:
+        raise ValueError(f"stage_offset must be in [0, {K}), got {k0}")
     specs = list(specs)
 
     def depth(s) -> int:
@@ -167,11 +176,12 @@ def stage_delayed_optimizer(inner: Optimizer, specs: Sequence[Union[int, str]],
             if q is None:
                 out[k] = x
             elif s == "stage":
-                d = q.shape[0]
-                # stage j reads logical row j (pushed d - j steps ago), slice j;
-                # at depth K-1 the last stage reads the fresh value
-                rows = [q[(head + j) % d, j] for j in range(min(d, K))]
-                out[k] = torch.stack(rows + ([x[d].float()] if d < K else []))
+                d, n = q.shape[0], x.shape[0]
+                # global stage k0 + j reads logical row k0 + j (pushed
+                # d - k0 - j steps ago), slab slice j; at depth K-1 the last
+                # stage reads the fresh value
+                rows = [q[(head + k0 + j) % d, j] for j in range(min(d - k0, n))]
+                out[k] = torch.stack(rows + ([x[d - k0].float()] if d - k0 < n else []))
             else:
                 out[k] = q[head % q.shape[0]]
         return out

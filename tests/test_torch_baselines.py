@@ -11,6 +11,7 @@ Newton-Schulz steps, which multiply the smallest singular directions (and
 float32 summation-order differences with them) by up to ~3.4 a step, so
 they are held to 1e-4 of the largest entry (max-norm relative error).
 """
+import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +52,12 @@ from repro_torch.pipeline import delay as tdelay
 from repro_torch.pipeline.partition import stage_context_for_stacked
 from repro_torch.pipeline.simulate import run_sim_training
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 NAMES = ["adasgd", "nesterov", "nesterov_pp", "pipedream_lr", "delay_compensation", "muon",
          "scion"]
 ELEMENTWISE = set(NAMES[:5])
@@ -64,7 +71,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

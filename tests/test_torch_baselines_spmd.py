@@ -4,6 +4,7 @@ host devices, run in one subprocess as the reference's own tests run it:
 delay compensation (the stage weight queues), pipedream_lr (per-stage
 factors built from meta shapes) and muon (Newton-Schulz batched over the
 stacked layers)."""
+import contextlib
 import json
 import os
 import subprocess
@@ -25,6 +26,12 @@ from repro_torch.configs.base import AttentionConfig, BlockSpec, ModelConfig
 from repro_torch.data import batches
 from repro_torch.engine import LoopConfig, SpmdEngine, run_loop
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference's own engine-test model (tests/test_engine.py:32)
@@ -44,7 +51,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

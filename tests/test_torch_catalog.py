@@ -4,6 +4,7 @@ reference: configs, leaf paths and rotation plans, loss and gradients with
 qk_norm and qkv_bias, the KV-cache decode path (full and ring-buffer
 caches), weight carry-over, and short sim and SPMD 1F1B runs of qwen3's
 reduced config at head dim 128 against the reference's engines."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -52,6 +53,12 @@ from repro_torch.models import (
 )
 from repro_torch.optim.factory import build_optimizer
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["qwen3_0_6b", "qwen1_5_0_5b", "stablelm_1_6b", "phi4_mini_3_8b",
          "phi4_mini_3_8b_swa"]
@@ -64,7 +71,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -3,6 +3,7 @@
 the sim and the stage-sharded SPMD layouts), bitwise resume of the port's
 own runs, and the save discipline (async writes, writer failures,
 interrupted saves, same-step re-saves)."""
+import contextlib
 import json
 import os
 import subprocess
@@ -38,6 +39,12 @@ from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine, resume_if_pres
 from repro_torch.models import param_leaves
 from repro_torch.optim.factory import build_optimizer
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference's own engine-test model (tests/test_engine.py:32)
@@ -62,7 +69,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

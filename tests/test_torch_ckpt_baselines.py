@@ -4,6 +4,7 @@ queues ``param_q`` beside ``grad_q``. Each package continues the other's
 gathered sim checkpoint in process; the stage-sharded SPMD checkpoint of
 delay compensation crosses in both directions with the reference's
 ``SpmdEngine`` on four forced host devices in one subprocess."""
+import contextlib
 import json
 import os
 import subprocess
@@ -36,6 +37,12 @@ from repro_torch.engine import LoopConfig, SimEngine, SpmdEngine, resume_if_pres
 from repro_torch.models import param_leaves
 from repro_torch.optim.factory import build_optimizer
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference's own engine-test model (tests/test_engine.py:32)
@@ -59,7 +66,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -1,4 +1,5 @@
 """The port's configs and synthetic data against the JAX reference."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -12,6 +13,12 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import get_config as tget_config
 from repro_torch.data import synthetic as tdata
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -20,7 +27,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

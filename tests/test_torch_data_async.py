@@ -4,6 +4,7 @@ deeper FIFO, the SPMD engine's data replicas and deferred-reduction FIFO
 (against the reference's ``SpmdEngine`` on four forced host devices, in one
 subprocess shared by the engine tests), the sharded data iterators, the
 topology and the launcher's flags and metadata."""
+import contextlib
 import json
 import os
 import subprocess
@@ -54,6 +55,12 @@ from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline import delay as tdelay
 from repro_torch.pipeline.partition import stage_context_for_stacked, stage_context_for_tree
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference's own data-async model (tests/test_data_async.py:49)
@@ -76,7 +83,9 @@ def _one_torch_thread():
     """Parallel workers share the cores; exact comparisons need one thread."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -17,6 +17,7 @@ case runs where only the port is installed:
 """
 from itertools import islice
 
+import contextlib
 import numpy as np
 import pytest
 import torch
@@ -32,6 +33,12 @@ from repro_torch.models.model import loss_fn
 from repro_torch.optim.base import apply_updates, clip_by_global_norm, make_schedule
 from repro_torch.optim.factory import build_optimizer
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 # the reference factory's optimizer names (repro/optim/factory.py)
 OPTIMIZERS = ("adam", "adamw", "pipedream", "adasgd", "nesterov", "nesterov_pp",
               "pipedream_lr", "delay_compensation", "muon", "scion", "basis_rotation")
@@ -45,7 +52,9 @@ def _one_torch_thread():
     torch's reductions may split differently from run to run."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

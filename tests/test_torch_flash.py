@@ -7,6 +7,7 @@ same numpy inputs, over ``tests/test_kernels.py``'s sweeps and with its
 tolerances. ``tests/test_torch_cuda.py`` holds the CUDA kernels to the
 plain versions on the card.
 """
+import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +26,12 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models.attention import Attention, gqa_train
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 # forward, tests/test_kernels.py:87; backward, :137-142; GQA parity, :209-224
 FWD_RTOL, FWD_ATOL = 2e-3, 2e-4
 BWD_RTOL, BWD_ATOL = 2e-3, 1e-4
@@ -38,7 +45,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

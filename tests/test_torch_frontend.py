@@ -5,6 +5,7 @@ predicted by one head each). Configs, leaf paths and rotation plans, the
 synthetic batches with their prefix and codebooks, loss and gradients,
 short sim runs against the reference's ``run_sim_training``, musicgen's
 decode, and the refusals where the reference is wrong."""
+import contextlib
 import dataclasses
 
 import jax
@@ -42,6 +43,12 @@ from repro_torch.models import (
 from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.partition import delay_tree
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ARCHS = ["llava_next_34b", "musicgen_large"]
 # two implementations of the sim step with Adam differ by float32 roundoff
 # (tests/test_torch_xlstm.py's tolerance)
@@ -59,7 +66,9 @@ def _one_torch_thread():
     small shapes gain nothing from torch's intra-op threads."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

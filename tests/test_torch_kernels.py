@@ -6,6 +6,7 @@ oracles on the same numpy inputs, with ``tests/test_kernels.py``'s shapes
 and tolerances. ``tests/test_torch_cuda.py`` holds the CUDA kernels to the
 plain versions on the card.
 """
+import contextlib
 import bisect
 
 import numpy as np
@@ -19,6 +20,12 @@ from repro_torch.kernels import adam_step as tadam
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
 
 # rotation parity, tests/test_kernels.py:41: float32 products summed in
 # another order (blocked BLAS here, Pallas tiles there)
@@ -34,7 +41,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -5,6 +5,7 @@ the chunked scan against the reference's at S = 2048, decode and its cache
 jamba's leaves and rotation plan, short sim runs with Adam and basis
 rotation, the spmd backend's refusal, and the Mamba leaves with their
 optimizer state crossing between the packages."""
+import contextlib
 import dataclasses
 
 import jax
@@ -51,6 +52,12 @@ from repro_torch.models import mamba as tmb
 from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.partition import delay_tree, leaf_delays, leaf_stages
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ARCH = "jamba_v0_1_52b"
 B, S = 2, 16
 # two implementations of a step with Adam differ by float32 roundoff
@@ -68,7 +75,9 @@ def _one_torch_thread():
     small shapes gain nothing from torch's intra-op threads."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -5,6 +5,7 @@ caches (mixer and whole model, against the reference and the training
 forward), deepseek's leaves and rotation plan, a short sim run with basis
 rotation, a 1F1B run with Adam against the reference's ``SpmdEngine``, and
 the MLA leaves with their optimizer state crossing between the packages."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -55,6 +56,12 @@ from repro_torch.models import attention as tattn
 from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.partition import delay_tree
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "deepseek_v2_236b"
 B, S, D_MODEL = 2, 16, 64
@@ -75,7 +82,9 @@ def _one_torch_thread():
     small shapes gain nothing from torch's intra-op threads."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

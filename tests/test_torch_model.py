@@ -1,6 +1,7 @@
 """The port's dense model against the JAX reference: leaf paths and order,
 weight conversion, and the loss and every gradient leaf at the smoke config
 in float32 from shared weights and the same batch."""
+import contextlib
 import dataclasses
 
 import jax
@@ -18,6 +19,12 @@ from repro_torch.checkpoint.convert import params_from_numpy, params_to_numpy
 from repro_torch.configs import get_config as tget_config
 from repro_torch.models import Transformer, cross_entropy, loss_fn, param_leaves
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -26,7 +33,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

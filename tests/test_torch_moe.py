@@ -4,6 +4,7 @@ gradients (tokens overflowing their experts' capacity included), exact
 routing, mixtral's leaf paths and rotation plan, a short sim run, the SPMD
 fill-drain and 1F1B schedules against the reference's ``SpmdEngine`` (both
 dropping the auxiliary loss), and decode."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -57,6 +58,12 @@ from repro_torch.models.transformer import template_block
 from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.partition import delay_tree
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "mixtral_8x22b"
 # two implementations of a step with Adam differ by float32 roundoff
@@ -74,7 +81,9 @@ def _one_torch_thread():
     small shapes gain nothing from torch's intra-op threads."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -13,6 +13,7 @@ O(1) steps. That part is compared on the subspace the data determines;
 whole trajectories are compared at the reference's own QR-chaos tolerance
 in ``test_torch_sim.py``.
 """
+import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,12 @@ from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline import delay as tdelay
 from repro_torch.pipeline import partition as tpart
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -48,7 +55,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

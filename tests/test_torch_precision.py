@@ -14,6 +14,7 @@ and 3e-2 on every loss). ``bf16_operand_split_errors`` measures the two
 float32-accurate splits of a float32 operand against a bf16 one: 2xTF32
 3.9e-8, three bf16 pieces 0.0 (relative, at its default seed).
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -57,6 +58,12 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models.model import cast_params
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SHAPE = dict(num_layers=4, d_model=32, d_ff=64, vocab_size=64, max_seq_len=64,
@@ -81,7 +88,9 @@ def _one_torch_thread():
     small shapes gain nothing from torch's intra-op threads."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

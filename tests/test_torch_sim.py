@@ -1,5 +1,6 @@
 """The slice as a whole: the port's sim trainer against the JAX reference's,
 its command line, and the port's import isolation."""
+import contextlib
 import os
 import subprocess
 import sys
@@ -27,6 +28,12 @@ from repro_torch.launch import train
 from repro_torch.models import param_leaves
 from repro_torch.optim.factory import build_optimizer
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -37,7 +44,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
@@ -138,7 +147,36 @@ def test_train_main_needs_cuda_unless_told_cpu(monkeypatch):
                                    ["--coordinator", "localhost:1234"],
                                    ["--backend", "spmd", "--weight-prediction"],
                                    ["--backend", "spmd", "--no-stash"]])
-def test_train_main_refuses_unported_flags(flags):
+def test_train_main_refuses_unported_flags(flags, monkeypatch):
+    """The sim backend refuses the spmd-only flags and the spmd backend the
+    sim-only modes, in the reference's words. The spmd backend's
+    multi-process flags are ported: with them the launcher does what the
+    reference's does with the same command line. ``--num-processes 2``
+    without a coordinator fails in ``init_distributed`` with the reference's
+    ValueError; a lone ``--process-id 1`` is ignored (the reference's grid
+    comes from ``--num-processes`` or the environment) and the run trains as
+    one process, while process 1 of a 1-process grid is ``ProcessGrid``'s
+    "process_index out of range" in both packages."""
+    from repro.launch.distributed import ProcessGrid as JProcessGrid
+    from repro_torch.launch.distributed import ProcessGrid
+
+    if flags == ["--backend", "spmd", "--num-processes", "2"]:
+        # the reference's launcher appends its host-device count to XLA_FLAGS
+        monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+        with pytest.raises(ValueError, match="needs a coordinator"):
+            jtrain.main(["--smoke"] + flags)
+        with pytest.raises(ValueError, match="needs a coordinator"):
+            train.main(["--smoke", "--device", "cpu"] + flags)
+        return
+    if flags == ["--backend", "spmd", "--process-id", "1"]:
+        for grid in (JProcessGrid, ProcessGrid):
+            with pytest.raises(ValueError, match="process_index out of range"):
+                grid(num_processes=1, process_index=1)
+        short = ["--smoke", "--device", "cpu", "--stages", "2", "--steps", "1", "--batch", "2",
+                 "--seq", "16", "--log-every", "0", "--backend", "spmd"]
+        assert train.main(short + ["--process-id", "1"])["losses"] == \
+            train.main(short)["losses"]
+        return
     with pytest.raises(SystemExit, match="not yet ported|spmd|schedule"):
         train.main(["--smoke", "--device", "cpu"] + flags)
 

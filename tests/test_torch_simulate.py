@@ -2,6 +2,7 @@
 PipeMare weight prediction (plain and rotated optimizer state), the
 no-stash two-version gradient, both modes' loss curves through the engine,
 and the held-out ``eval_batches`` stream."""
+import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +40,12 @@ from repro_torch.pipeline.simulate import (
     run_sim_training,
 )
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 # the reference's own simulate-test model (tests/test_simulate.py:21)
 _SHAPE = dict(num_layers=4, d_model=32, d_ff=64, vocab_size=64, max_seq_len=64,
               scan_layers=False)
@@ -55,7 +62,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -4,6 +4,7 @@ layout and its metadata, the delay FIFO, the schedules' gradients and
 memory, and the engine's loss curves against the reference's ``SpmdEngine``
 on four forced host devices (run in a subprocess, as the reference's own
 tests run it)."""
+import contextlib
 import json
 import os
 import subprocess
@@ -47,6 +48,12 @@ from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.delay import delayed_optimizer, stage_delayed_optimizer
 from repro_torch.pipeline.partition import stage_context_for_stacked
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference's own engine-test model (tests/test_engine.py:32)
@@ -66,7 +73,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -7,6 +7,7 @@ from shared weights, the spmd backend's refusal of mixed patterns, a
 checkpoint crossing between the packages, and the kernels' calls per step.
 The mixers and B4 at the xLSTM path's shapes on the card are in
 ``tests/test_torch_cuda.py``."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -62,6 +63,12 @@ from repro_torch.models.transformer import template_block
 from repro_torch.optim.factory import build_optimizer
 from repro_torch.pipeline.partition import leaf_delays, leaf_stages
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit only saves time
+    def threadpool_limits(**_):
+        return contextlib.nullcontext()
+
 SCFG = dict(kind="mlstm", num_heads=4, proj_factor=2.0)
 D_MODEL, B, S = 64, 2, 16
 # two implementations of one training step (tests/test_engine.py:437-438):
@@ -78,7 +85,9 @@ def _one_torch_thread():
     small shapes gain nothing from them."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    # numpy's BLAS pool too: its idle threads spin on the cores the others need
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
