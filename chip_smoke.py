@@ -179,6 +179,30 @@
    logits within 2e-4 of ``forward_train``'s, then in bf16. Phase 2 holds
    and times B4 and B5 at llava's, musicgen's and jamba's groups (B4's
    contraction up to K = 20480), and the kernel line has a row for each.
+   Then the long-sequence paths. ``long_context_check`` holds them on the
+   card at a small size (query blocks and threshold lowered to 16 at S =
+   64) against the paths they replace: chunked GQA and MLA within 2e-4 of
+   dense, the chunked cross-entropy within 1e-5 of the whole one, and the
+   stacked model under both remat policies within 2e-5 of the per-layer
+   model (outputs and every gradient). Then qwen3_0_6b at full width and
+   depth, float32, stacked (``scan_layers=True``) under full remat with
+   ``loss_chunk`` 2,048, at 32,768 tokens, through the dry run's step
+   functions (``repro_torch.launch.dryrun``): ``long_context_train``, one
+   basis-rotation step of ``make_train_step`` at batch 1 (B4 4 and B5 1
+   launches over the seven 28-layer leaves, B5 in place, B1-B3 none:
+   query-chunked attention is the no-kernel path), layers cut only if the
+   dry run's reckoning of the step passed 90% of the card;
+   ``long_context_prefill``, ``make_prefill_step`` at the largest batch the
+   dry run reckons under 90% of the card; ``long_context_decode``, one
+   ``make_serve_step`` at position 32,767 of a stacked cache, batch cut the
+   same way; each with its time, its peak beside the dry run's reckoned
+   peak for the same config and (batch, seq), and its launches. Meanwhile
+   three subprocesses that see no card run ``launch.dryrun --all`` and
+   ``launch.dryrun_pipeline`` under each schedule on the meta device;
+   ``dryrun`` waits for them and counts their rows' statuses (every
+   process exits 0, a row for each of the 40 (arch, shape) pairs, no
+   error). Phase 2 holds and times B4 and B5 at that train step's groups
+   (kernel-line rows ``matmul_long_context``, ``adam_scale_long_context``).
    ``peaks`` prints the peaks of phases 3-4, ``catalog_1f1b``
    and ``xlstm_sim`` beside theirs before the optimizer state was updated
    in place, and fails if any grew. Every training path updates its
@@ -351,22 +375,32 @@ DEEPSEEK_LAYERS = 1
 DEEPSEEK_BATCH = (8, 256)
 DEEPSEEK_LOSS_TOL = 1.0  # random weights: the first loss within this of ln(vocab)
 FIT_SHARE = 0.9  # of the card's memory a path's reckoned peak may take
+# the long-context phase: qwen3_0_6b stacked under full remat, float32, the
+# chunked cross-entropy, at prefill_32k's length (above the 8,192-token
+# threshold of the query-chunked attention)
+LONG_ARCH = "qwen3_0_6b"
+LONG_SEQ = 32_768
+# one step, the refresh step: the phase's time is set by (b)'s batch and by
+# this step's ~57 s (PERF.md §6), and the script must keep its time limit
+LONG_STEPS = 1
+LONG_OVERRIDES = {"dtype": "float32", "remat_policy": "full", "loss_chunk": 2048}
+LONG_CHECK_TOL = 2e-4  # chunked attention against dense (tests/test_models.py:127)
+LONG_CE_TOL = 1e-5  # chunked cross-entropy against whole (tests/test_models.py:227, :232)
+LONG_STACK_TOL = 2e-5  # stacked against per-layer (tests/test_models.py:211)
+DRYRUN_TIMEOUT = 600  # seconds the meta-device dry runs may take
 # peak device memory (GB) of the earlier paths before the optimizer state was
 # updated in place (chip_smoke.py on one H100 80GB HBM3 at 700 W, PERF.md §5):
 # the state is now updated in its own tensors, so none may grow past these
 EARLIER_PEAKS_GB = {"main_path": 7.898, "spmd_1f1b": 9.11, "catalog_1f1b": 57.23,
                     "xlstm_sim": 60.08}
 
-# Published dense peaks (NVIDIA data sheets): float32 outside the tensor
-# cores, device memory bandwidth, TF32 and bf16 on the tensor cores. The SXM
-# part is the default.
-PEAKS = {
-    "PCIe": (51.2e12, 2.0e12, 378e12, 756e12),
-    "NVL": (60.0e12, 3.9e12, 417.5e12, 835e12),
-    "SXM": (67.0e12, 3.35e12, 495e12, 989e12),
-}
+# the card's published peaks (float32 outside the tensor cores, device memory
+# bandwidth, TF32 and bf16 on the tensor cores) come from the port's one
+# table of H100 figures, ``repro_torch.launch.roofline.CARD_PEAKS``
 TF32_PASSES = 3  # the 3xTF32 split: three tensor-core products per float32 product
-LONG_GROUP_FLOPS = 2e12  # a B4 group timed over 3 launches, not 10 (xlstm_1_3b's, paper_1b's)
+# a B4 group timed over 2 launches, not 10 (xlstm_1_3b's, paper_1b's; their
+# spread is well below a percent, and the script must keep its time limit)
+LONG_GROUP_FLOPS = 2e12
 
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 2 GHz: longer than the host takes to enqueue a timing run
 # ~0.1 s at 2 GHz: five times what the host took to enqueue the longest of one
@@ -440,13 +474,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_peaks(name: str):
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return key, peaks
-    return "SXM", PEAKS["SXM"]
-
-
 def time_ms(fn, reps: int = 30, warmup: int = 5):
     """Device time of one call of ``fn``: median over ``reps`` back-to-back
     calls, each between its own pair of CUDA events. A sleep kernel keeps the
@@ -482,7 +509,7 @@ def mm_work(problems):
     return flops, nbytes
 
 
-def time_step_ms(fn, reps: int = 10, warmup: int = 2):
+def time_step_ms(fn, reps: int = 5, warmup: int = 2):
     """Device time of one step's work ``fn``: median over ``reps`` runs, each
     alone between its own pair of CUDA events behind a sleep kernel. Also
     the host's median time to issue it (ms) and whether every run was
@@ -601,7 +628,7 @@ def check_matmul_groups(torch, kmm, paths, peaks):
             flops, nbytes = mm_work(problems)
             # a group of more than LONG_GROUP_FLOPS takes 50 ms or more a
             # launch, whose spread is well below a percent: fewer repeats
-            reps, warmup = (3, 1) if flops > LONG_GROUP_FLOPS else (10, 2)
+            reps, warmup = (2, 1) if flops > LONG_GROUP_FLOPS else (10, 2)
             row["ms"], row["host_ms"] = time_ms(
                 lambda: kmm.matmul_grouped(As, Bs, trans_a=ta, trans_b=tb), reps, warmup)
             row["plain_ms"], _ = time_ms(
@@ -1206,6 +1233,307 @@ def check_deepseek(torch, get_config):
           "capacity_factor": moe.capacity_factor, **SERVE, **serving})
     del model
     torch.cuda.empty_cache()
+
+
+def check_long_context_small(torch):
+    """The long-sequence paths on the card at a small size, against the
+    paths they replace, with the query block and threshold lowered to 16 at
+    S = 64: query-chunked GQA and MLA (outputs and every gradient) within
+    ``LONG_CHECK_TOL`` of the dense path, the chunked cross-entropy (loss
+    and gradients) within ``LONG_CE_TOL`` of the whole-sequence one, and
+    the stacked model under both remat policies within ``LONG_STACK_TOL``
+    of the per-layer model holding the same weights (the tests' tolerances,
+    from the reference's own: tests/test_models.py:127, :227, :211)."""
+    from repro_torch.checkpoint.convert import stack_layers
+    from repro_torch.configs import AttentionConfig, BlockSpec, ModelConfig
+    from repro_torch.models import Transformer, loss_fn, param_leaves, use_config
+    from repro_torch.models import attention as tattn
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, S, V = 2, 64, 97
+    toks = torch.randint(0, V, (B, S), device="cuda", generator=gen)
+    labels = toks.clone()
+    labels[:, :5] = -100
+    batch = {"tokens": toks, "labels": labels}
+
+    def grads(model):
+        params = param_leaves(model)
+        loss, _ = loss_fn(model, batch)
+        return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    def gap(a, b):
+        return max((a[0] - b[0]).abs().item(),
+                   max((a[1][k] - b[1][k]).abs().max().item() for k in a[1]))
+
+    saved = (tattn.CHUNKED_ATTN_THRESHOLD, tattn.QUERY_BLOCK)
+    for kind, att in (("gqa", AttentionConfig(num_heads=4, num_kv_heads=2, head_dim=16,
+                                              qk_norm=True)),
+                      ("mla", AttentionConfig(kind="mla", num_heads=4, num_kv_heads=4,
+                                              kv_lora_rank=32, qk_nope_head_dim=16,
+                                              qk_rope_head_dim=8, v_head_dim=16))):
+        cfg = ModelConfig(num_layers=4, d_model=64, d_ff=128, vocab_size=V, max_seq_len=S,
+                          attention=att, pattern=(BlockSpec("attn", "dense"),),
+                          scan_layers=False)
+        flat = Transformer(cfg, device="cuda", seed=3)
+        dense = grads(flat)
+        try:
+            tattn.CHUNKED_ATTN_THRESHOLD, tattn.QUERY_BLOCK = 16, 16
+            chunked = grads(flat)
+        finally:
+            tattn.CHUNKED_ATTN_THRESHOLD, tattn.QUERY_BLOCK = saved
+        out[f"{kind}_chunked_attention_max_abs_err"] = gap(chunked, dense)
+        use_config(flat, cfg.replace(loss_chunk=24))  # two chunks and a tail of 16
+        out[f"{kind}_chunked_ce_max_abs_err"] = gap(grads(flat), dense)
+        use_config(flat, cfg)
+        want = {k: v.detach() for k, v in param_leaves(flat).items()}
+        for policy in ("full", "dots"):
+            scfg = cfg.replace(scan_layers=True, remat_policy=policy)
+            stacked = Transformer(scfg, device="cuda", seed=None)
+            with torch.no_grad():
+                for k, v in stack_layers(want, scfg).items():
+                    param_leaves(stacked)[k].copy_(v)
+            got = grads(stacked)
+            ref = (dense[0], stack_layers(dense[1], scfg))
+            out[f"{kind}_stacked_{policy}_max_abs_err"] = gap(got, ref)
+    tols = {"chunked_attention": LONG_CHECK_TOL, "chunked_ce": LONG_CE_TOL,
+            "stacked_full": LONG_STACK_TOL, "stacked_dots": LONG_STACK_TOL}
+    bad = {k: v for k, v in out.items()
+           if not v <= next(t for key, t in tols.items() if key in k)}
+    if bad:
+        raise AssertionError(f"long-context paths off their plain versions: {bad}")
+    return out
+
+
+def fit_batch(reckon, cap, card_bytes):
+    """The largest batch, at most ``cap``, whose reckoned peak
+    (``reckon(batch)`` in bytes) fits ``FIT_SHARE`` of the card; the peak
+    grows linearly with the batch, so two reckonings place it and a third
+    checks it. Returns (batch, its reckoned peak)."""
+    one, two = reckon(1), reckon(2)
+    per = max(two - one, 1)
+    batch = max(1, min(cap, int((FIT_SHARE * card_bytes - (one - per)) // per)))
+    peak = reckon(batch)
+    while batch > 1 and peak > FIT_SHARE * card_bytes:
+        batch -= 1
+        peak = reckon(batch)
+    return batch, peak
+
+
+def run_long_context(torch, kernels, none, card_bytes):
+    """qwen3_0_6b at full width and depth, stacked (``scan_layers=True``)
+    under ``remat_policy="full"``, float32, at 32,768 tokens, through the dry
+    run's step functions: (a) ``make_train_step`` with basis-rotation Adam
+    (the arch's ``rotation_strategy``; B4 and B5 through the kernels,
+    ``use_kernels=True``), batch 1, query-chunked attention and the chunked
+    cross-entropy (``loss_chunk`` 2,048), ``LONG_STEPS`` steps (a refresh at
+    step 0); layers are cut only if the dry run's reckoning of the step
+    passes ``FIT_SHARE`` of the card; (b) ``make_prefill_step`` at the
+    largest batch the dry run reckons under ``FIT_SHARE`` (at most
+    prefill_32k's 32); (c) ``make_serve_step`` at position 32,767 of a
+    stacked decode_32k cache, its batch cut the same way (at most 128).
+    Each part emits its line (``long_context_train``, ``_prefill``,
+    ``_decode``) with its time, its peak beside the dry run's reckoned peak
+    for the same config and (batch, seq), and its launches; every launch
+    count is zeroed just before each part (each train step) and read just
+    after. Returns the three parts."""
+    import numpy as np
+
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Transformer, init_cache, param_leaves
+    from repro_torch.optim.factory import build_optimizer
+
+    arch, S = LONG_ARCH, LONG_SEQ
+    full = get_config(arch).replace(**LONG_OVERRIDES)
+    src, geom = dryrun.rotation_strategy(arch)
+
+    def reckon(shape, batch, layers=full.num_layers):
+        return dryrun.dryrun_one(arch, shape, overrides={**LONG_OVERRIDES, "num_layers": layers},
+                                 verbose=False, use_kernels=True, batch=batch, seq=S,
+                                 extrapolate=shape == "train_4k")
+
+    out = {"arch": arch, "layers_full": full.num_layers, "seq": S,
+           "overrides": LONG_OVERRIDES, "rotation": [src, geom], "card_bytes": card_bytes,
+           "reduced": {"train_batch": "1 of prefill_32k's 32 (one card)",
+                       "train_steps": f"{LONG_STEPS} of 2 (the script's time limit)"}}
+    # (a) the train step: the reckoning first; whole layers are cut only if
+    # it does not fit
+    t0 = time.perf_counter()
+    layers = full.num_layers
+    r = reckon("train_4k", 1, layers)
+    while r["peak_bytes_per_device"] > FIT_SHARE * card_bytes and layers > 1:
+        layers -= 1
+        r = reckon("train_4k", 1, layers)
+    cfg = full.replace(num_layers=layers)
+    out["layers"] = layers
+    if layers != full.num_layers:
+        out["reduced"]["layers"] = f"{layers} of {full.num_layers} (the reckoning)"
+    train = {"reckon_s": time.perf_counter() - t0, "batch": 1,
+             "reckoned_peak_gb": r["peak_bytes_per_device"] / 1e9,
+             "reckoned_flops": r["flops"], "reckoned_hbm_bytes": r["hbm_bytes"]}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=0, draw_device="cuda")
+    params = param_leaves(model)
+    opt = build_optimizer(OptimizerConfig(name="basis_rotation", rotation_source=src,
+                                          rotation_geometry=geom, rotation_freq=10,
+                                          total_steps=10_000),
+                          params, cfg, num_stages=1, apply_delay=False, use_kernels=True)
+    state = opt.init(params)
+    step = dryrun.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    train["setup_s"] = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(1, S + 1))).to("cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, per_step, b5_calls = [], [], [], []
+    for t in range(LONG_STEPS):
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with b5_in_place(b5_calls):
+            model, state, loss = step(model, state, batch, t)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(read_counts(kernels))
+    train.update({"losses": losses, "step_s": step_s, "launches_per_step": per_step,
+                  "b5_in_place_calls": len(b5_calls),
+                  "tokens_per_s": S / statistics.median(step_s),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    train["peak_minus_reckoned_gb"] = train["peak_mem_gb"] - train["reckoned_peak_gb"]
+    want = {**none, "matmul": 4, "adam_scale": 1}
+    if not all(math.isfinite(x) for x in losses) or any(c != want for c in per_step):
+        raise AssertionError(f"long_context train: losses {losses}, launches {per_step} "
+                             f"(a step should launch {want})")
+    out["train"] = train
+    emit({"phase": "long_context_train", **{k: v for k, v in out.items() if k != "train"},
+          **train})
+    # (b) and (c) each start from a fresh draw on an emptied allocator: the
+    # train step's freed blocks would otherwise split (b)'s score blocks
+    del opt, state, step, batch, params, model
+    torch.cuda.empty_cache()
+
+    def fresh_model():
+        torch.cuda.empty_cache()
+        return Transformer(cfg, device="cuda", seed=0, draw_device="cuda").requires_grad_(False)
+
+    # (b) prefill at the largest batch the dry run reckons under the gate
+    t0 = time.perf_counter()
+    B, peak = fit_batch(lambda b: reckon("prefill_32k", b, layers)["peak_bytes_per_device"],
+                        32, card_bytes)
+    prefill = {"reckon_s": time.perf_counter() - t0, "batch": B,
+               "reckoned_peak_gb": peak / 1e9}
+    model = fresh_model()
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, S))).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = dryrun.make_prefill_step(cfg)(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill.update({"s": prefill_s, "launches": read_counts(kernels),
+                    "tokens_per_s": B * S / prefill_s,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "logits_shape": list(logits.shape),
+                    "logits_finite": bool(torch.isfinite(logits).all())})
+    prefill["peak_minus_reckoned_gb"] = prefill["peak_mem_gb"] - prefill["reckoned_peak_gb"]
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not prefill["logits_finite"]:
+        raise AssertionError(f"long_context prefill: logits {prefill}")
+    out["prefill"] = prefill
+    emit({"phase": "long_context_prefill", "arch": arch, "layers": layers, "seq": S, **prefill})
+    del logits, toks, model
+
+    # (c) one decode step at the last position of a stacked 32,768-slot cache
+    t0 = time.perf_counter()
+    B, peak = fit_batch(lambda b: reckon("decode_32k", b, layers)["peak_bytes_per_device"],
+                        128, card_bytes)
+    decode = {"reckon_s": time.perf_counter() - t0, "batch": B, "pos": S - 1,
+              "reckoned_peak_gb": peak / 1e9}
+    model = fresh_model()
+    cache = init_cache(cfg, B, S, device="cuda")
+    decode["cache_gb"] = sum(v.numel() * v.element_size() for c in cache for v in c.values()) / 1e9
+    token = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, 1))).to("cuda")
+    serve = dryrun.make_serve_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    times = []
+    for pos in (S - 2, S - 1):  # the first a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = serve(model, token, cache, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    decode.update({"s": times[-1], "warmup_s": times[0], "launches": read_counts(kernels),
+                   "tokens_per_s": B / times[-1],
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "logits_shape": list(logits.shape),
+                   "logits_finite": bool(torch.isfinite(logits).all())})
+    decode["peak_minus_reckoned_gb"] = decode["peak_mem_gb"] - decode["reckoned_peak_gb"]
+    if tuple(logits.shape) != (B, 1, cfg.vocab_size) or not decode["logits_finite"]:
+        raise AssertionError(f"long_context decode: logits {decode}")
+    out["decode"] = decode
+    emit({"phase": "long_context_decode", "arch": arch, "layers": layers, "seq": S, **decode})
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_dryruns():
+    """The dry runs on the meta device, in subprocesses that see no card:
+    ``launch.dryrun --all`` and ``launch.dryrun_pipeline`` under each
+    schedule, each writing its rows under chiprun_out/. Returns the running
+    processes and their output files."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    runs = []
+    for name, args in (("dryrun_all", ["repro_torch.launch.dryrun", "--all"]),
+                       *((f"dryrun_pipeline_{s}", ["repro_torch.launch.dryrun_pipeline",
+                                                    "--schedule", s])
+                         for s in ("fill_drain", "1f1b"))):
+        rows = OUT_DIR / f"{name}.jsonl"
+        rows.unlink(missing_ok=True)
+        log = open(OUT_DIR / f"{name}.log", "w")
+        proc = subprocess.Popen([sys.executable, "-m", *args, "--out", str(rows)], cwd=ROOT,
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+        runs.append((name, proc, rows, log, time.perf_counter()))
+    return runs
+
+
+def finish_dryruns(runs):
+    """Wait for the dry runs (stopping any past ``DRYRUN_TIMEOUT``) and count
+    their rows' statuses; every process must exit 0, the sweep must hold a
+    row for every (arch, shape) and no row may be an error."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+
+    out = {}
+    for name, proc, rows, log, t0 in runs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+        lines = [json.loads(x) for x in rows.read_text().splitlines()] if rows.exists() else []
+        out[name] = {"rc": rc, "s": time.perf_counter() - t0, "rows": len(lines),
+                     "status": dict(Counter(r["status"] for r in lines))}
+        if name == "dryrun_all":
+            out[name]["fits"] = sorted(f"{r['arch']}/{r['shape']}" for r in lines if r.get("fits"))
+            want = len(ARCH_IDS) * len(INPUT_SHAPES)
+        else:
+            row = lines[-1] if lines else {}
+            out[name].update({k: row.get(k) for k in (
+                "mesh", "processes", "argument_bytes", "temp_bytes", "peak_bytes", "sent_bytes",
+                "reduce_bytes", "collectives", "compile_s")})
+            want = 1
+        if rc != 0 or len(lines) != want or out[name]["status"].get("error"):
+            raise AssertionError(f"{name}: exit {rc}, {len(lines)} rows of {want}, "
+                                 f"statuses {out[name]['status']}")
+    return out
 
 
 @contextlib.contextmanager
@@ -2126,6 +2454,11 @@ def data_async_cuda_vs_cpu(train):
 
 
 def main() -> int:
+    # the long-context phase allocates and frees 28 GiB score blocks, which
+    # split the caching allocator's fixed segments until one such block no
+    # longer fits beside the reckoned peak; expandable segments map the same
+    # bytes without that loss (set before the first CUDA allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -2146,6 +2479,7 @@ def main() -> int:
     from repro_torch.launch.bench_matmul import path_groups
     # ptxas's registers and spills per kernel, from the build's log
     from repro_torch.launch.bench_flash import ptxas_report
+    from repro_torch.launch.roofline import card_peaks
 
     # each kernel's launch count: (wrapper, attribute); B1-B3 count their
     # float32 and bfloat16 entry points apart
@@ -2165,7 +2499,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    part, peaks = card_peaks(name)
+    part, peaks = card_peaks(name)  # the part's published peaks, by the device's name
 
     # phase 1: the card and the build
     lib = build.load_library()
@@ -2220,6 +2554,9 @@ def main() -> int:
     # in_proj's 16384-sided one beside the MLP's 14336-sided ones
     jcfg = get_config("jamba_v0_1_52b").replace(num_layers=fits["jamba"][0])
     jgroups, jadam_leaves = path_groups(jcfg)
+    # the long-context train step's: qwen3_0_6b's seven rotated leaf kinds,
+    # each stacked over its 28 layers (one batched problem a leaf)
+    lcgroups, lcadam_leaves = path_groups(get_config(LONG_ARCH).replace(**LONG_OVERRIDES), 1)
     mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
     check_s = {}  # host seconds of each of phase 2's checks
 
@@ -2232,13 +2569,15 @@ def main() -> int:
     mm_rows, mm_err = timed("matmul", check_matmul, torch, kmm, peaks)
     grp_rows, grp_err = timed("matmul_grouped", check_matmul_groups, torch, kmm, {
         "sim": groups, "spmd": sgroups, "xlstm_sim": xgroups, "paper_1b_sim": pgroups,
-        "llava_sim": lgroups, "musicgen_sim": mgroups, "jamba_sim": jgroups}, peaks)
+        "llava_sim": lgroups, "musicgen_sim": mgroups, "jamba_sim": jgroups,
+        "long_context": lcgroups}, peaks)
     mm_err = max(mm_err, grp_err)
     adam_rows, adam_err = timed("adam", check_adam, torch, kadam)
     agrp_rows, agrp_err = timed("adam_grouped", check_adam_groups, torch, kadam, {
         "sim": adam_leaves, "spmd": sadam_leaves, "xlstm_sim": xadam_leaves,
         "paper_1b_sim": padam_leaves, "llava_sim": ladam_leaves,
-        "musicgen_sim": madam_leaves, "jamba_sim": jadam_leaves}, peaks)
+        "musicgen_sim": madam_leaves, "jamba_sim": jadam_leaves,
+        "long_context": lcadam_leaves}, peaks)
     adam_err = max(adam_err, agrp_err)
     flash_rows, flash_errs, flash_t = timed("flash", check_flash, torch, kflash, peaks)
     bf16_rows, bf16_errs, bf16_t = timed("flash_bf16", check_flash_bf16, torch, kflash, peaks)
@@ -2573,6 +2912,15 @@ def main() -> int:
     # and backward, then decode, from one draw of the weights
     check_deepseek(torch, get_config)
 
+    # the long-sequence paths: the dry runs start on the host (meta device,
+    # no card) while qwen3_0_6b trains, prefills and decodes 32,768 tokens
+    dryruns = start_dryruns()
+    torch.cuda.empty_cache()
+    emit({"phase": "long_context_check", **check_long_context_small(torch)})
+    zero_counts(kernels)
+    long_ctx = run_long_context(torch, kernels, none, total)  # emits a line for each part
+    emit({"phase": "dryrun", **finish_dryruns(dryruns)})
+
     # the earlier paths' peaks against theirs before the state was updated in place
     peaks_now = {"main_path": sim["peak_mem_gb"], "spmd_1f1b": spmd["1f1b"]["peak_mem_gb"],
                  "catalog_1f1b": max(catalog[p]["peak_mem_gb"] for p in ("f32", "bf16")),
@@ -2696,7 +3044,7 @@ def main() -> int:
     grouped = {path: {f: sum(r[f] for r in grp_rows if r["group"].startswith(path + "/"))
                       for f in ("ms", "plain_ms", "library_ms")}
                for path in ("sim", "spmd", "xlstm_sim", "paper_1b_sim", "llava_sim",
-                            "musicgen_sim", "jamba_sim")}
+                            "musicgen_sim", "jamba_sim", "long_context")}
     b5_step = {r["group"]: r for r in agrp_rows}
     mm_bound, mm_bound_f32, mm_by = bounds(*mm_work([p for g in groups for p in g]), peaks,
                                            TF32_PASSES)
@@ -2776,6 +3124,32 @@ def main() -> int:
             "ms": b5_step[path]["ms"], "per_leaf_ms": b5_step[path]["per_leaf_ms"],
             "plain_ms": b5_step[path]["plain_ms"], "bound_ms": adam_bound(pleaves)[0],
             "bound_by": adam_bound(pleaves)[1], "library_ms": None, "layers": run["layers"]})
+    # B4 and B5 per step of the long-context train step (qwen3_0_6b stacked,
+    # 32,768 tokens), at the groups phase 2 timed
+    lc_steps = long_ctx["train"]["launches_per_step"]
+    lc_bound_ms, _, lc_bound_by = bounds(*mm_work([p for g in lcgroups for p in g]), peaks,
+                                         TF32_PASSES)
+    rows.append({
+        "name": "matmul_long_context", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul.py:30",
+        "launches": sum(c["matmul"] for c in lc_steps),
+        "max_abs_err": max(r["max_abs_err"] for r in grp_rows
+                           if r["group"].startswith("long_context/")),
+        "ms": grouped["long_context"]["ms"], "plain_ms": grouped["long_context"]["plain_ms"],
+        "bound_ms": lc_bound_ms, "bound_by": lc_bound_by,
+        "library_ms": grouped["long_context"]["library_ms"], "layers": long_ctx["layers"]})
+    rows.append({
+        "name": "adam_scale_long_context", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adam_step.cu",
+        "replaces": "src/repro/kernels/adam_step.py:28",
+        "launches": sum(c["adam_scale"] for c in lc_steps),
+        "max_abs_err": max(b5_step["long_context"]["max_abs_err"],
+                           b5_step["long_context"]["inplace_max_abs_err"]),
+        "ms": b5_step["long_context"]["ms"], "per_leaf_ms": b5_step["long_context"]["per_leaf_ms"],
+        "plain_ms": b5_step["long_context"]["plain_ms"],
+        "bound_ms": adam_bound(lcadam_leaves)[0], "bound_by": adam_bound(lcadam_leaves)[1],
+        "library_ms": None, "layers": long_ctx["layers"]})
     onef = spmd["1f1b"]
     # computed, so kept off the kernels line
     bound_fp32 = {"matmul": mm_bound_f32, "matmul_xlstm": xmm_bound_f32,
@@ -2869,6 +3243,8 @@ def main() -> int:
          "llava_next_34b, musicgen_large and jamba_v0_1_52b sim paths, cut to their layers "
          "(phases llava_sim, musicgen_sim, jamba_sim: launches of their 4-step runs); "
          "library_ms is torch.matmul on contiguous operands of each of the step's products. "
+         "The *_long_context rows are B4 and B5 per step of qwen3_0_6b's stacked train "
+         "step at 32,768 tokens (long_context_train: its launches), timed at its groups. "
          "Every training path calls B5's in-place entry (v' written over v); adam_scale's "
          "max_abs_err covers both entries, and the in-place entry's time is "
          "adam_grouped's inplace_ms on phase 2's line",
@@ -2887,7 +3263,8 @@ def main() -> int:
          "paper_1b_sim_launches": p1b["launches"],
          **{f"{k}_sim_launches": r["launches"] for k, r in frontend_moe.items()},
          "baselines_launches": {path: {n: r["launches"] for n, r in runs.items()}
-                                for path, runs in baselines.items()}}, indent=1))
+                                for path, runs in baselines.items()},
+         "long_context_launches": long_ctx["train"]["launches_per_step"]}, indent=1))
     emit({"bound_fp32_ms": bound_fp32})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -10,8 +10,10 @@ from repro_torch.checkpoint.convert import (
     opt_state_to_numpy,
     params_from_numpy,
     params_to_numpy,
+    stack_layers,
     stacked_from_numpy,
     stacked_to_numpy,
+    unstack_layers,
 )
 
 __all__ = [
@@ -24,6 +26,8 @@ __all__ = [
     "opt_state_to_numpy",
     "params_from_numpy",
     "params_to_numpy",
+    "stack_layers",
     "stacked_from_numpy",
     "stacked_to_numpy",
+    "unstack_layers",
 ]

@@ -28,6 +28,14 @@ row 0 the oldest and no ``head``. Logical row r is ring slot ``(head + r) %
 d``, for the per-leaf queues and the stage queues alike; a restored ring
 starts at ``head = 0``.
 
+A model of stacked layers (``scan_layers=True``) crosses the same way:
+its leaves are the reference's stacked tree's (``blocks/<position>/...``
+with a leading axis of ``num_superblocks``). ``stack_layers`` and
+``unstack_layers`` move ``{path: leaf}`` dicts of numpy arrays or tensors
+between that layout and the per-layer one (layer l is superblock
+``l // P``'s slot of pattern position ``l % P``), the counterpart of the
+``jnp.stack`` regrouping of the reference's tests.
+
 ``fifo_to_numpy`` and ``fifo_from_numpy`` carry the SPMD engine's
 deferred data reductions (an asynchronous data axis): a tuple of
 ``(stacked, shared)`` gradient trees, oldest first, the third element of the
@@ -120,6 +128,45 @@ def params_to_numpy(model: Transformer) -> Any:
 
 def _ordered(flat: Dict[str, Any]) -> Dict[str, Any]:
     return {k: flat[k] for k in sorted(flat, key=tree_order_key)}
+
+
+def _stack(xs: List[Any]) -> Any:
+    return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+
+
+def stack_layers(flat: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """Per-layer ``{path: leaf}`` -> the stacked layout, in leaf order:
+    ``blocks/<p>/<name>`` holds layers p, p + P, ... of ``blocks/<l>/<name>``
+    stacked on a new leading axis (P the pattern's length). Other leaves
+    pass as they are."""
+    P, n = len(cfg.pattern), cfg.num_superblocks
+    out, groups = {}, {}
+    for path, x in flat.items():
+        if path.startswith("blocks/"):
+            _, l, name = path.split("/", 2)
+            groups.setdefault(f"blocks/{int(l) % P}/{name}", [None] * n)[int(l) // P] = x
+        else:
+            out[path] = x
+    for path, xs in groups.items():
+        if any(x is None for x in xs):
+            raise ValueError(f"{path}: {cfg.num_layers} layers do not fill the pattern's slots")
+        out[path] = _stack(xs)
+    return _ordered(out)
+
+
+def unstack_layers(flat: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of ``stack_layers``: each stacked ``blocks/<p>/<name>``
+    split into the per-layer leaves of layers p, p + P, ..."""
+    P = len(cfg.pattern)
+    out = {}
+    for path, x in flat.items():
+        if path.startswith("blocks/"):
+            _, p, name = path.split("/", 2)
+            for i in range(x.shape[0]):
+                out[f"blocks/{i * P + int(p)}/{name}"] = x[i]
+        else:
+            out[path] = x
+    return _ordered(out)
 
 
 def stacked_from_numpy(tree: Tuple[Any, Any], device: torch.device | str = "cuda"

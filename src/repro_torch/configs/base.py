@@ -3,11 +3,14 @@
 Port of ``repro/configs/base.py``, cut to what the model configs use:
 grouped-query and MLA attention (``AttentionConfig``), the recurrent
 mixers (``SSMConfig``: Mamba, mLSTM and sLSTM blocks), the MoE MLP
-(``MoEConfig``) and the modality frontends (a projected prefix of frontend
-embeddings, several codebooks).
+(``MoEConfig``), the modality frontends (a projected prefix of frontend
+embeddings, several codebooks), the stacked layers and their remat policy,
+the chunked cross-entropy, and the dry run's four input shapes
+(``InputShape``, ``INPUT_SHAPES``).
 Defaults are the reference's; dtype properties return torch dtypes. Both
 of the reference's precision policies exist: ``f32`` and ``bf16``
-(``bf16_compute``, the SPMD backend's).
+(``bf16_compute``, the SPMD backend's). The reference's ``seq_sharded``
+acts on a tensor-parallel ``model`` axis, which the port does not have.
 """
 from __future__ import annotations
 
@@ -109,11 +112,21 @@ class ModelConfig:
     frontend_tokens: int = 0  # prefix embedding tokens before the text
     frontend_dim: int = 0  # width of those embeddings, projected into d_model
     num_codebooks: int = 1  # >1: a summed embedding and a head per codebook
-    # the port keeps one parameter subtree per layer; stacked layers belong
-    # to the SPMD engine
+    # True: one leaf per pattern position, stacked over the superblocks on a
+    # leading axis, each superblock run under activation checkpointing.
+    # False: one parameter subtree per layer (per-layer delays in the sim).
     scan_layers: bool = True
+    # accepted for the reference's configs and without effect: it unrolls
+    # the reference's superblock scan, and the port's superblocks run in a
+    # Python loop, which has nothing to unroll
+    scan_unroll: bool = False
     logits_fp32: bool = True
-    loss_chunk: int = 0  # chunked cross-entropy is not ported yet
+    # activation-checkpoint policy of the stacked layers: "full" recomputes
+    # everything, "dots" saves the (non-batched) matrix products
+    remat_policy: str = "full"
+    # chunked cross-entropy: the head and CE over sequence chunks of this
+    # length, so the (B, S, V) logits are never formed. 0 = off
+    loss_chunk: int = 0
     dtype: str = "float32"
     param_dtype: str = "float32"
     use_kernels: bool = False
@@ -137,6 +150,14 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def supports_long_context(self) -> bool:
+        """True when the 500k decode shape is admissible: recurrent or hybrid
+        families, or attention that is windowed everywhere."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return all(spec.mixer != "attn" or self.attention.window is not None
+                   for spec in self.pattern)
 
 
 @dataclass(frozen=True)
@@ -167,6 +188,22 @@ class PrecisionPolicy:
 PRECISION_POLICIES = {
     "f32": PrecisionPolicy(),
     "bf16": PrecisionPolicy(name="bf16_compute", dtype="bfloat16"),
+}
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
 
 

@@ -16,7 +16,14 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (
+    INPUT_SHAPES,
+    AttentionConfig,
+    InputShape,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+)
 
 ARCH_IDS: List[str] = ["llava_next_34b", "mixtral_8x22b", "stablelm_1_6b", "qwen3_0_6b",
                        "qwen1_5_0_5b", "phi4_mini_3_8b", "jamba_v0_1_52b", "deepseek_v2_236b",
@@ -40,6 +47,15 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if variant is not None and not hasattr(mod, variant):
         raise ValueError(f"architecture {mod_name!r} has no sliding-window variant")
     return getattr(mod, variant) if variant else mod.CONFIG
+
+
+def shapes_for(cfg: ModelConfig) -> List[InputShape]:
+    """The input shapes an architecture takes: ``long_500k`` only where
+    ``supports_long_context`` holds."""
+    out = [INPUT_SHAPES["train_4k"], INPUT_SHAPES["prefill_32k"], INPUT_SHAPES["decode_32k"]]
+    if cfg.supports_long_context():
+        out.append(INPUT_SHAPES["long_500k"])
+    return out
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:

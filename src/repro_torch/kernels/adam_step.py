@@ -4,7 +4,8 @@ Port of ``repro/kernels/adam_step.py::fused_adam_scale`` (Pallas
 ``_adam_kernel``). The CUDA kernel is ``csrc/adam_step.cu``; its header says
 what bounds it and how it is built. One launch updates a whole group of
 leaves of any shapes; ``adam_scale`` is a group of one. CPU tensors take
-``adam_scale_plain``, CUDA tensors launch the kernel or raise.
+``adam_scale_plain`` (and meta tensors, which a dry run traces), CUDA
+tensors launch the kernel or raise.
 ``adam_scale.launches`` counts launches of the kernel, one per group of up
 to ``MAX_LEAVES`` leaves that holds any element, through either entry.
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import check, load_library
+from repro_torch.kernels.matmul import PLAIN_DEVICES
 
 Tensor = torch.Tensor
 
@@ -120,7 +122,7 @@ def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[
         raise ValueError(f"adam_scale_grouped: {len(gs)} g, {len(ms)} m, {len(vs)} v")
     if not gs:
         return [], []
-    if all(x.device.type == "cpu" for x in (*gs, *ms, *vs)):
+    if all(x.device.type in PLAIN_DEVICES for x in (*gs, *ms, *vs)):
         pairs = [adam_scale_plain(g, m, v, beta2, eps, bc1, bc2, out=v if inplace else None)
                  for g, m, v in zip(gs, ms, vs)]
         return [s for s, _ in pairs], [vn for _, vn in pairs]
@@ -154,7 +156,7 @@ def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
                bc1: float, bc2: float) -> Tuple[Tensor, Tensor]:
     """(step, v') for float32 g, m, v of one shape: ``adam_scale_grouped``
     over a group of one."""
-    if g.device.type == "cpu" and m.device.type == "cpu" and v.device.type == "cpu":
+    if all(x.device.type in PLAIN_DEVICES for x in (g, m, v)):
         return adam_scale_plain(g, m, v, beta2, eps, bc1, bc2)
     steps, v_news = adam_scale_grouped([g], [m], [v], beta2, eps, bc1, bc2)
     return steps[0], v_news[0]

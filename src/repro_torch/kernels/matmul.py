@@ -4,7 +4,8 @@ Port of ``repro/kernels/matmul.py::matmul`` (Pallas ``_matmul_kernel``). The
 CUDA kernel is ``csrc/matmul.cu``; its header says what bounds it and how it
 is built. One launch computes a whole group of products, each with its own
 shapes and batch; ``matmul`` is a group of one. CPU tensors take the plain
-versions, CUDA tensors launch the kernel or raise. ``matmul.launches``
+versions (and meta tensors, which a dry run traces), CUDA tensors launch
+the kernel or raise. ``matmul.launches``
 counts launches of the kernel, one per group of up to ``MAX_PROBLEMS``.
 """
 from __future__ import annotations
@@ -20,6 +21,9 @@ Tensor = torch.Tensor
 
 TILE_M = TILE_N = 128  # output tile of one block: csrc/matmul.cu's BM, BN
 MAX_PROBLEMS = 512  # problems one launch's parameter table holds
+# devices whose tensors take the plain version: the CPU, and the meta device
+# of a dry run's trace (no data, so no kernel)
+PLAIN_DEVICES = ("cpu", "meta")
 _ALIGN = 4  # floats: every output starts 16-byte aligned, for the next product's loads
 
 Dims = Tuple[int, int, int, int]  # (batch, M, N, K)
@@ -113,7 +117,7 @@ def matmul_grouped(As: Sequence[Tensor], Bs: Sequence[Tensor], *, trans_a: bool 
         raise ValueError(f"matmul_grouped: {len(As)} A operands, {len(Bs)} B operands")
     if not As:
         return []
-    if all(x.device.type == "cpu" for x in (*As, *Bs)):
+    if all(x.device.type in PLAIN_DEVICES for x in (*As, *Bs)):
         return matmul_grouped_plain(As, Bs, trans_a=trans_a, trans_b=trans_b)
     dims = [_dims(a, b, trans_a, trans_b, "matmul_grouped") for a, b in zip(As, Bs)]
     device = As[0].device
@@ -143,7 +147,7 @@ def matmul(a: Tensor, b: Tensor, *, trans_a: bool = False,
 
     a, b: float32, both 2-D or both 3-D with equal leading batch, contiguous.
     """
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES and b.device.type in PLAIN_DEVICES:
         return matmul_plain(a, b, trans_a=trans_a, trans_b=trans_b)
     return matmul_grouped([a], [b], trans_a=trans_a, trans_b=trans_b)[0]
 

@@ -47,6 +47,7 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen_len: int,
 
     cfg = cfg.replace(scan_layers=False)
     model = init_model(cfg, seed=seed, device=device) if model is None else use_config(model, cfg)
+    cfg = model.cfg  # a given model keeps its own layout
     K = cfg.num_codebooks
     tok_shape = (batch, 1, K) if K > 1 else (batch, 1)
     rng = np.random.RandomState(seed)

@@ -23,9 +23,13 @@ Its decode caches the latent (B, S_max, kv_lora_rank) and the roped key
 folded into the query and attention runs in the latent space, so no
 per-head K or V is expanded.
 
-The reference streams queries in blocks above ``CHUNKED_ATTN_THRESHOLD``
-when S divides into them; that branch is not ported yet and raises, for
-GQA without kernels and for MLA.
+Above ``CHUNKED_ATTN_THRESHOLD`` tokens, when S divides into blocks of
+``QUERY_BLOCK``, the no-kernel GQA path and MLA stream the queries in
+blocks, as the reference does: each block's (B, H, QUERY_BLOCK, S) scores
+are formed under ``torch.utils.checkpoint`` (non-reentrant, the reference's
+``jax.checkpoint`` of its scan body), so the forward keeps only each
+block's output and the backward recomputes one block's scores at a time.
+With ``use_kernels`` GQA keeps taking the flash kernels at every length.
 
 The functions take the mixer's weights as a ``{name: tensor}`` dict (the
 reference's parameter dict), so that the decode path can run them on
@@ -39,6 +43,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.models.layers import apply_rope, dense_init, param, rms_norm_headwise
@@ -46,8 +51,30 @@ from repro_torch.models.layers import apply_rope, dense_init, param, rms_norm_he
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
+# above this sequence length the (S x S) scores are not formed whole: the
+# queries stream in blocks of QUERY_BLOCK (when S divides into them)
 CHUNKED_ATTN_THRESHOLD = 8192
 QUERY_BLOCK = 2048
+
+
+def _query_chunked(S: int) -> bool:
+    return S > CHUNKED_ATTN_THRESHOLD and S % QUERY_BLOCK == 0
+
+
+def _by_query_blocks(block, *qs: Tensor) -> Tensor:
+    """``block(*q_blocks, offset)`` over consecutive query blocks of the
+    (B, H, S, .) tensors ``qs``, concatenated along S. Under autograd each
+    block runs checkpointed: only its output is kept, and its scores are
+    recomputed in the backward."""
+    S = qs[0].shape[2]
+    outs = []
+    for start in range(0, S, QUERY_BLOCK):
+        args = [q[:, :, start: start + QUERY_BLOCK] for q in qs]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(block, *args, start, use_reentrant=False))
+        else:
+            outs.append(block(*args, start))
+    return torch.cat(outs, dim=2)
 
 
 class Attention(nn.Module):
@@ -162,13 +189,16 @@ def _attn_dense(q: Tensor, k: Tensor, v: Tensor, cfg: AttentionConfig,
 def gqa_train(w: Mapping[str, Tensor], x: Tensor, cfg: AttentionConfig,
               use_kernels: bool = False) -> Tensor:
     B, S, _ = x.shape
-    if not use_kernels and S > CHUNKED_ATTN_THRESHOLD and S % QUERY_BLOCK == 0:
-        raise NotImplementedError("not yet ported: query-chunked attention")
     q, k, v = _project_qkv(w, x, cfg)
     positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = _attn_flash(q, k, v, cfg) if use_kernels else _attn_dense(q, k, v, cfg, 0, S)
+    if use_kernels:
+        o = _attn_flash(q, k, v, cfg)
+    elif _query_chunked(S):
+        o = _by_query_blocks(lambda qb, offset: _attn_dense(qb, k, v, cfg, offset, S), q)
+    else:
+        o = _attn_dense(q, k, v, cfg, 0, S)
     o = o.transpose(1, 2).reshape(B, S, -1)
     return o @ w["w_o"]
 
@@ -242,10 +272,9 @@ def _mla_latent(w: Mapping[str, Tensor], x: Tensor, cfg: AttentionConfig):
 
 def mla_train(w: Mapping[str, Tensor], x: Tensor, cfg: AttentionConfig) -> Tensor:
     """Causal MLA over the whole sequence, the per-head keys and values
-    expanded from the latent; scores (B, H, S, S), softmax in float32."""
+    expanded from the latent; scores (B, H, S, S), or (B, H, QUERY_BLOCK, S)
+    a query block above the threshold, softmax in float32."""
     B, S, _ = x.shape
-    if S > CHUNKED_ATTN_THRESHOLD and S % QUERY_BLOCK == 0:
-        raise NotImplementedError("not yet ported: query-chunked MLA attention")
     H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     positions = torch.arange(S, device=x.device)
@@ -259,13 +288,20 @@ def mla_train(w: Mapping[str, Tensor], x: Tensor, cfg: AttentionConfig) -> Tenso
     k_nope, v = kv[..., :dn], kv[..., dn:]
 
     scale = 1.0 / math.sqrt(dn + dr)
-    scores = (torch.einsum("bhqd,bhsd->bhqs", q_nope, k_nope)
-              + torch.einsum("bhqd,bsd->bhqs", q_rope, k_rope)) * scale
-    i = torch.arange(S, device=x.device)[:, None]
-    j = torch.arange(S, device=x.device)[None, :]
-    scores = scores.float().masked_fill(j > i, NEG_INF)
-    p = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bhqs,bhsd->bhqd", p, v)
+
+    def block(q_n: Tensor, q_r: Tensor, offset: int) -> Tensor:
+        scores = (torch.einsum("bhqd,bhsd->bhqs", q_n, k_nope)
+                  + torch.einsum("bhqd,bsd->bhqs", q_r, k_rope)) * scale
+        i = offset + torch.arange(q_n.shape[2], device=x.device)[:, None]
+        j = torch.arange(S, device=x.device)[None, :]
+        scores = scores.float().masked_fill(j > i, NEG_INF)
+        p = torch.softmax(scores, dim=-1).to(x.dtype)
+        return torch.einsum("bhqs,bhsd->bhqd", p, v)
+
+    if _query_chunked(S):
+        o = _by_query_blocks(block, q_nope, q_rope)
+    else:
+        o = block(q_nope, q_rope, 0)
     o = o.transpose(1, 2).reshape(B, S, H * dv)
     return o @ w["w_o"]
 

@@ -20,7 +20,9 @@ is S small launches forward and S backward. The order of the products
 differs from the reference's tree, so the two agree to float32 roundoff.
 The forward and backward scans run inside ``torch.profiler`` ranges
 ``mamba_scan`` and ``mamba_scan_backward``, which ``launch/profile_step.py``
-reads.
+reads. On the meta device (``launch/dryrun.py``'s trace, shapes without
+values) each of the two loops is one operation over all S steps, which
+reads and writes the same bytes and allocates the same tensors.
 
 Above ``SSM_CHUNK`` tokens, when S divides into chunks, the scan runs
 chunk by chunk, each chunk seeded by the carried boundary state and
@@ -119,9 +121,14 @@ class _Scan(torch.autograd.Function):
     def forward(ctx, dA: Tensor, dBx: Tensor, C: Tensor, h0: Tensor):
         with torch.profiler.record_function("mamba_scan"):
             H = torch.empty_like(dA)  # every state h_t, for the read-out and the backward
-            h = h0
-            for t in range(dA.shape[1]):
-                h = torch.addcmul(dBx[:, t], dA[:, t], h, out=H[:, t])
+            if dA.device.type == "meta":
+                # a dry run's trace, which has shapes and no values: the S
+                # steps as one operation that reads and writes the same bytes
+                torch.addcmul(dBx, dA, H, out=H)
+            else:
+                h = h0
+                for t in range(dA.shape[1]):
+                    h = torch.addcmul(dBx[:, t], dA[:, t], h, out=H[:, t])
             y = torch.einsum("bsdn,bsn->bsd", H, C)
         ctx.save_for_backward(dA, C, h0, H)
         return y, H[:, -1].clone()
@@ -133,8 +140,11 @@ class _Scan(torch.autograd.Function):
             g = gy[..., None] * C[:, :, None, :]  # dL/dh_t through y_t alone
             gC = torch.einsum("bsd,bsdn->bsn", gy, H)
             g[:, -1] += gh_last
-            for t in range(dA.shape[1] - 2, -1, -1):  # g_t += dA_{t+1} g_{t+1}
-                g[:, t].addcmul_(dA[:, t + 1], g[:, t + 1])
+            if dA.device.type == "meta":  # as in the forward: one operation of the same bytes
+                g[:, :-1].addcmul_(dA[:, 1:], g[:, 1:])
+            else:
+                for t in range(dA.shape[1] - 2, -1, -1):  # g_t += dA_{t+1} g_{t+1}
+                    g[:, t].addcmul_(dA[:, t + 1], g[:, t + 1])
             gdA = torch.empty_like(dA)
             torch.mul(g[:, 1:], H[:, :-1], out=gdA[:, 1:])
             torch.mul(g[:, 0], h0, out=gdA[:, 0])

@@ -9,6 +9,8 @@ per-head matrix memory C of (dh x dh). sLSTM has a genuine sequential
 recurrence (block-diagonal recurrent weights), so training loops over time;
 its input product ``x @ w_x`` does not depend on the state, so it runs once
 for the whole sequence before the loop, which computes the same function.
+On the meta device (``launch/dryrun.py``'s trace) the loop's S cells run
+as one cell over all B x S rows: the same FLOPs and tensors.
 
 Both carry a log-space stabiliser m to keep the exponential gating bounded.
 The row stabiliser of the parallel form is ``torch.amax``, which splits the
@@ -235,6 +237,13 @@ def slstm_train(w: Mapping[str, Tensor], u: Tensor, cfg: SSMConfig) -> Tensor:
     B, S, d_model = u.shape
     state = init_slstm_cache(B, d_model, cfg, u.dtype, u.device)
     xw = u @ w["w_x"]  # (B, S, 4 d_model): every step's input product at once
+    if u.device.type == "meta":
+        # a dry run's trace (shapes without values): the cell once over all
+        # B x S rows, the S steps' FLOPs and tensors; the recurrent weight is
+        # read once where the loop reads it at every step
+        _, h = _slstm_cell(w, cfg, xw.reshape(B * S, -1),
+                           init_slstm_cache(B * S, d_model, cfg, u.dtype, u.device))
+        return _slstm_out(w, h.reshape(B, S, d_model))
     hs = []
     for t in range(S):
         state, h = _slstm_cell(w, cfg, xw[:, t], state)

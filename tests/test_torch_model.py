@@ -123,14 +123,21 @@ def test_cross_entropy_ignores_masked_labels():
 
 
 def test_unported_model_options_raise():
-    """Only stacked parameters and the chunked cross-entropy still raise: MLA
-    attention and the Mamba mixer build, and an unknown mixer is refused as
-    unknown."""
+    """No model option is refused as unported any more: stacked parameters
+    (one leaf per pattern position over the superblocks), the chunked
+    cross-entropy, MLA attention and the Mamba mixer build; an unknown
+    mixer or remat policy is refused as unknown."""
     _, ct = _configs()
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        Transformer(ct.replace(scan_layers=True), device="meta")
-    with pytest.raises(NotImplementedError, match="chunked cross-entropy"):
-        Transformer(ct.replace(loss_chunk=64), device="meta")
+    stacked = param_leaves(Transformer(ct.replace(scan_layers=True), device="meta"))
+    per_layer = param_leaves(Transformer(ct, device="meta"))
+    assert stacked["blocks/0/mixer/w_q"].shape == (ct.num_superblocks,) + tuple(
+        per_layer["blocks/0/mixer/w_q"].shape)
+    assert sum(p.numel() for p in stacked.values()) == sum(
+        p.numel() for p in per_layer.values())
+    assert param_leaves(Transformer(ct.replace(loss_chunk=64), device="meta")).keys() == (
+        per_layer.keys())
+    with pytest.raises(ValueError, match="remat_policy"):
+        Transformer(ct.replace(remat_policy="offload"), device="meta")
     from repro_torch.configs.base import BlockSpec, SSMConfig
 
     mla = dataclasses.replace(ct.attention, kind="mla")
