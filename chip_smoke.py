@@ -41,7 +41,17 @@
    shapes, their time beside SDPA's bf16 forward or backward, ptxas's
    registers and spills, their error against float64 and their tensor
    maps' host ns, each beside the old kernels' (``flash_bf16_fwd``,
-   ``flash_bf16_bwd``).
+   ``flash_bf16_bwd``). At head widths 48 and 96, which no kernel is built
+   for, both entry points run zero-padded to 64 and 128 at the true width's
+   scale, as ``flash_attention`` runs them, and are held to their plain
+   versions at the true width (``flash_widths``).
+   ``tune`` then runs ``python -m repro_torch.tune --measure`` into a
+   temporary cache at its default shapes and at paper_1b's grouped B5
+   launch: every chunk B5 takes, timed cold, beside the card's name and
+   power limit; B1-B3 and B4 timed at their one geometry. In-process, B5
+   at paper_95m's leaves with each chunk must equal the default chunk's bit
+   for bit, and with the cache named the next launch must take the cached
+   chunk.
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
@@ -137,7 +147,7 @@
    ``paper_1b_sim`` trains the paper's 1B model (24 layers, d_model 1728,
    27 heads of dh 64, d_ff 6912, vocab 50,304) at full width through the
    launcher on the sim path (8 stages, basis rotation, ``--use-kernels``)
-   for 12 steps, after printing what the step must hold by kind, reckoned
+   for 6 steps, after printing what the step must hold by kind, reckoned
    on the meta device (``reckon_sim``; layers are cut only if that does not
    fit): finite losses, per step four B4 launches and one B5 launch (in
    place) over its 144 rotated leaves, B1-B3 none, and the peak beside the
@@ -193,7 +203,8 @@
    query-chunked attention is the no-kernel path), layers cut only if the
    dry run's reckoning of the step passed 90% of the card;
    ``long_context_prefill``, ``make_prefill_step`` at the largest batch the
-   dry run reckons under 90% of the card; ``long_context_decode``, one
+   dry run reckons under 90% of the card, at most 3 (``LONG_PREFILL_BATCH``,
+   the script's time limit); ``long_context_decode``, one
    ``make_serve_step`` at position 32,767 of a stacked cache, batch cut the
    same way; each with its time, its peak beside the dry run's reckoned
    peak for the same config and (batch, seq), and its launches. Meanwhile
@@ -201,7 +212,8 @@
    ``launch.dryrun_pipeline`` under each schedule on the meta device;
    ``dryrun`` waits for them and counts their rows' statuses (every
    process exits 0, a row for each of the 40 (arch, shape) pairs, no
-   error). Phase 2 holds and times B4 and B5 at that train step's groups
+   error, every ok row with its ``sharded`` bytes of one device of the
+   reference's grid). Phase 2 holds and times B4 and B5 at that train step's groups
    (kernel-line rows ``matmul_long_context``, ``adam_scale_long_context``).
    ``peaks`` prints the peaks of phases 3-4, ``catalog_1f1b``
    and ``xlstm_sim`` beside theirs before the optimizer state was updated
@@ -237,6 +249,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -329,10 +342,11 @@ XLSTM_ARGS = ["--arch", "xlstm_1_3b", "--backend", "sim", "--stages", "8",
 XLSTM_DECODE_TOL = 1e-3
 # paper_1b (the abstract's 1B model) at full width on the sim path: 8 stages,
 # basis rotation (second-moment source, bilateral, refresh every 10 steps),
-# 12 steps so that the refresh at step 10 is timed apart from the first step.
-# The layers are cut only if the reckoning (``reckon_sim``) does not fit the card
+# 6 steps (cut from 12 for the script's time limit): the refresh at step 0 and
+# five steps after it. The layers are cut only if the reckoning (``reckon_sim``)
+# does not fit the card
 PAPER_1B_ARGS = ["--arch", "paper_1b", "--backend", "sim", "--stages", "8",
-                 "--optimizer", "basis_rotation", "--use-kernels", "--steps", "12",
+                 "--optimizer", "basis_rotation", "--use-kernels", "--steps", "6",
                  "--batch", "8", "--seq", "256", "--log-every", "1"]
 # the catalog's frontend and MoE configs at full width on the sim path, each
 # through the launcher for 4 steps, cut in depth (and llava in batch) to what
@@ -383,6 +397,9 @@ LONG_SEQ = 32_768
 # one step, the refresh step: the phase's time is set by (b)'s batch and by
 # this step's ~57 s (PERF.md §6), and the script must keep its time limit
 LONG_STEPS = 1
+# prefill rows, cut from the largest batch the reckoning fits under FIT_SHARE (7
+# at 28 layers) for the script's time limit
+LONG_PREFILL_BATCH = 3
 LONG_OVERRIDES = {"dtype": "float32", "remat_policy": "full", "loss_chunk": 2048}
 LONG_CHECK_TOL = 2e-4  # chunked attention against dense (tests/test_models.py:127)
 LONG_CE_TOL = 1e-5  # chunked cross-entropy against whole (tests/test_models.py:227, :232)
@@ -458,6 +475,11 @@ OLD_F32_BWD = {
 # B1, B2 and B3 x float32 and bf16 entry points (each its own kernel) x head dims
 # 16, 32, 64, 128
 FLASH_INSTANTIATIONS = 24
+# head widths the flash kernels are not built for, run zero-padded to the next
+# built width (``kernels.flash.padded_width``), at (heads, S 256)
+FLASH_WIDTHS = (48, 96)
+FLASH_WIDTH_HEADS = 6
+TUNE_TIMEOUT = 120  # seconds each ``python -m repro_torch.tune`` run may take
 
 
 T_START = time.perf_counter()
@@ -627,8 +649,9 @@ def check_matmul_groups(torch, kmm, paths, peaks):
         if timed:
             flops, nbytes = mm_work(problems)
             # a group of more than LONG_GROUP_FLOPS takes 50 ms or more a
-            # launch, whose spread is well below a percent: fewer repeats
-            reps, warmup = (2, 1) if flops > LONG_GROUP_FLOPS else (10, 2)
+            # launch, whose spread is well below a percent: one timed run
+            # after one warmup (cut from two for the script's time limit)
+            reps, warmup = (1, 1) if flops > LONG_GROUP_FLOPS else (10, 2)
             row["ms"], row["host_ms"] = time_ms(
                 lambda: kmm.matmul_grouped(As, Bs, trans_a=ta, trans_b=tb), reps, warmup)
             row["plain_ms"], _ = time_ms(
@@ -943,6 +966,149 @@ def check_flash(torch, kflash, peaks, path=FLASH_PATH):
         tc, f32, by = bounds(f_in + f_p, nbytes, peaks, TF32_PASSES)
         timing[name].update(bound_ms=tc, bound_fp32_ms=f32, bound_by=by)
     return rows, errs, timing
+
+
+def check_flash_widths(torch, kflash):
+    """B1-B3 at head widths they are not built for (``FLASH_WIDTHS``, S 256,
+    float32 and bf16), as ``flash_attention`` runs them: q, k, v and dO
+    zero-padded to ``padded_width``, the scale of the true width passed to
+    each kernel, the outputs sliced back. Each is held against its plain
+    version at the true width on the same inputs (B2 and B3 on the kernel's
+    L and D), within the path cases' tolerances; the padded columns of O
+    must be zero, and ``flash_attention``'s forward must equal the padded
+    launch bit for bit. Returns (rows, errs)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, errs = [], {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    pad = torch.nn.functional.pad
+    for dh in FLASH_WIDTHS:
+        width, scale = kflash.padded_width(dh), kflash._scale(dh)
+        for dtype in (torch.float32, torch.bfloat16):
+            BH, S = FLASH_WIDTH_HEADS, 256
+            q, k, v, do = (torch.randn((BH, S, dh), device="cuda", generator=gen).to(dtype)
+                           for _ in range(4))
+            qp, kp, vp, dop = (pad(x, (0, width - dh)) for x in (q, k, v, do))
+            o_pad, L = kflash.flash_fwd(qp, kp, vp, scale=scale)
+            o = o_pad[..., :dh]
+            D = (do.float() * o.float()).sum(-1)
+            dq = kflash.flash_bwd_dq(qp, kp, vp, dop, L, D, scale=scale)[..., :dh]
+            dk, dv = (x[..., :dh] for x in kflash.flash_bwd_dkv(qp, kp, vp, dop, L, D,
+                                                                scale=scale))
+            o_p, L_p = kflash.flash_fwd_plain(q, k, v)
+            dq_p = kflash.flash_bwd_dq_plain(q, k, v, do, L, D)
+            dk_p, dv_p = kflash.flash_bwd_dkv_plain(q, k, v, do, L, D)
+            whole = kflash.flash_attention(*(x.reshape(1, BH, S, dh) for x in (q, k, v)))
+            torch.cuda.synchronize()
+            if not (torch.equal(o_pad[..., dh:], torch.zeros_like(o_pad[..., dh:]))
+                    and torch.equal(whole.reshape(BH, S, dh), o)):
+                raise AssertionError(f"flash at dh {dh} {dtype}: padded columns of O not zero "
+                                     "or flash_attention differs from the padded launch")
+            f32 = dtype == torch.float32
+            fwd_tol = ((FWD_RTOL, FWD_ATOL), (FWD_RTOL, FWD_ATOL)) if f32 else (
+                (BF16_TOL, BF16_TOL), (BF16_L_TOL, BF16_L_TOL))
+            bwd_tol = (BWD_RTOL, BWD_ATOL) if f32 else (BF16_TOL, BF16_TOL)
+            row = {"dh": dh, "padded_to": width, "dtype": str(dtype).split(".")[-1],
+                   "shape": [BH, S, dh]}
+            for name, pairs in (("flash_fwd", ((o, o_p) + fwd_tol[0], (L, L_p) + fwd_tol[1])),
+                                ("flash_bwd_dq", ((dq, dq_p) + bwd_tol,)),
+                                ("flash_bwd_dkv", ((dk, dk_p) + bwd_tol, (dv, dv_p) + bwd_tol))):
+                err = max((a.float() - b.float()).abs().max().item() for a, b, _, _ in pairs)
+                row[name + "_max_abs_err"] = err
+                errs[name] = max(errs[name], err)
+                if not all(torch.allclose(a.float(), b.float(), rtol=rt, atol=at)
+                           for a, b, rt, at in pairs):
+                    raise AssertionError(f"{name} at dh {dh} padded to {width} ({dtype}): "
+                                         f"max abs err {err}")
+            rows.append(row)
+    return rows, errs
+
+
+def tune_phase(torch, kadam, smi):
+    """``python -m repro_torch.tune --measure`` into a temporary cache: its
+    default shapes (paper_95m's grouped B5 launch, B1-B3 at (256, 64) in
+    float32 and bf16 and at (256, 128), B4 at paper_95m's rotation
+    products), then, through the same CLI's ``main`` in this process,
+    paper_1b's grouped B5 launch. The tuner times every
+    chunk B5 takes cold and holds it bitwise to the rule's chunk. Here,
+    in-process at paper_95m's leaves: the launch with each candidate chunk
+    must equal the default chunk's bit for bit, and with the cache named the
+    next launch must read the cached chunk. Returns the phase's line."""
+    from repro_torch import tune
+    from repro_torch.configs import get_config
+    from repro_torch.launch.bench_matmul import path_groups
+    from repro_torch.tune.__main__ import main as tune_main
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tune_")
+    cache = os.path.join(tmp, "tune.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        out = subprocess.run([sys.executable, "-m", "repro_torch.tune", "--measure",
+                              "--cache", cache], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=TUNE_TIMEOUT)
+        if out.returncode != 0:
+            raise AssertionError(f"repro_torch.tune: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        # the same CLI's main in this process, which has the library loaded already
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            tune_main(["--measure", "--cache", cache, "--adam", "paper_1b"])
+        plans = [json.loads(x) for x in (out.stdout + text.getvalue()).splitlines()
+                 if x.startswith("{")]
+        adam = {p["plan"]["of"]: p for p in plans if p["kernel"] == "adam_scale"}
+        if set(adam) != {"paper_95m", "paper_1b"} or not all(
+                p["plan"]["backend"] == "measured" and p["plan"]["bitwise_equal"]
+                and set(p["plan"]["candidates_us"]) == {str(c) for c in kadam.CHUNKS}
+                for p in adam.values()):
+            raise AssertionError(f"tune: B5 plans {adam}")
+        # in-process: every chunk bitwise equal to the default's, then the cache read
+        _, shapes = path_groups(get_config("paper_95m"))
+        gs, ms, vs = _adam_leaves(torch, torch.Generator(device="cuda").manual_seed(7), shapes)
+        want = kadam.adam_scale_grouped(gs, ms, vs, *ADAM_SCALARS)
+        default_chunk = kadam.adam_scale.chunks
+        bitwise = {}
+        for chunk in kadam.CHUNKS:
+            got = kadam.adam_scale_grouped(gs, ms, vs, *ADAM_SCALARS, chunk=chunk)
+            bitwise[chunk] = all(torch.equal(a, b) for x, y in zip(got, want)
+                                 for a, b in zip(x, y))
+            del got
+        saved = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = cache
+        tune.clear_memo()
+        try:
+            kadam.adam_scale_grouped(gs, ms, vs, *ADAM_SCALARS)
+            read = kadam.adam_scale.chunks
+        finally:
+            if saved is None:
+                os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_TUNE_CACHE"] = saved
+            tune.clear_memo()
+        del gs, ms, vs, want
+        torch.cuda.empty_cache()
+        if not all(bitwise.values()) or read != [adam["paper_95m"]["plan"]["chunk"]]:
+            raise AssertionError(f"tune: bitwise by chunk {bitwise}; the launch after the "
+                                 f"plan took chunks {read}, the plan "
+                                 f"{adam['paper_95m']['plan']['chunk']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "tune", "nvidia_smi": smi, "s": time.perf_counter() - t0,
+            "adam_scale": {arch: {
+                "elements": p["shape"][0], "leaves": p["plan"]["leaves"],
+                "rule_chunk": p["plan"]["rule_chunk"], "best_chunk": p["plan"]["chunk"],
+                "candidates_ms": {c: us / 1e3 for c, us in p["plan"]["candidates_us"].items()}}
+                for arch, p in adam.items()},
+            "adam_bitwise_by_chunk": bitwise, "default_chunk": default_chunk,
+            "chunk_read_from_cache": read,
+            "flash_fwd_bwd_ms": {f"{p['shape'][0]}x{p['shape'][1]} {p['dtype']} "
+                                 f"BH {p['plan']['batch_heads']}": p["plan"]["us"] / 1e3
+                                 for p in plans if p["kernel"] == "flash"},
+            "flash_cost_model_ms": {f"{p['shape'][0]}x{p['shape'][1]} {p['dtype']}":
+                                    p["plan"]["cost_s"] * 1e3
+                                    for p in plans if p["kernel"] == "flash"},
+            "matmul_ms": {"x".join(map(str, p["shape"])): p["plan"]["us"] / 1e3
+                          for p in plans if p["kernel"] == "matmul"},
+            "matmul_cost_model_ms": {"x".join(map(str, p["shape"])): p["plan"]["cost_s"] * 1e3
+                                     for p in plans if p["kernel"] == "matmul"}}
 
 
 def check_flash_bf16(torch, kflash, peaks, path=FLASH_PATH):
@@ -1329,8 +1495,8 @@ def run_long_context(torch, kernels, none, card_bytes):
     cross-entropy (``loss_chunk`` 2,048), ``LONG_STEPS`` steps (a refresh at
     step 0); layers are cut only if the dry run's reckoning of the step
     passes ``FIT_SHARE`` of the card; (b) ``make_prefill_step`` at the
-    largest batch the dry run reckons under ``FIT_SHARE`` (at most
-    prefill_32k's 32); (c) ``make_serve_step`` at position 32,767 of a
+    largest batch the dry run reckons under ``FIT_SHARE``, at most
+    ``LONG_PREFILL_BATCH``; (c) ``make_serve_step`` at position 32,767 of a
     stacked decode_32k cache, its batch cut the same way (at most 128).
     Each part emits its line (``long_context_train``, ``_prefill``,
     ``_decode``) with its time, its peak beside the dry run's reckoned peak
@@ -1424,7 +1590,9 @@ def run_long_context(torch, kernels, none, card_bytes):
     # (b) prefill at the largest batch the dry run reckons under the gate
     t0 = time.perf_counter()
     B, peak = fit_batch(lambda b: reckon("prefill_32k", b, layers)["peak_bytes_per_device"],
-                        32, card_bytes)
+                        LONG_PREFILL_BATCH, card_bytes)
+    out["reduced"]["prefill_batch"] = (f"{B}: at most {LONG_PREFILL_BATCH} of prefill_32k's "
+                                       "32 (the script's time limit)")
     prefill = {"reckon_s": time.perf_counter() - t0, "batch": B,
                "reckoned_peak_gb": peak / 1e9}
     model = fresh_model()
@@ -1524,6 +1692,13 @@ def finish_dryruns(runs):
         if name == "dryrun_all":
             out[name]["fits"] = sorted(f"{r['arch']}/{r['shape']}" for r in lines if r.get("fits"))
             want = len(ARCH_IDS) * len(INPUT_SHAPES)
+            ok = [r for r in lines if r["status"] == "ok"]
+            # one device of the reference's grid under the sharding rules
+            out[name]["sharded_gb"] = {f"{r['arch']}/{r['shape']}": r["sharded"]["total_bytes"]
+                                       / 1e9 for r in ok if "sharded" in r}
+            if not all("sharded" in r and r["sharded"]["mesh"] == r["reference_mesh"]
+                       and r["sharded"]["total_bytes"] > 0 for r in ok):
+                raise AssertionError(f"{name}: an ok row without its sharded figures")
         else:
             row = lines[-1] if lines else {}
             out[name].update({k: row.get(k) for k in (
@@ -2586,6 +2761,8 @@ def main() -> int:
                                          QWEN3_FLASH_PATH)
     h128b_rows, h128b_errs, h128b_t = timed("flash_bf16_dh128", check_flash_bf16, torch,
                                             kflash, peaks, QWEN3_FLASH_PATH)
+    # head widths 48 and 96, zero-padded to 64 and 128, both entry points
+    width_rows, width_errs = timed("flash_widths", check_flash_widths, torch, kflash)
     # the bf16 B1, B2 and B3 (wgmma) at both path shapes: their time beside
     # SDPA's bf16 forward or backward, ptxas's registers and spills, and their
     # error against float64, each beside the old kernels', and the host ns to
@@ -2652,7 +2829,8 @@ def main() -> int:
          "flash": flash_rows, "flash_timing_per_launch": flash_t,
          "flash_bf16": bf16_rows, "flash_bf16_timing_per_launch": bf16_t,
          "flash_dh128": h128_rows, "flash_dh128_timing_per_launch": h128_t,
-         "flash_bf16_dh128": h128b_rows, "flash_bf16_dh128_timing_per_launch": h128b_t},
+         "flash_bf16_dh128": h128b_rows, "flash_bf16_dh128_timing_per_launch": h128b_t,
+         "flash_widths": width_rows},
         indent=1))
     emit({"phase": "kernels", "check_s": check_s, "matmul_cases": len(mm_rows) + len(grp_rows),
           "matmul_max_abs_err": mm_err,
@@ -2685,6 +2863,8 @@ def main() -> int:
                                         for k in bf16_t},
           "flash_f32_fwd": f32_fwd, "flash_f32_bwd": f32_bwd, "flash_bf16_fwd": bf16_fwd,
           "flash_bf16_bwd": bf16_bwd,
+          "flash_widths": {"cases": len(width_rows), "max_abs_err": width_errs,
+                           "padded_to": {r["dh"]: r["padded_to"] for r in width_rows}},
           **{f"flash{tag}_dh128": {
               "cases": len(r), "max_abs_err": e, "blocks": {k: x["blocks"] for k, x in t.items()},
               "ms_per_launch": {k: {f: x[f] for f in ("ms", "plain_ms", "library_ms",
@@ -2695,6 +2875,10 @@ def main() -> int:
               "bitwise_repeat": all(row[k + "_bitwise_repeat"] for row in r for k in t)}
              for tag, r, e, t in (("", h128_rows, h128_errs, h128_t),
                                   ("_bf16", h128b_rows, h128b_errs, h128b_t))}})
+
+    # the tuner: B5's chunks timed on the card into a temporary cache
+    torch.cuda.empty_cache()
+    emit(tune_phase(torch, kadam, smi))
 
     # phase 3: the sim path
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])

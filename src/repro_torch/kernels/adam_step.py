@@ -7,7 +7,14 @@ leaves of any shapes; ``adam_scale`` is a group of one. CPU tensors take
 ``adam_scale_plain`` (and meta tensors, which a dry run traces), CUDA
 tensors launch the kernel or raise.
 ``adam_scale.launches`` counts launches of the kernel, one per group of up
-to ``MAX_LEAVES`` leaves that holds any element, through either entry.
+to ``MAX_LEAVES`` leaves that holds any element, through either entry;
+``adam_scale.chunks`` lists the chunk of each launch of the last call.
+
+The chunk (elements one block takes) is the one launch parameter chosen
+at run time. A CUDA launch over ``E`` elements in all first asks the
+tuner's cache (``repro_torch.tune.kernel_plan("adam_scale", (E,),
+"float32", platform)``); a miss keeps ``chunk_size``'s rule, and a cached
+chunk the kernel does not take raises. Every chunk gives the same bits.
 
 Computes, in float32:
     v'   = b2 * v + (1 - b2) * g^2
@@ -20,7 +27,7 @@ moments; ``adam_scale_plain(..., out=v)`` is its plain version.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +41,7 @@ THREADS = 256  # threads of one block: csrc/adam_step.cu's THREADS
 MAX_LEAVES = 256  # leaves one launch's parameter table holds
 CHUNK_MIN, CHUNK_MAX = 4 * THREADS, 32 * THREADS  # elements one block takes
 FILL_BLOCKS = 1024  # blocks a launch should have before its chunks grow past CHUNK_MIN
+CHUNKS = (1024, 2048, 4096, 8192)  # the chunks a launch takes: powers of two in between
 
 # one launch's parameter table: the g, m, v, step, v' addresses (int64, (L, 5)), the
 # element counts (int64, L), the 16-byte-load flags (int32, L), the chunk prefix sum
@@ -71,21 +79,41 @@ def chunk_size(elements: int) -> int:
     return chunk
 
 
+def planned_chunk(elements: int, device: torch.device) -> int:
+    """The chunk of a CUDA launch over ``elements``: the tuner's cached
+    plan for it on this card, else ``chunk_size``'s rule. A cached chunk the
+    kernel does not take raises, naming its key and the cache file."""
+    from repro_torch import tune
+
+    platform = tune.platform_name(device)
+    plan = tune.kernel_plan("adam_scale", (elements,), "float32", platform)
+    if plan is None:
+        return chunk_size(elements)
+    chunk = plan.get("chunk")
+    if chunk not in CHUNKS:
+        key = tune.make_key("adam_scale", (elements,), "float32", platform)
+        raise ValueError(f"adam_scale: the cached plan {key!r} in {tune.cache_path()} holds "
+                         f"chunk {chunk!r}; the kernel takes {CHUNKS}")
+    return chunk
+
+
 def launch_tables(ptrs: Sequence[Tuple[int, int, int, int, int]],
-                  numels: Sequence[int]) -> List[Table]:
+                  numels: Sequence[int],
+                  chunk_of: Callable[[int], int] = chunk_size) -> List[Table]:
     """The kernel's parameter tables, one per launch of up to ``MAX_LEAVES``
     leaves in the given order. A leaf's flag is 1 when its five addresses
     are 16-byte aligned and its length is a multiple of 4, so the kernel
     may move it by 16-byte loads and stores. Leaf i holds chunks
     ``start[i] <= c < start[i + 1]``, each of ``chunk`` elements but its
-    last; a leaf with no elements holds none."""
+    last; a leaf with no elements holds none. ``chunk_of`` gives a launch's
+    chunk from its elements in all."""
     ptrs = np.asarray(ptrs, dtype=np.int64).reshape(-1, 5)
     n = np.asarray(numels, dtype=np.int64).reshape(-1)
     vec = ((ptrs % 16 == 0).all(axis=1) & (n % 4 == 0)).astype(np.int32)
     tables = []
     for first in range(0, len(n), MAX_LEAVES):
         part = slice(first, first + MAX_LEAVES)
-        chunk = chunk_size(int(n[part].sum()))
+        chunk = chunk_of(int(n[part].sum()))
         start = np.concatenate([[0], np.cumsum(-(-n[part] // chunk))])
         if start[-1] >= 2 ** 31:
             raise ValueError(f"adam_scale_grouped: {start[-1]} chunks in one launch")
@@ -111,13 +139,16 @@ def _check(i: int, g: Tensor, m: Tensor, v: Tensor, device: torch.device) -> Non
 
 def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[Tensor],
                        beta2: float, eps: float, bc1: float, bc2: float,
-                       inplace: bool = False) -> Tuple[List[Tensor], List[Tensor]]:
+                       inplace: bool = False,
+                       chunk: Optional[int] = None) -> Tuple[List[Tensor], List[Tensor]]:
     """([step_i], [v'_i]) for lists of float32 g_i, m_i, v_i (one shape per
     leaf, contiguous; shapes differ from leaf to leaf); scalars are host
     floats. Every step_i has storage of its own, allocated leaf by leaf as
     launches of one leaf each allocated them. Each v'_i outlives the step
     as optimizer state: in storage of its own too, or with ``inplace`` in
-    v_i's (the returned v'_i are then the v_i themselves)."""
+    v_i's (the returned v'_i are then the v_i themselves). ``chunk`` (one
+    of ``CHUNKS``) fixes every launch's chunk, as the tuner times them;
+    by default ``planned_chunk`` picks it."""
     if not (len(gs) == len(ms) == len(vs)):
         raise ValueError(f"adam_scale_grouped: {len(gs)} g, {len(ms)} m, {len(vs)} v")
     if not gs:
@@ -129,6 +160,8 @@ def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[
     device = gs[0].device
     if not gs[0].is_cuda:
         raise ValueError(f"adam_scale_grouped: tensors on {device}, not on a CUDA device")
+    if chunk is not None and chunk not in CHUNKS:
+        raise ValueError(f"adam_scale_grouped: chunk {chunk} not in {CHUNKS}")
     for i, (g, m, v) in enumerate(zip(gs, ms, vs)):
         _check(i, g, m, v, device)
     # in place, each element of v is read and then written by one thread of
@@ -141,14 +174,18 @@ def adam_scale_grouped(gs: Sequence[Tensor], ms: Sequence[Tensor], vs: Sequence[
     b2, _, eps, bc1, bc2 = _scalars(beta2, eps, bc1, bc2)
     lib = load_library().lib
     stream = torch.cuda.current_stream(device).cuda_stream
-    for p, n, vec, start, chunk in launch_tables(ptrs, [g.numel() for g in gs]):
+    chunk_of = ((lambda _: chunk) if chunk is not None
+                else (lambda elements: planned_chunk(elements, device)))
+    adam_scale.chunks = []
+    for p, n, vec, start, c in launch_tables(ptrs, [g.numel() for g in gs], chunk_of):
         if start[-1] == 0:
             continue  # no leaf of this part holds an element
         check(lib.rbr_adam_scale_grouped_f32(p.ctypes.data, n.ctypes.data, vec.ctypes.data,
-                                             start.ctypes.data, len(n), chunk, b2, eps, bc1,
+                                             start.ctypes.data, len(n), c, b2, eps, bc1,
                                              bc2, device.index, stream),
               "adam_scale_grouped")
         adam_scale.launches += 1
+        adam_scale.chunks.append(c)
     return steps, v_news
 
 
@@ -163,3 +200,4 @@ def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
 
 
 adam_scale.launches = 0
+adam_scale.chunks = []  # the chunk of each launch of the last call on a card

@@ -32,7 +32,12 @@ and L, the residuals the 1F1B stash budget assumes; D = rowsum(dO * O),
 computed in float32, is an elementwise torch reduction, as the reference
 computes it outside Pallas. Layout: (BH, S, dh) at the kernels, (B, H, S,
 dh) at ``flash_attention``. The kernels mask the ragged end of S
-themselves, so nothing is padded.
+themselves, so nothing is padded along S. They are built for the head
+widths in ``HEAD_DIMS``; ``flash_attention`` takes any width up to 128 by
+zero-padding q, k and v to the next of them (``padded_width``), with the
+softmax scale of the true width: the zero columns add nothing to the
+scores, the output's padded columns are zeros, and slicing them off slices
+the gradients back (the reference's ``BlockSpec``s cover any head width).
 """
 from __future__ import annotations
 
@@ -55,6 +60,16 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the kernels' input dt
 
 def _scale(dh: int) -> float:
     return float(np.float32(1.0 / math.sqrt(dh)))
+
+
+def padded_width(dh: int) -> int:
+    """The head width the kernels run ``dh`` at: the least of ``HEAD_DIMS``
+    that holds it. Widths above the largest are refused."""
+    for width in HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"flash_attention: head dim {dh} above {HEAD_DIMS[-1]}, the widest "
+                     f"the kernels are built for")
 
 
 def visible_mask(S: int, seq_len: int, causal: bool, window: Optional[int],
@@ -83,14 +98,16 @@ def _up(*xs: Tensor):
 
 
 def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: Optional[int] = None,
-                    seq_len: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """B1's plain version: (O, L) for (BH, S, dh) inputs; O in their dtype."""
+                    window: Optional[int] = None, seq_len: Optional[int] = None,
+                    scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
+    """B1's plain version: (O, L) for (BH, S, dh) inputs; O in their dtype.
+    ``scale`` multiplies the scores (1/sqrt(dh) of the inputs' width by
+    default), as in every wrapper and plain version here."""
     dt = q.dtype
     q, k, v = _up(q, k, v)
     S, dh = q.shape[-2], q.shape[-1]
     mask = visible_mask(S, S if seq_len is None else seq_len, causal, window, q.device)
-    s = torch.matmul(q, k.mT) * _scale(dh)
+    s = torch.matmul(q, k.mT) * (_scale(dh) if scale is None else scale)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
@@ -101,7 +118,7 @@ def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     return o.to(dt), L[..., 0]
 
 
-def _p_ds(q, k, v, do, L, D, causal, window):
+def _p_ds(q, k, v, do, L, D, causal, window, scale):
     """P and dS of the backward, float32 (or wider). On bfloat16 inputs both
     are rounded to bf16 once, dS from the float32 P, as the kernels round
     them before their products (the bf16 x bf16 wgmma of B2 and B3)."""
@@ -109,7 +126,7 @@ def _p_ds(q, k, v, do, L, D, causal, window):
     q, k, v, do = _up(q, k, v, do)
     S, dh = q.shape[-2], q.shape[-1]
     mask = visible_mask(S, S, causal, window, q.device)
-    s = torch.matmul(q, k.mT) * _scale(dh)
+    s = torch.matmul(q, k.mT) * scale
     # fully-masked rows carry L = NEG_INF: the select keeps their overflowing
     # exp out of p
     p = torch.where(mask, torch.exp(s - L[..., None]), torch.zeros_like(s))
@@ -120,20 +137,23 @@ def _p_ds(q, k, v, do, L, D, causal, window):
 
 
 def flash_bwd_dq_plain(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Tensor, *,
-                       causal: bool = True, window: Optional[int] = None) -> Tensor:
+                       causal: bool = True, window: Optional[int] = None,
+                       scale: Optional[float] = None) -> Tensor:
     """B2's plain version: dQ, in q's dtype."""
-    _, ds = _p_ds(q, k, v, do, L, D, causal, window)
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    _, ds = _p_ds(q, k, v, do, L, D, causal, window, scale)
     kf, = _up(k)
-    return (torch.matmul(ds, kf) * _scale(q.shape[-1])).to(q.dtype)
+    return (torch.matmul(ds, kf) * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Tensor, *,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
     """B3's plain version: (dK, dV), in k's and v's dtypes."""
-    p, ds = _p_ds(q, k, v, do, L, D, causal, window)
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    p, ds = _p_ds(q, k, v, do, L, D, causal, window, scale)
     qf, dof = _up(q, do)
-    return ((torch.matmul(ds.mT, qf) * _scale(q.shape[-1])).to(k.dtype),
+    return ((torch.matmul(ds.mT, qf) * scale).to(k.dtype),
             torch.matmul(p.mT, dof).to(v.dtype))
 
 
@@ -186,14 +206,18 @@ def _stream(x: Tensor) -> int:
 
 
 def flash_fwd(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-              window: Optional[int] = None,
-              seq_len: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+              window: Optional[int] = None, seq_len: Optional[int] = None,
+              scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
     """B1: (O (BH, S, dh), L (BH, S) float32). Keys at or past ``seq_len``
-    (default S) are masked, as the reference masks its padding."""
+    (default S) are masked, as the reference masks its padding. ``scale``
+    multiplies the scores: 1/sqrt(dh) by default, that of the true width
+    when the heads were zero-padded."""
     if _on_cpu(q, k, v):
-        return flash_fwd_plain(q, k, v, causal=causal, window=window, seq_len=seq_len)
+        return flash_fwd_plain(q, k, v, causal=causal, window=window, seq_len=seq_len,
+                               scale=scale)
     dt = _check("flash_fwd", (q, k, v))
     BH, S, dh = q.shape
+    scale = _scale(dh) if scale is None else float(scale)
     seq_len = S if seq_len is None else int(seq_len)
     if not 0 <= seq_len <= S:
         raise ValueError(f"flash_fwd: seq_len {seq_len} outside [0, {S}]")
@@ -201,40 +225,44 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     L = torch.empty((BH, S), dtype=torch.float32, device=q.device)
     check(getattr(load_library().lib, f"rbr_flash_fwd_{dt}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), L.data_ptr(), BH, S, dh,
-        seq_len, int(causal), _window(window), _scale(dh), q.device.index, _stream(q)),
+        seq_len, int(causal), _window(window), scale, q.device.index, _stream(q)),
         "flash_fwd")
     _count(flash_fwd, dt)
     return o, L
 
 
 def flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Tensor, *,
-                 causal: bool = True, window: Optional[int] = None) -> Tensor:
+                 causal: bool = True, window: Optional[int] = None,
+                 scale: Optional[float] = None) -> Tensor:
     """B2: dQ (BH, S, dh)."""
     if _on_cpu(q, k, v, do, L, D):
-        return flash_bwd_dq_plain(q, k, v, do, L, D, causal=causal, window=window)
+        return flash_bwd_dq_plain(q, k, v, do, L, D, causal=causal, window=window, scale=scale)
     dt = _check("flash_bwd_dq", (q, k, v, do), (L, D))
     BH, S, dh = q.shape
+    scale = _scale(dh) if scale is None else float(scale)
     dq = torch.empty_like(q)
     check(getattr(load_library().lib, f"rbr_flash_bwd_dq_{dt}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), L.data_ptr(), D.data_ptr(),
-        dq.data_ptr(), BH, S, dh, int(causal), _window(window), _scale(dh), q.device.index,
+        dq.data_ptr(), BH, S, dh, int(causal), _window(window), scale, q.device.index,
         _stream(q)), "flash_bwd_dq")
     _count(flash_bwd_dq, dt)
     return dq
 
 
 def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, L: Tensor, D: Tensor, *,
-                  causal: bool = True,
-                  window: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
     """B3: (dK, dV), each (BH, S, dh)."""
     if _on_cpu(q, k, v, do, L, D):
-        return flash_bwd_dkv_plain(q, k, v, do, L, D, causal=causal, window=window)
+        return flash_bwd_dkv_plain(q, k, v, do, L, D, causal=causal, window=window,
+                                   scale=scale)
     dt = _check("flash_bwd_dkv", (q, k, v, do), (L, D))
     BH, S, dh = q.shape
+    scale = _scale(dh) if scale is None else float(scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     check(getattr(load_library().lib, f"rbr_flash_bwd_dkv_{dt}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), L.data_ptr(), D.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), BH, S, dh, int(causal), _window(window), _scale(dh),
+        dk.data_ptr(), dv.data_ptr(), BH, S, dh, int(causal), _window(window), scale,
         q.device.index, _stream(q)), "flash_bwd_dkv")
     _count(flash_bwd_dkv, dt)
     return dk, dv
@@ -271,10 +299,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                window: Optional[int]) -> Tensor:
-        o, L = flash_fwd(q, k, v, causal=causal, window=window)
+                window: Optional[int], scale: Optional[float] = None) -> Tensor:
+        o, L = flash_fwd(q, k, v, causal=causal, window=window, scale=scale)
         ctx.save_for_backward(q, k, v, o, L)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return o
 
     @staticmethod
@@ -282,16 +310,24 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, L = ctx.saved_tensors
         do = do.contiguous()
         D = (do.float() * o.float()).sum(dim=-1)
-        kw = dict(causal=ctx.causal, window=ctx.window)
+        kw = dict(causal=ctx.causal, window=ctx.window, scale=ctx.scale)
         dq = flash_bwd_dq(q, k, v, do, L, D, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, do, L, D, **kw)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: Optional[int] = None) -> Tensor:
     """q, k, v: (B, H, S, dh) float32 or bfloat16 -> (B, H, S, dh) in their
-    dtype; differentiable."""
+    dtype; differentiable. A width outside ``HEAD_DIMS`` (up to 128) runs
+    zero-padded to ``padded_width(dh)`` at the scale of ``dh``, and the
+    padded columns of the output are sliced off."""
     B, H, S, dh = q.shape
-    flat = [x.reshape(B * H, S, dh).contiguous() for x in (q, k, v)]
-    return FlashAttention.apply(*flat, causal, window).reshape(B, H, S, dh)
+    width = padded_width(dh)
+    flat = [x.reshape(B * H, S, dh) for x in (q, k, v)]
+    if width == dh:
+        flat = [x.contiguous() for x in flat]
+        return FlashAttention.apply(*flat, causal, window).reshape(B, H, S, dh)
+    flat = [torch.nn.functional.pad(x, (0, width - dh)) for x in flat]
+    o = FlashAttention.apply(*flat, causal, window, _scale(dh))
+    return o[..., :dh].reshape(B, H, S, dh)

@@ -76,7 +76,10 @@ def adam_scale(g: Tensor, m: Tensor, v: Tensor, beta2: float, eps: float,
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
               window: Optional[int] = None) -> Tensor:
-    """Flash attention over (B, H, S, dh): B1 forward, B2 and B3 backward.
-    The reference's block sizes have no counterpart: the CUDA kernels use
-    one 64 x 64 tile geometry at every shape."""
+    """Flash attention over (B, H, S, dh): B1 forward, B2 and B3 backward,
+    at any head width up to 128 (zero-padded to a built one). The
+    reference's block sizes, and its tuned plans, have no counterpart: each
+    CUDA kernel is built for one geometry per head width and dtype, and
+    reads no plan from ``repro_torch.tune`` (whose entries for it record
+    that geometry's cost and time)."""
     return flash_attention(q, k, v, causal=causal, window=window)

@@ -31,16 +31,24 @@ a basis refresh's (the heavier one in memory: the grams, their products
 and the QR).
 
 The grid. The reference compiles for the production mesh (data 16, model
-16), or (pod 2, data 16, model 16) with ``--multi-pod``. The port runs data
-parallelism between processes and has no tensor-parallel ``model`` axis,
-so a row is one data replica's step on one card: the global batch over
-pods x 16 replicas (at least one row), with the reference's ``model`` axis
-folded onto that card. ``mesh`` says so, and ``fits`` holds the peak
-against the card's 80 GB. The collective term is the data axis's gradient
-reduction reckoned for that grid (a ring all-reduce of the float32
-gradients over the replicas); nothing measures it. ``--grad-rs`` and
-``--seq-shard`` act on the ``model`` axis and are refused by name: they
-belong to the unported ``sharding/rules.py``.
+16), or (pod 2, data 16, model 16) with ``--multi-pod``, placing every
+argument by its sharding rules. The port runs data parallelism between
+processes and has no tensor-parallel ``model`` axis, so a row's step is one
+data replica's on one card: the global batch over pods x 16 replicas (at
+least one row), with the reference's ``model`` axis folded onto that card.
+``mesh`` says so, and ``fits`` holds the peak against the card's 80 GB.
+The collective term is the data axis's gradient reduction reckoned for
+that grid (a ring all-reduce of the float32 gradients over the replicas);
+nothing measures it. Beside it, ``sharded`` gives what one device of the
+row's ``reference_mesh`` would hold under the ported rules
+(``repro_torch.sharding``), placed as the reference's ``_compile`` places
+its arguments: the parameters by ``params_pspecs``, the optimizer state by
+``opt_state_pspecs``, the global batch by ``tokens_pspec`` and a decode
+cache by ``cache_pspecs``; its bytes, with no activations (the reference
+reads those from XLA's per-device memory analysis). ``--grad-rs`` and
+``--seq-shard`` act on the ``model`` axis at run time and are refused by
+name: the rules are ported, but the port has no tensor-parallel runtime to
+apply them.
 """
 from __future__ import annotations
 
@@ -85,6 +93,13 @@ from repro_torch.models.model import (
 )
 from repro_torch.optim.base import apply_updates, clip_by_global_norm
 from repro_torch.optim.factory import build_optimizer
+from repro_torch.sharding import (
+    cache_pspecs,
+    opt_state_pspecs,
+    params_pspecs,
+    sharded_bytes,
+    tokens_pspec,
+)
 
 Tensor = torch.Tensor
 
@@ -351,6 +366,34 @@ def build_step(cfg: ModelConfig, shape: InputShape, batch: int, seq: Optional[in
             (param_leaves(model), inputs["token"], inputs["cache"]))
 
 
+def sharded_figures(cfg: ModelConfig, shape: InputShape, params: Dict[str, Tensor],
+                    opt_state: Any, mesh_shape: Dict[str, int],
+                    seq: Optional[int] = None) -> Dict[str, Any]:
+    """Bytes one device of ``mesh_shape`` holds of a step's arguments under
+    the sharding rules, as the reference's ``_compile`` places them: the
+    parameters, the optimizer state (train), and the inputs at the shape's
+    global batch (tokens, labels and a vision prefix over the batch axes,
+    ``tokens_pspec``; a decode step's token replicated and its cache by
+    ``cache_pspecs``)."""
+    B = shape.global_batch
+    inputs = input_specs(cfg, shape, B, seq)
+    if shape.mode in ("train", "prefill"):
+        extra = 2 if cfg.num_codebooks > 1 else 1
+        in_specs = {k: tokens_pspec(B, mesh_shape, extra_dims=extra if k != "frontend" else 2)
+                    for k in inputs}
+    else:
+        in_specs = {"token": (), "pos": (),
+                    "cache": cache_pspecs(inputs["cache"], mesh_shape, stacked=cfg.scan_layers)}
+    p_bytes = sharded_bytes(params, params_pspecs(params, mesh_shape), mesh_shape)
+    o_bytes = 0
+    if opt_state is not None:
+        o_bytes = sharded_bytes(opt_state, opt_state_pspecs(opt_state, params, mesh_shape),
+                                mesh_shape)
+    i_bytes = sharded_bytes(inputs, in_specs, mesh_shape)
+    return {"mesh": dict(mesh_shape), "params_bytes": p_bytes, "opt_state_bytes": o_bytes,
+            "input_bytes": i_bytes, "total_bytes": p_bytes + o_bytes + i_bytes}
+
+
 def dryrun_one(
     arch: str,
     shape_name: str,
@@ -391,7 +434,12 @@ def dryrun_one(
     model, fn, args, held = build_step(cfg, shape, rows, S, optimizer,
                                        rotation or rotation_strategy(arch), microbatches,
                                        use_kernels)
-    n_total, n_active = param_counts(param_leaves(model), cfg)
+    params = param_leaves(model)
+    n_total, n_active = param_counts(params, cfg)
+    ref_mesh = {**axes, "model": MODEL_AXIS}
+    sharded = sharded_figures(cfg, shape, params, held[1] if shape.mode == "train" else None,
+                              ref_mesh, S)
+    del params
     res = trace_step(fn, args, held, count=extrapolate)
     del model, fn, args, held
 
@@ -409,7 +457,7 @@ def dryrun_one(
         "variant": variant,
         "status": "ok",
         "mesh": {**axes, "model": 1},
-        "reference_mesh": {**axes, "model": MODEL_AXIS},
+        "reference_mesh": ref_mesh,
         "grid": "one data replica on one card; the reference's model axis folded onto it",
         "mode": shape.mode,
         "batch": rows,
@@ -435,6 +483,7 @@ def dryrun_one(
         "peak_bytes_per_device": peak,
         "card_bytes": CARD_BYTES,
         "fits": peak <= CARD_BYTES,
+        "sharded": sharded,
     }
     if verbose:
         print(json.dumps(row), flush=True)
@@ -443,13 +492,16 @@ def dryrun_one(
 
 def refuse_sharding_flags(argv) -> None:
     """Exit naming ``--grad-rs`` / ``--seq-shard``: both act on the
-    tensor-parallel ``model`` axis, which the port does not have."""
+    tensor-parallel ``model`` axis at run time. The sharding rules are
+    ported (a row's ``sharded`` figures), but the port has no
+    tensor-parallel runtime to apply them."""
     for flag in SHARDING_FLAGS:
         if flag in argv:
             raise SystemExit(
-                f"{flag} is not ported: it acts on the tensor-parallel `model` axis of the "
-                "reference's mesh (repro/sharding/rules.py), which the port does not have; "
-                "a dry-run row is one data replica on one card")
+                f"{flag} is not supported: it shards the step over the tensor-parallel `model` "
+                "axis at run time; the port has the reference's sharding rules "
+                "(repro_torch.sharding, each row's \"sharded\" bytes) but no tensor-parallel "
+                "runtime to apply them, so a dry-run row's step is one data replica on one card")
 
 
 def main(argv=None):
