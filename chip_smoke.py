@@ -51,7 +51,14 @@
    power limit; B1-B3 and B4 timed at their one geometry. In-process, B5
    at paper_95m's leaves with each chunk must equal the default chunk's bit
    for bit, and with the cache named the next launch must take the cached
-   chunk.
+   chunk. ``analysis`` runs the static analyzer's matrix on the card
+   (``python -m repro_torch.analysis --no-hlo`` over the Adam and basis
+   rotation columns: every check passes, B1-B5 each launch, their launches
+   billed to tick scopes per tick); ``examples`` trains
+   ``examples/quickstart_torch.py`` 20 steps a optimizer on the card (B4
+   and B5 counted), its first 3 losses within the smoke tolerances of the
+   CPU's. The dry runs (the long-sequence phases read them) start on the
+   host right after the build.
 3. Drives the sim path through ``repro_torch.launch.train.main``: the
    full-width paper_95m model, 8-stage simulated staleness, basis-rotation
    Adam with ``--use-kernels``, for 12 steps. Checks that the losses are
@@ -194,22 +201,24 @@
    64) against the paths they replace: chunked GQA and MLA within 2e-4 of
    dense, the chunked cross-entropy within 1e-5 of the whole one, and the
    stacked model under both remat policies within 2e-5 of the per-layer
-   model (outputs and every gradient). Then qwen3_0_6b at full width and
-   depth, float32, stacked (``scan_layers=True``) under full remat with
+   model (outputs and every gradient). Then qwen3_0_6b at full width, 14
+   of its 28 layers (``LONG_LAYERS``, the script's time limit; 28 until PR
+   32), float32, stacked (``scan_layers=True``) under full remat with
    ``loss_chunk`` 2,048, at 32,768 tokens, through the dry run's step
    functions (``repro_torch.launch.dryrun``): ``long_context_train``, one
    basis-rotation step of ``make_train_step`` at batch 1 (B4 4 and B5 1
-   launches over the seven 28-layer leaves, B5 in place, B1-B3 none:
-   query-chunked attention is the no-kernel path), layers cut only if the
-   dry run's reckoning of the step passed 90% of the card;
+   launches over the seven 14-layer leaves, B5 in place, B1-B3 none:
+   query-chunked attention is the no-kernel path), more layers cut only if
+   the dry run's reckoning of the step passed 90% of the card;
    ``long_context_prefill``, ``make_prefill_step`` at the largest batch the
    dry run reckons under 90% of the card, at most 3 (``LONG_PREFILL_BATCH``,
    the script's time limit); ``long_context_decode``, one
    ``make_serve_step`` at position 32,767 of a stacked cache, batch cut the
    same way; each with its time, its peak beside the dry run's reckoned
-   peak for the same config and (batch, seq), and its launches. Meanwhile
-   three subprocesses that see no card run ``launch.dryrun --all`` and
-   ``launch.dryrun_pipeline`` under each schedule on the meta device;
+   peak for the same config and (batch, seq), and its launches. Since the
+   build, three subprocesses that see no card have run ``launch.dryrun
+   --all`` and ``launch.dryrun_pipeline`` under each schedule on the meta
+   device;
    ``dryrun`` waits for them and counts their rows' statuses (every
    process exits 0, a row for each of the 40 (arch, shape) pairs, no
    error, every ok row with its ``sharded`` bytes of one device of the
@@ -397,6 +406,9 @@ LONG_SEQ = 32_768
 # one step, the refresh step: the phase's time is set by (b)'s batch and by
 # this step's ~57 s (PERF.md §6), and the script must keep its time limit
 LONG_STEPS = 1
+# layers of the 28, cut for the script's time limit (the train step and the
+# prefill scale with depth: 67 s and 41 s at 28 layers, PERF.md §6, PR 32)
+LONG_LAYERS = 14
 # prefill rows, cut from the largest batch the reckoning fits under FIT_SHARE (7
 # at 28 layers) for the script's time limit
 LONG_PREFILL_BATCH = 3
@@ -404,7 +416,7 @@ LONG_OVERRIDES = {"dtype": "float32", "remat_policy": "full", "loss_chunk": 2048
 LONG_CHECK_TOL = 2e-4  # chunked attention against dense (tests/test_models.py:127)
 LONG_CE_TOL = 1e-5  # chunked cross-entropy against whole (tests/test_models.py:227, :232)
 LONG_STACK_TOL = 2e-5  # stacked against per-layer (tests/test_models.py:211)
-DRYRUN_TIMEOUT = 600  # seconds the meta-device dry runs may take
+DRYRUN_TIMEOUT = 900  # seconds the meta-device dry runs may take, from their start
 # peak device memory (GB) of the earlier paths before the optimizer state was
 # updated in place (chip_smoke.py on one H100 80GB HBM3 at 700 W, PERF.md §5):
 # the state is now updated in its own tensors, so none may grow past these
@@ -480,6 +492,14 @@ FLASH_INSTANTIATIONS = 24
 FLASH_WIDTHS = (48, 96)
 FLASH_WIDTH_HEADS = 6
 TUNE_TIMEOUT = 120  # seconds each ``python -m repro_torch.tune`` run may take
+# the static analyzer on the card (``python -m repro_torch.analysis --no-hlo``):
+# the Adam column, and basis rotation's for B4 and B5
+ANALYSIS_OPTIMIZERS = ("adam", "basis_rotation")
+# examples/quickstart_torch.py: steps on the card, of which the first are
+# held against the CPU (the smoke tolerances: Adam 1e-4, rotation 2e-3 on
+# the first two steps, 5e-2 on all)
+EXAMPLE_STEPS, EXAMPLE_CPU_STEPS = 20, 3
+EXAMPLE_TOL = {"adam": (1e-4, 1e-4), "basis_rotation": (2e-3, 5e-2)}
 
 
 T_START = time.perf_counter()
@@ -1111,6 +1131,91 @@ def tune_phase(torch, kadam, smi):
                                      for p in plans if p["kernel"] == "matmul"}}
 
 
+def analysis_phase(kernels, smi):
+    """The static analyzer's matrix on the card, as ``python -m
+    repro_torch.analysis --matrix smoke --no-hlo`` runs it over
+    ``ANALYSIS_OPTIMIZERS``: every one-process check of the base cells (on
+    the card the kernel path: B1-B3 in attention, B4 and B5 in basis
+    rotation's update), the precision cells with and without kernels, the
+    async-data cells, the scaling check (meta) and the lint. Fails on any
+    failed check and on a kernel of B1-B5 that never launched; reports the
+    launches billed to tick scopes, per tick, by cell."""
+    from repro_torch.analysis import runner
+
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    report = runner.run_matrix(optimizers=ANALYSIS_OPTIMIZERS, compile_hlo=False,
+                               verbose=False, device="cuda")
+    launches = read_counts(kernels)
+    rows = report["cells"] + report["precision"] + report["data_async"]
+    failed = [(r.get("schedule"), c["name"], c["detail"]) for r in rows + report["scaling"]
+              for c in r["checks"] if not c["passed"]]
+    if not report["passed"] or failed:
+        raise AssertionError(f"analysis: failed checks {failed[:8]}, lint {report['lint']}")
+    idle = [k for k, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"analysis: kernels never launched on the card: {idle}")
+
+    def tag(r):
+        return "/".join(str(r[k]) for k in ("schedule", "sync", "precision", "optimizer",
+                                            "topology") if k in r) + \
+            ("/kernels" if r.get("use_kernels") else "")
+
+    per_tick = {tag(r): {k: v for k, v in r["in_ticks_per_tick"].items() if v}
+                for r in rows if r.get("launches")}
+    outside = {tag(r): {k: v["outside"] for k, v in r["launches"].items() if v["outside"]}
+               for r in rows if r.get("launches")}
+    return {"phase": "analysis", "nvidia_smi": smi, "s": time.perf_counter() - t0,
+            "matrix_s": report["seconds"], "cells": len(rows),
+            "checks": sum(len(r["checks"]) for r in rows + report["scaling"]) + 1,
+            "launches": launches, "in_ticks_per_tick": per_tick,
+            "outside_ticks": outside,
+            "ticks": {tag(r): r["ticks"] for r in rows if r.get("launches")}}
+
+
+def examples_phase(torch, kernels, smi):
+    """``examples/quickstart_torch.py`` on the card: both optimizers for
+    ``EXAMPLE_STEPS`` steps from one draw of the weights, B4 and B5 in
+    basis rotation's steps; the first ``EXAMPLE_CPU_STEPS`` held against
+    the CPU's run of the same schedule within the smoke tolerances."""
+    import importlib.util
+
+    from repro_torch.kernels import adam_step as kadam
+    from repro_torch.launch.bench_matmul import path_groups
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    params = ex.initial_params(0, "cpu")
+    groups, leaves = path_groups(ex.CFG)
+    n = EXAMPLE_STEPS
+    want = {k: 0 for k in kernels}
+    want.update(matmul=n * sum(1 for g in groups if g),
+                adam_scale=n * -(-len(leaves) // kadam.MAX_LEAVES))
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    card = {name: ex.train(name, params, n, torch.device("cuda")) for name in ex.LABELS}
+    launches = read_counts(kernels)
+    card_s = time.perf_counter() - t0
+    if launches != want:
+        raise AssertionError(f"examples: kernel launches {launches}, expected {want}")
+    out = {"phase": "examples", "nvidia_smi": smi, "example": "examples/quickstart_torch.py",
+           "steps": n, "launches": launches, "card_s": card_s}
+    for name, losses in card.items():
+        cpu = ex.train(name, params, EXAMPLE_CPU_STEPS, "cpu", total_steps=n)
+        diffs = [abs(a - b) for a, b in zip(losses, cpu)]
+        first_tol, all_tol = EXAMPLE_TOL[name]
+        if not all(math.isfinite(x) for x in losses) or max(diffs[:2]) >= first_tol \
+                or max(diffs) >= all_tol:
+            raise AssertionError(f"examples {name}: card {losses[:EXAMPLE_CPU_STEPS]} "
+                                 f"against CPU {cpu}")
+        out[name] = {"losses": losses, "cpu_losses": cpu, "max_abs_diff": max(diffs),
+                     "final_10": sum(losses[-10:]) / len(losses[-10:])}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def check_flash_bf16(torch, kflash, peaks, path=FLASH_PATH):
     """B1-B3's bfloat16 entry points against their plain versions on the
     same bf16 inputs: the float32 check's cases (``flash_cases(path)``),
@@ -1487,7 +1592,7 @@ def fit_batch(reckon, cap, card_bytes):
 
 
 def run_long_context(torch, kernels, none, card_bytes):
-    """qwen3_0_6b at full width and depth, stacked (``scan_layers=True``)
+    """qwen3_0_6b at full width, ``LONG_LAYERS`` deep, stacked (``scan_layers=True``)
     under ``remat_policy="full"``, float32, at 32,768 tokens, through the dry
     run's step functions: (a) ``make_train_step`` with basis-rotation Adam
     (the arch's ``rotation_strategy``; B4 and B5 through the kernels,
@@ -1523,18 +1628,18 @@ def run_long_context(torch, kernels, none, card_bytes):
            "overrides": LONG_OVERRIDES, "rotation": [src, geom], "card_bytes": card_bytes,
            "reduced": {"train_batch": "1 of prefill_32k's 32 (one card)",
                        "train_steps": f"{LONG_STEPS} of 2 (the script's time limit)"}}
-    # (a) the train step: the reckoning first; whole layers are cut only if
-    # it does not fit
+    # (a) the train step: the reckoning first; more whole layers are cut
+    # only if it does not fit
     t0 = time.perf_counter()
-    layers = full.num_layers
+    layers = LONG_LAYERS
     r = reckon("train_4k", 1, layers)
     while r["peak_bytes_per_device"] > FIT_SHARE * card_bytes and layers > 1:
         layers -= 1
         r = reckon("train_4k", 1, layers)
     cfg = full.replace(num_layers=layers)
     out["layers"] = layers
-    if layers != full.num_layers:
-        out["reduced"]["layers"] = f"{layers} of {full.num_layers} (the reckoning)"
+    out["reduced"]["layers"] = (f"{layers} of {full.num_layers} (the script's time limit"
+                                f"{'' if layers == LONG_LAYERS else '; then the reckoning'})")
     train = {"reckon_s": time.perf_counter() - t0, "batch": 1,
              "reckoned_peak_gb": r["peak_bytes_per_device"] / 1e9,
              "reckoned_flops": r["flops"], "reckoned_hbm_bytes": r["hbm_bytes"]}
@@ -2703,6 +2808,10 @@ def main() -> int:
           "flash_ptxas": None if flash_ptxas is None else {
               flash_entry(k): v for k, v in flash_ptxas.items()}})
 
+    # the dry runs on the host (meta device, no card), one core each, behind
+    # every phase up to the long-sequence ones, which read them
+    dryruns = start_dryruns()
+
     # phase 2: each kernel against its plain version. B4 per shape as a
     # group of one, then as the grouped launches of the sim and SPMD paths
     # (K stages of L / K layers each)
@@ -2730,8 +2839,9 @@ def main() -> int:
     jcfg = get_config("jamba_v0_1_52b").replace(num_layers=fits["jamba"][0])
     jgroups, jadam_leaves = path_groups(jcfg)
     # the long-context train step's: qwen3_0_6b's seven rotated leaf kinds,
-    # each stacked over its 28 layers (one batched problem a leaf)
-    lcgroups, lcadam_leaves = path_groups(get_config(LONG_ARCH).replace(**LONG_OVERRIDES), 1)
+    # each stacked over its LONG_LAYERS layers (one batched problem a leaf)
+    lcgroups, lcadam_leaves = path_groups(get_config(LONG_ARCH).replace(
+        **LONG_OVERRIDES, num_layers=LONG_LAYERS), 1)
     mm_counts, smm_counts = product_counts(groups), product_counts(sgroups)
     check_s = {}  # host seconds of each of phase 2's checks
 
@@ -2879,6 +2989,12 @@ def main() -> int:
     # the tuner: B5's chunks timed on the card into a temporary cache
     torch.cuda.empty_cache()
     emit(tune_phase(torch, kadam, smi))
+
+    # the static analyzer's one-process checks and the quickstart example
+    torch.cuda.empty_cache()
+    emit(analysis_phase(kernels, smi))
+    torch.cuda.empty_cache()
+    emit(examples_phase(torch, kernels, smi))
 
     # phase 3: the sim path
     steps = int(MAIN_ARGS[MAIN_ARGS.index("--steps") + 1])
@@ -3096,9 +3212,8 @@ def main() -> int:
     # and backward, then decode, from one draw of the weights
     check_deepseek(torch, get_config)
 
-    # the long-sequence paths: the dry runs start on the host (meta device,
-    # no card) while qwen3_0_6b trains, prefills and decodes 32,768 tokens
-    dryruns = start_dryruns()
+    # the long-sequence paths: qwen3_0_6b trains, prefills and decodes
+    # 32,768 tokens; the dry runs (started after the build) are read after
     torch.cuda.empty_cache()
     emit({"phase": "long_context_check", **check_long_context_small(torch)})
     zero_counts(kernels)

@@ -35,7 +35,7 @@ class DtypePolicy:
     """
 
     allowed_float: Tuple[str, ...] = ("float32",)
-    forbidden: Tuple[str, ...] = ("float64",)
+    forbidden: Tuple[str, ...] = ("float64",)  # lint: allow-float64
     state_dtype: Optional[str] = "float32"
     require_present: Tuple[str, ...] = ()
 

@@ -78,8 +78,16 @@ GradFn = Callable[[Params, Params, Dict[str, Tensor]], Tuple[Tensor, Tuple[Param
 
 SCHEDULES = ("fill_drain", "1f1b")
 
+# The static analyzer's tick marker (``analysis.trace``): None unless an
+# audit records a step, so that a tick pays one test of a module global.
+# Called as ``TICK_HOOK(t, stage, num_stages, phase)`` when a stage starts
+# its ``"forward"`` or ``"backward"`` work of tick t, as ``TICK_HOOK(t,
+# None, num_stages, "handoff")`` when tick t hands its tensors on, and with
+# t None when the tick loop ends.
+TICK_HOOK: Optional[Callable[[Optional[int], Optional[int], int, Optional[str]], None]] = None
+
 # Structural invariants each schedule promises (the reference's table, read
-# by its static analyzer; the port's tests check the first and the last).
+# by the static analyzer, ``analysis.runner``).
 SCHEDULE_INVARIANTS = {
     "fill_drain": {
         "const_float_bytes_in_M": False,
@@ -111,6 +119,13 @@ def stash_slots(num_stages: int) -> int:
     ticks after stashing it, at most 2(K-1) (stage 0), so 2K - 1 slots
     suffice and a slot is overwritten only after its reader is done."""
     return 2 * num_stages - 1
+
+
+def seeds_from_head(stage: int, num_stages: int) -> bool:
+    """Whether ``stage`` runs the vocab head on its fresh forward output
+    and seeds its 1F1B backward from it: the last stage only, which the
+    reference gates with ``lax.cond``."""
+    return stage == num_stages - 1
 
 
 def _leaves(params: Params) -> Params:
@@ -221,6 +236,8 @@ def _fill_drain_forward(cfg: ModelConfig, block, K: int, M: int, slab: StageSlab
                 m = t - k
                 if not 0 <= m < M:
                     continue  # bubble: the reference computes zeros here
+                if TICK_HOOK is not None:
+                    TICK_HOOK(t, k, K, "forward")
                 x = (emb[m] if first else x_in[m]) if k == k0 else recv[k]
                 h = stage_apply(block, cast_params(stage_w[k - k0], cdt), x)
                 if k == k1 - 1:
@@ -228,6 +245,8 @@ def _fill_drain_forward(cfg: ModelConfig, block, K: int, M: int, slab: StageSlab
                 else:
                     sent[k + 1] = h  # ppermute to the next stage
             recv = sent
+            if TICK_HOOK is not None:
+                TICK_HOOK(t, None, K, "handoff")
             # the tick boundary: stage k1 - 1's output out, stage k0's next input in
             sends, recvs = [], []
             m_out, m_in = t - (k1 - 1), t + 1 - k0
@@ -241,6 +260,8 @@ def _fill_drain_forward(cfg: ModelConfig, block, K: int, M: int, slab: StageSlab
                 x_in[m_in].requires_grad_(True)
             if stats is not None:
                 stats.saved_bytes.append(saved.live)
+        if TICK_HOOK is not None:
+            TICK_HOOK(None, None, K, None)
         if last:
             loss = cross_entropy(head_logits(sh, cfg, torch.stack(outs)), labels)
     if stats is not None:
@@ -325,60 +346,92 @@ def _1f1b_grad(cfg: ModelConfig, K: int, M: int, slab: StageSlab,
         if stats is not None:
             stats.start()
 
+        # each stage's work of a tick is a call, so that nothing it made
+        # outlives it but what it hands on: the held bytes are the same at
+        # every tick of the steady state, whatever M
+        def forward(k: int, t: int, m: int, sent_f: Dict[int, Tensor], sends: list):
+            """Stage k's forward of microbatch m, stashing its input and
+            handing its output on; on the last stage (``seeds_from_head``)
+            the vocab head's backward seed, ce_m / M's gradient."""
+            j = k - k0
+            with torch.no_grad():
+                x_in = embed(shared, cfg, tokens[m]) if k == 0 else fwd_recv[j]
+                stash[j][t % Q].copy_(x_in)
+                h = stage_apply(block, {p: w[j] for p, w in stacked.items()}, x_in)
+            if k + 1 < k1:
+                sent_f[k + 1] = h  # ppermute to the next stage
+            elif k < K - 1:
+                sends.append((h, slab.next_rank))  # across the slab's edge
+            if not seeds_from_head(k, K):
+                return None
+            with saved.hooks():
+                sh = _leaves(shared)
+                hh = h.detach().requires_grad_(True)
+                ce = cross_entropy(head_logits(sh, cfg, hh), labels[m])
+                dy, *dsh = torch.autograd.grad(
+                    ce, [hh, *sh.values()], grad_outputs=torch.full_like(ce, 1.0 / M),
+                    allow_unused=True)
+            return dy, sh, dsh, ce.detach()
+
+        def backward(k: int, t: int, m: int, seed, sent_b: Dict[int, Tensor],
+                     sends: list) -> None:
+            """Stage k's backward of microbatch m, recomputed from its
+            stashed input, handing its input gradient back (stage 0's is the
+            embedding's)."""
+            j = k - k0
+            with saved.hooks():
+                if k == K - 1:
+                    # the last stage seeds from this tick's fresh output
+                    dy, sh, dsh, ce = seed
+                    _accumulate(g_shared, sh, dsh)
+                    loss.add_(ce / M)
+                else:
+                    dy = bwd_recv[j]
+                wk = _leaves({p: w[j] for p, w in stacked.items()})
+                x_saved = stash[j][(t - 2 * (K - 1 - k)) % Q].detach().requires_grad_(True)
+                h_re = stage_apply(block, wk, x_saved)
+                dx, *dw = torch.autograd.grad(h_re, [x_saved, *wk.values()], grad_outputs=dy)
+                for p, g in zip(wk, dw):
+                    g_stage[p][j] += g
+                if k > k0:
+                    sent_b[k - 1] = dx  # ppermute back to the previous stage
+                elif k > 0:
+                    sends.append((dx, slab.prev_rank))  # across the slab's edge
+                else:
+                    sh = _leaves(shared)
+                    x0 = embed(sh, cfg, tokens[m])
+                    _accumulate(g_shared, sh, torch.autograd.grad(
+                        x0, list(sh.values()), grad_outputs=dx, allow_unused=True))
+
         for t in range(M + 2 * (K - 1)):
             sent_f: Dict[int, Tensor] = {}
             sent_b: Dict[int, Tensor] = {}
             sends = []
             for k in range(k0, k1):
-                j = k - k0
-                # forward: stage k runs microbatch t - k
-                m_f = t - k
-                h = None
+                # forward: stage k runs microbatch t - k; backward: microbatch
+                # t - (2(K-1) - k), on the last stage the same one, seeded
+                # by its forward. The others run their backward first: the
+                # two are independent (other microbatches, other stash
+                # slots), and this way no forward output waits through a
+                # backward, so a tick holds the same bytes whatever M
+                m_f, m_b = t - k, t - (2 * (K - 1) - k)
+                last = k == K - 1
+                if not last and 0 <= m_b < M:
+                    if TICK_HOOK is not None:
+                        TICK_HOOK(t, k, K, "backward")
+                    backward(k, t, m_b, None, sent_b, sends)
+                seed = None
                 if 0 <= m_f < M:
-                    with torch.no_grad():
-                        x_in = embed(shared, cfg, tokens[m_f]) if k == 0 else fwd_recv[j]
-                        stash[j][t % Q].copy_(x_in)
-                        h = stage_apply(block, {p: w[j] for p, w in stacked.items()}, x_in)
-                    if k + 1 < k1:
-                        sent_f[k + 1] = h  # ppermute to the next stage
-                    elif k < K - 1:
-                        sends.append((h, slab.next_rank))  # across the slab's edge
-                # backward: stage k runs microbatch t - (2(K-1) - k)
-                m_b = t - (2 * (K - 1) - k)
-                if not 0 <= m_b < M:
-                    continue
-                with saved.hooks():
-                    if k == K - 1:
-                        # the last stage seeds its backward from this tick's
-                        # fresh output (m_b == m_f here) with ce_m / M
-                        sh = _leaves(shared)
-                        hh = h.detach().requires_grad_(True)
-                        ce = cross_entropy(head_logits(sh, cfg, hh), labels[m_b])
-                        dy, *dsh = torch.autograd.grad(
-                            ce, [hh, *sh.values()], grad_outputs=torch.full_like(ce, 1.0 / M),
-                            allow_unused=True)
-                        _accumulate(g_shared, sh, dsh)
-                        loss += ce.detach() / M
-                    else:
-                        dy = bwd_recv[j]
-                    # recompute-backward from the stashed input
-                    wk = _leaves({p: w[j] for p, w in stacked.items()})
-                    x_saved = stash[j][(t - 2 * (K - 1 - k)) % Q].detach().requires_grad_(True)
-                    h_re = stage_apply(block, wk, x_saved)
-                    dx, *dw = torch.autograd.grad(h_re, [x_saved, *wk.values()],
-                                                  grad_outputs=dy)
-                    for p, g in zip(wk, dw):
-                        g_stage[p][j] += g
-                    if k > k0:
-                        sent_b[k - 1] = dx  # ppermute back to the previous stage
-                    elif k > 0:
-                        sends.append((dx, slab.prev_rank))  # across the slab's edge
-                    else:
-                        # stage 0's input gradient is the embedding's
-                        sh = _leaves(shared)
-                        x0 = embed(sh, cfg, tokens[m_b])
-                        _accumulate(g_shared, sh, torch.autograd.grad(
-                            x0, list(sh.values()), grad_outputs=dx, allow_unused=True))
+                    if TICK_HOOK is not None:
+                        TICK_HOOK(t, k, K, "forward")
+                    seed = forward(k, t, m_f, sent_f, sends)
+                if last and 0 <= m_b < M:
+                    if TICK_HOOK is not None:
+                        TICK_HOOK(t, k, K, "backward")
+                    backward(k, t, m_b, seed, sent_b, sends)
+                seed = None
+            if TICK_HOOK is not None:
+                TICK_HOOK(t, None, K, "handoff")
             for k, x in sent_f.items():
                 fwd_recv[k - k0].copy_(x)
             for k, x in sent_b.items():
@@ -393,6 +446,8 @@ def _1f1b_grad(cfg: ModelConfig, K: int, M: int, slab: StageSlab,
             slab.exchange(sends, recvs)
             if stats is not None:
                 stats.saved_bytes.append(saved.live)
+        if TICK_HOOK is not None:
+            TICK_HOOK(None, None, K, None)
 
         if stats is not None:
             stats.stash_slots = Q

@@ -316,6 +316,18 @@ class SpmdEngine(PipelineEngine):
                 tr.group(g)
         self._data_group = next(g for g in groups if me in g)
         self._world = tuple(range(P))
+        # a deferred reduction over processes: the data axis's sums leave the
+        # step, and the stage axis's (the processes that hold the same data
+        # shards: each holds its part of the loss and the shared gradients)
+        # stay in it
+        self._defer = self._data_eff and len(self._data_group) > 1
+        if self._defer:
+            stage_groups = sorted({tuple(p for p, s in enumerate(slabs)
+                                         if s.data_shards == x.data_shards) for x in slabs})
+            for g in stage_groups:
+                if 1 < len(g) < P:
+                    tr.group(g)
+            self._stage_group = next(g for g in stage_groups if me in g)
         self._slabs = slabs
         self.grad_fn = make_schedule_grad(
             self.cfg, self.num_stages, self.num_microbatches, self.schedule,
@@ -407,16 +419,34 @@ class SpmdEngine(PipelineEngine):
                         g.div_(R)
         return loss, (gs, gsh)
 
+    def _reduce_deferred(self, loss: Tensor, grads: Tuple[Params, Params]):
+        """``_reduce`` with its data-axis sums left in flight: the stage
+        axis's sum of the loss's and the shared gradients' parts now, then
+        the data group's sums started without waiting, the loss's first (the
+        step waits for it at its end, not for the gradients'). Returns the
+        loss's ``PendingSum`` and the gradients' ``_PendingReduction``."""
+        gs, gsh = grads
+        with torch.no_grad():
+            loss = loss.reshape(1)
+            self.transport.sum_([loss, *gsh.values()], self._stage_group)
+            loss_sum = self.transport.sum_async([loss], self._data_group)
+            grad_sum = self.transport.sum_async([*gs.values(), *gsh.values()], self._data_group)
+        return loss_sum, _PendingReduction(grad_sum, gs, gsh, self.topology.data_shards)
+
     def _global_norm(self, gs: Params, gsh: Params) -> Tensor:
         """The norm of the whole gradient from this process's slab: each
         stacked leaf's sum of squares over the processes (one process of
         each data group counts its slab), the shared leaves' counted once,
         added in the single-process leaf order (``optim.base.global_norm``'s
-        bits in one process)."""
+        bits in one process). A deferred reduction is the same on every
+        data replica, so there the sum runs over the stage axis alone."""
         sq = torch.stack([torch.sum(torch.square(g.float())) for g in gs.values()])
-        if distributed.process_index() != self._data_group[0]:
-            sq.zero_()
-        self.transport.sum_([sq], self._world)
+        if self._defer:
+            self.transport.sum_([sq], self._stage_group)
+        else:
+            if distributed.process_index() != self._data_group[0]:
+                sq.zero_()
+            self.transport.sum_([sq], self._world)
         terms = [*sq.unbind(), *(torch.sum(torch.square(g.float())) for g in gsh.values())]
         return torch.sqrt(sum(terms))
 
@@ -426,13 +456,22 @@ class SpmdEngine(PipelineEngine):
 
     def step(self, state: EngineState, batch: Dict, t: int) -> Tuple[EngineState, Any, Dict]:
         stacked, shared = state.params
-        loss, (gs, gsh) = self._fresh_grads(stacked, shared, self._shape_batch(batch))
-        fifo = None
+        batch = self._shape_batch(batch)
+        fifo = loss_sum = None
+        if self._defer:
+            # the data group's sums of this step's local gradients go in
+            # flight into the FIFO; the one of D steps ago is waited for
+            loss_sum, fresh = self._reduce_deferred(
+                *self.local_grad_fn(stacked, shared, batch))
+        else:
+            loss, fresh = self._fresh_grads(stacked, shared, batch)
         if self._data_eff:
             # enqueue this step's reduction; apply the one of D steps ago
             fifo = list(state.data_fifo)
-            fifo.append((gs, gsh))
-            gs, gsh = fifo.pop(0)
+            fifo.append(fresh)
+            gs, gsh = _settled(fifo.pop(0))
+        else:
+            gs, gsh = fresh
         grads = opt_leaves(gs, gsh)
         if self.grad_clip:
             # the step's own gradients are scaled where they lie; a popped
@@ -448,6 +487,8 @@ class SpmdEngine(PipelineEngine):
                 shared = {k: v.clone() for k, v in shared.items()}
                 params = opt_leaves(stacked, shared)
             apply_updates(params, updates)  # in place: the step's stacked and shared tensors
+        if loss_sum is not None:
+            loss = loss_sum.wait()[0][0] / self.topology.data_shards
         return EngineState((stacked, shared), opt_state, data_fifo=fifo), loss, {"ce": loss}
 
     def canonical_params(self, state: EngineState) -> Optional[Params]:
@@ -486,7 +527,7 @@ class SpmdEngine(PipelineEngine):
         resumed run applies the same reductions."""
         tree = (stacked_to_numpy(*state.params), opt_state_to_numpy(state.opt_state))
         if self._data_eff:
-            tree += (fifo_to_numpy(state.data_fifo),)
+            tree += (fifo_to_numpy(_settle_fifo(state)),)
         return tree
 
     def load_state(self, tree: Any) -> EngineState:
@@ -541,7 +582,7 @@ class SpmdEngine(PipelineEngine):
         from repro_torch.checkpoint.ckpt import snapshot_sharded, write_sharded_checkpoint
 
         axes = stage_shard_axes(*state.params, state.opt_state,
-                                data_fifo=state.data_fifo if self._data_eff else None)
+                                data_fifo=_settle_fifo(state) if self._data_eff else None)
         kw, owned = {}, None
         if self.num_processes > 1:
             # this process writes the shards it owns; the main one the manifest
@@ -558,3 +599,34 @@ class SpmdEngine(PipelineEngine):
             write_sharded_checkpoint(path, snapshot, step=step, meta=full_meta, **kw)
 
         return write
+
+
+class _PendingReduction:
+    """A FIFO entry whose data-group sum is still in flight: the local
+    gradients ``(gs, gsh)`` that the ``PendingSum`` writes the sums into,
+    divided by the replica count R once waited for."""
+
+    def __init__(self, pending, gs: Params, gsh: Params, replicas: int):
+        self.pending, self.grads, self.replicas = pending, (gs, gsh), replicas
+
+    def result(self) -> Tuple[Params, Params]:
+        if self.pending is not None:
+            self.pending.wait()
+            self.pending = None
+            with torch.no_grad():
+                for d in self.grads:
+                    for g in d.values():
+                        g.div_(self.replicas)
+        return self.grads
+
+
+def _settled(entry) -> Tuple[Params, Params]:
+    """A FIFO entry's ``(g_stacked, g_shared)``, waiting for its sums."""
+    return entry.result() if isinstance(entry, _PendingReduction) else entry
+
+
+def _settle_fifo(state: EngineState) -> list:
+    """Wait for every sum in flight in ``state.data_fifo`` and keep the
+    results in place of the pending entries; returns the FIFO."""
+    state.data_fifo[:] = [_settled(e) for e in state.data_fifo]
+    return state.data_fifo

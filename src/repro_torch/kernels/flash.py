@@ -294,12 +294,21 @@ def launched_blocks() -> dict:
     return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), grids))
 
 
+# The static analyzer's call counter (``analysis.trace``): None unless an
+# audit records a step. Called as ``CALL_HOOK(ctx, "forward")`` before B1
+# and ``CALL_HOOK(ctx, "backward")`` before B2 and B3, on the CPU (plain
+# versions) as on the card.
+CALL_HOOK = None
+
+
 class FlashAttention(torch.autograd.Function):
     """O = flash_fwd(q, k, v); the backward is B2 and B3. Saves q, k, v, O, L."""
 
     @staticmethod
     def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
                 window: Optional[int], scale: Optional[float] = None) -> Tensor:
+        if CALL_HOOK is not None:
+            CALL_HOOK(ctx, "forward")
         o, L = flash_fwd(q, k, v, causal=causal, window=window, scale=scale)
         ctx.save_for_backward(q, k, v, o, L)
         ctx.causal, ctx.window, ctx.scale = causal, window, scale
@@ -307,6 +316,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do: Tensor):
+        if CALL_HOOK is not None:
+            CALL_HOOK(ctx, "backward")
         q, k, v, o, L = ctx.saved_tensors
         do = do.contiguous()
         D = (do.float() * o.float()).sum(dim=-1)

@@ -252,11 +252,14 @@ class Transport:
     arrives: gloo's ``send`` / ``recv`` take CPU tensors only. Otherwise the
     tensors go as they are (NCCL device to device, or gloo on the CPU).
     ``bytes_sent`` counts the payload this rank sent, point to point and
-    into sums alike; the engine reads it per step."""
+    into sums alike; the engine reads it per step. ``recorder``, None unless
+    an audit sets one (``analysis.collectives.TransportRecorder``), logs
+    every exchange and every sum that communicates."""
 
     def __init__(self, backend: str, device: torch.device, staged: bool):
         self.backend, self.device, self.staged = backend, device, staged
         self.bytes_sent = 0
+        self.recorder = None
         self._groups: Dict[Tuple[int, ...], object] = {}
 
     def group(self, ranks: Sequence[int]):
@@ -288,6 +291,8 @@ class Transport:
 
         if not sends and not recvs:
             return
+        if self.recorder is not None:
+            self.recorder.exchange(sends, recvs)
         ops, landing, tags = [], [], {}
         for x, dst in sends:
             out = self._out(x)
@@ -308,19 +313,43 @@ class Transport:
     def sum_(self, tensors: Sequence[torch.Tensor], ranks: Sequence[int]) -> None:
         """Sum each tensor over ``ranks`` in place (one flat buffer a call).
         A rank outside ``ranks`` must not call it; a group of one returns."""
+        self.sum_async(tensors, ranks, _deferred=False).wait()
+
+    def sum_async(self, tensors: Sequence[torch.Tensor], ranks: Sequence[int],
+                  _deferred: bool = True) -> "PendingSum":
+        """Start ``sum_(tensors, ranks)`` without waiting for it: the sums
+        land in the tensors when the returned ``PendingSum`` is waited for,
+        and until then nothing may read or write them."""
         import torch
         import torch.distributed as dist
 
         if len(ranks) == 1 or not tensors:
-            return
+            return PendingSum(None, None, tensors, self.device)
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
         flat = flat.cpu() if self.staged else flat
         self.bytes_sent += flat.numel() * flat.element_size()
-        dist.all_reduce(flat, group=self.group(ranks))
-        if self.staged:
-            flat = flat.to(self.device)
-        at = 0
-        for t in tensors:
-            n = t.numel()
-            t.copy_(flat[at:at + n].view(t.shape))
-            at += n
+        if self.recorder is not None:
+            self.recorder.sum_(ranks, flat.numel() * flat.element_size(), deferred=_deferred)
+        work = dist.all_reduce(flat, group=self.group(ranks), async_op=True)
+        return PendingSum(work, flat, tensors, self.device)
+
+
+class PendingSum:
+    """A sum over ranks in flight (``Transport.sum_async``)."""
+
+    def __init__(self, work, flat: Optional["torch.Tensor"], tensors: Sequence["torch.Tensor"],
+                 device: "torch.device"):
+        self._work, self._flat, self.tensors, self._device = work, flat, list(tensors), device
+
+    def wait(self) -> List["torch.Tensor"]:
+        """Wait for the sum and write it into the tensors (once); returns them."""
+        if self._work is not None:
+            self._work.wait()
+            flat = self._flat.to(self._device)
+            at = 0
+            for t in self.tensors:
+                n = t.numel()
+                t.copy_(flat[at:at + n].view(t.shape))
+                at += n
+            self._work = self._flat = None
+        return self.tensors

@@ -81,7 +81,7 @@ def _terminate(procs: Sequence[subprocess.Popen], sig=signal.SIGTERM) -> None:
                 pass
 
 
-def _wait_all(procs: Sequence[subprocess.Popen], deadline: float) -> bool:
+def wait_all(procs: Sequence[subprocess.Popen], deadline: float) -> bool:
     """True iff every process exited 0 before ``deadline``."""
     while time.time() < deadline:
         codes = [p.poll() for p in procs]
@@ -97,9 +97,12 @@ def _wait_all(procs: Sequence[subprocess.Popen], deadline: float) -> bool:
     return False
 
 
-def launch_phase(num_processes: int, train_args: Sequence[str]) -> List[subprocess.Popen]:
+def launch_phase(num_processes: int, train_args: Sequence[str],
+                 module: str = "repro_torch.launch.train") -> List[subprocess.Popen]:
+    """Start ``num_processes`` ranks of ``python -m module train_args``
+    under the environment contract, with a fresh coordinator port."""
     coordinator = f"127.0.0.1:{free_port()}"
-    return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *train_args],
+    return [subprocess.Popen([sys.executable, "-m", module, *train_args],
                              env=worker_env(num_processes, i, coordinator))
             for i in range(num_processes)]
 
@@ -177,10 +180,10 @@ def main(argv=None) -> int:
                 break
             time.sleep(0.2)
         _terminate(procs)
-        _wait_all(procs, min(time.time() + 10, deadline))
+        wait_all(procs, min(time.time() + 10, deadline))
         phase_ok = True  # an interrupted phase is the scenario, not a failure
     else:
-        phase_ok = _wait_all(procs, deadline)
+        phase_ok = wait_all(procs, deadline)
         print(f"[spawn] phase 1 {'ok' if phase_ok else 'FAILED'}", flush=True)
 
     if not args.resume_procs:
@@ -198,7 +201,7 @@ def main(argv=None) -> int:
             [sys.executable, "-m", "repro_torch.launch.train", *resume_args], env=env)]
     else:
         procs2 = launch_phase(args.resume_procs, resume_args)
-    ok = _wait_all(procs2, deadline)
+    ok = wait_all(procs2, deadline)
     print(f"[spawn] phase 2 {'ok' if ok else 'FAILED'}", flush=True)
     return 0 if ok and phase_ok else 1
 
